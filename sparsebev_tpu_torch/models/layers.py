@@ -1,0 +1,119 @@
+"""Neural building blocks (counterpart of ``sparsebev_tpu/models/layers.py``).
+
+Parameters stay fp32, as in the JAX package; a module given a bf16 input
+computes in bf16 with its weights cast to bf16 (the flax ``dtype=``
+semantics). LayerNorm statistics and affine stay fp32 and the result is
+cast back to the input dtype. Attention logits and softmax are fp32.
+
+Casts of parameters are cached per module and rebuilt when a parameter
+changes (its storage or its in-place version counter).
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Dict, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+
+class CastCache:
+    """Parameter casts computed once and reused until the parameter changes."""
+
+    def __init__(self):
+        self._cache: Dict[str, Tuple[tuple, torch.Tensor]] = {}
+
+    def get(self, name: str, t: Optional[torch.Tensor], dtype: torch.dtype):
+        if t is None or t.dtype == dtype:
+            return t
+        key = (dtype, t.device, t.data_ptr(), t._version)
+        hit = self._cache.get(name)
+        if hit is None or hit[0] != key:
+            with torch.no_grad():
+                hit = (key, t.detach().to(dtype))
+            self._cache[name] = hit
+        return hit[1]
+
+
+class Linear(nn.Linear):
+    """nn.Linear that computes in its input's dtype."""
+
+    def __init__(self, *args, **kwargs):
+        super().__init__(*args, **kwargs)
+        self._casts = CastCache()
+
+    def forward(self, x):
+        return F.linear(x, self._casts.get("weight", self.weight, x.dtype),
+                        self._casts.get("bias", self.bias, x.dtype))
+
+
+class LayerNorm(nn.LayerNorm):
+    """LayerNorm over the last dim with fp32 statistics and affine; returns
+    the input dtype."""
+
+    def __init__(self, normalized_shape, eps: float = 1e-5):
+        super().__init__(normalized_shape, eps=eps)
+
+    def forward(self, x):
+        return F.layer_norm(x.float(), self.normalized_shape, self.weight,
+                            self.bias, self.eps).to(x.dtype)
+
+
+class _AttentionCore(nn.Module):
+    """torch nn.MultiheadAttention's parameters (packed ``in_proj``, ``out_proj``)."""
+
+    def __init__(self, embed_dims: int):
+        super().__init__()
+        self.in_proj_weight = nn.Parameter(torch.empty(3 * embed_dims,
+                                                       embed_dims))
+        self.in_proj_bias = nn.Parameter(torch.zeros(3 * embed_dims))
+        self.out_proj = Linear(embed_dims, embed_dims)
+        nn.init.xavier_uniform_(self.in_proj_weight)
+        self._casts = CastCache()
+
+
+class MultiheadAttention(nn.Module):
+    """mmcv MultiheadAttention (batch-first) at inference: packed qkv
+    projection, an additive float mask ``[B*H, Q, K]`` on the fp32 logits,
+    fp32 softmax, and the residual ``query + attn_out``."""
+
+    def __init__(self, embed_dims: int, num_heads: int):
+        super().__init__()
+        self.embed_dims = embed_dims
+        self.num_heads = num_heads
+        self.attn = _AttentionCore(embed_dims)
+
+    def forward(self, query, attn_mask=None):
+        c, h = self.embed_dims, self.num_heads
+        hd = c // h
+        b, q_len, _ = query.shape
+        core = self.attn
+        w = core._casts.get("in_proj_weight", core.in_proj_weight, query.dtype)
+        bias = core._casts.get("in_proj_bias", core.in_proj_bias, query.dtype)
+        qkv = F.linear(query, w, bias)                        # [B, Q, 3C]
+        qh, kh, vh = (t.reshape(b, q_len, h, hd).transpose(1, 2)
+                      for t in qkv.split(c, dim=-1))          # [B, H, Q, hd]
+        logits = torch.matmul(qh.float(), kh.float().transpose(-1, -2))
+        logits = logits / math.sqrt(hd)
+        if attn_mask is not None:
+            logits = logits + attn_mask.float().reshape(b, h, q_len, q_len)
+        attn = torch.softmax(logits, dim=-1)
+        out = torch.matmul(attn.to(query.dtype), vh)          # [B, H, Q, hd]
+        out = out.transpose(1, 2).reshape(b, q_len, c)
+        return query + core.out_proj(out)
+
+
+class FFN(nn.Module):
+    """mmcv FFN at inference: Linear -> ReLU -> Linear, plus the residual
+    (keys ``layers.0.0`` and ``layers.1``)."""
+
+    def __init__(self, embed_dims: int, feedforward_channels: int = 512):
+        super().__init__()
+        self.layers = nn.Sequential(
+            nn.Sequential(Linear(embed_dims, feedforward_channels), nn.ReLU()),
+            Linear(feedforward_channels, embed_dims))
+
+    def forward(self, x):
+        return x + self.layers(x)

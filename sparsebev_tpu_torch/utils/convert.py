@@ -1,0 +1,131 @@
+"""Carry the JAX package's weights into the port.
+
+The port's modules use the reference state-dict key names (``img_backbone.*``,
+``img_neck.*``, ``pts_bbox_head.*``), so :func:`state_dict_from_jax` is the
+inverse of the JAX package's torch-checkpoint porting
+(``utils/checkpoint_io.py::_port_resnet``, ``_port_fpn``,
+``_port_sparsebev_head``): Linear kernels ``[in, out]`` are transposed, conv
+kernels go from HWIO to OIHW, ``in_proj_weight`` is transposed, and the BN
+``scale/bias`` params and ``mean/var`` statistics become
+``weight/bias/running_mean/running_var``.
+"""
+
+from __future__ import annotations
+
+import re
+from collections import OrderedDict
+from typing import Any, Dict
+
+import numpy as np
+import torch
+
+_HEAD = "pts_bbox_head."
+_LAYER = _HEAD + "transformer.decoder.decoder_layer."
+
+
+def _t(x) -> torch.Tensor:
+    return torch.from_numpy(np.array(x, copy=True))
+
+
+def _conv(sd, dst, kernel, bias=None):
+    sd[f"{dst}.weight"] = _t(np.transpose(np.asarray(kernel), (3, 2, 0, 1)))
+    if bias is not None:
+        sd[f"{dst}.bias"] = _t(bias)
+
+
+def _bn(sd, dst, p, s):
+    sd[f"{dst}.weight"] = _t(p["scale"])
+    sd[f"{dst}.bias"] = _t(p["bias"])
+    sd[f"{dst}.running_mean"] = _t(s["mean"])
+    sd[f"{dst}.running_var"] = _t(s["var"])
+
+
+def _linear(sd, dst, p):
+    lin = p["linear"]
+    sd[f"{dst}.weight"] = _t(np.transpose(np.asarray(lin["kernel"])))
+    if "bias" in lin:
+        sd[f"{dst}.bias"] = _t(lin["bias"])
+
+
+def _ln(sd, dst, p):
+    sd[f"{dst}.weight"] = _t(p["scale"])
+    sd[f"{dst}.bias"] = _t(p["bias"])
+
+
+def _resnet(sd, params, stats, prefix="img_backbone."):
+    _conv(sd, f"{prefix}conv1", params["conv1"]["kernel"])
+    _bn(sd, f"{prefix}bn1", params["bn1"], stats["bn1"])
+    block_re = re.compile(r"^layer(\d+)_(\d+)$")
+    for name in params:
+        m = block_re.match(name)
+        if not m:
+            continue
+        dst = f"{prefix}layer{m.group(1)}.{m.group(2)}"
+        p, s = params[name], stats[name]
+        for j in (1, 2, 3):
+            _conv(sd, f"{dst}.conv{j}", p[f"conv{j}"]["kernel"])
+            _bn(sd, f"{dst}.bn{j}", p[f"bn{j}"], s[f"bn{j}"])
+        if "downsample_conv" in p:
+            _conv(sd, f"{dst}.downsample.0", p["downsample_conv"]["kernel"])
+            _bn(sd, f"{dst}.downsample.1", p["downsample_bn"],
+                s["downsample_bn"])
+
+
+def _fpn(sd, params, prefix="img_neck."):
+    i = 0
+    while f"lateral_conv{i}" in params:
+        for src, dst in ((f"lateral_conv{i}", f"lateral_convs.{i}"),
+                         (f"fpn_conv{i}", f"fpn_convs.{i}")):
+            _conv(sd, f"{prefix}{dst}.conv", params[src]["kernel"],
+                  params[src].get("bias"))
+        i += 1
+
+
+def _head(sd, params):
+    sd[f"{_HEAD}init_query_bbox.weight"] = _t(params["init_query_bbox"])
+    sd[f"{_HEAD}label_enc.weight"] = _t(params["label_enc"]["embedding"])
+    lay = params["transformer"]["decoder_layer"]
+    _linear(sd, f"{_LAYER}position_encoder.0", lay["pos_fc1"])
+    _ln(sd, f"{_LAYER}position_encoder.1", lay["pos_ln1"])
+    _linear(sd, f"{_LAYER}position_encoder.3", lay["pos_fc2"])
+    _ln(sd, f"{_LAYER}position_encoder.4", lay["pos_ln2"])
+    sa = lay["self_attn"]
+    _linear(sd, f"{_LAYER}self_attn.gen_tau", sa["gen_tau"])
+    att = sa["attention"]
+    attn = f"{_LAYER}self_attn.attention.attn"
+    sd[f"{attn}.in_proj_weight"] = _t(
+        np.transpose(np.asarray(att["in_proj_weight"])))
+    sd[f"{attn}.in_proj_bias"] = _t(att["in_proj_bias"])
+    _linear(sd, f"{attn}.out_proj", att["out_proj"])
+    for name in ("sampling_offset", "scale_weights"):
+        _linear(sd, f"{_LAYER}sampling.{name}", lay["sampling"][name])
+    for name in ("parameter_generator", "out_proj"):
+        _linear(sd, f"{_LAYER}mixing.{name}", lay["mixing"][name])
+    _linear(sd, f"{_LAYER}ffn.layers.0.0", lay["ffn"]["fc1"])
+    _linear(sd, f"{_LAYER}ffn.layers.1", lay["ffn"]["fc2"])
+    for i in (1, 2, 3):
+        _ln(sd, f"{_LAYER}norm{i}", lay[f"norm{i}"])
+    n_cls = sum(1 for k in lay if re.fullmatch(r"cls_fc\d+", k))
+    for i in range(n_cls):
+        _linear(sd, f"{_LAYER}cls_branch.{3 * i}", lay[f"cls_fc{i}"])
+        _ln(sd, f"{_LAYER}cls_branch.{3 * i + 1}", lay[f"cls_ln{i}"])
+    _linear(sd, f"{_LAYER}cls_branch.{3 * n_cls}", lay["cls_out"])
+    n_reg = sum(1 for k in lay if re.fullmatch(r"reg_fc\d+", k))
+    for i in range(n_reg):
+        _linear(sd, f"{_LAYER}reg_branch.{2 * i}", lay[f"reg_fc{i}"])
+    _linear(sd, f"{_LAYER}reg_branch.{2 * n_reg}", lay["reg_out"])
+
+
+def state_dict_from_jax(params: Dict[str, Any],
+                        batch_stats: Dict[str, Any]) -> "OrderedDict":
+    """The port's ``state_dict`` from the JAX detector's ``{params,
+    batch_stats}`` trees (leaves as numpy arrays): subtrees ``backbone``
+    (ResNet), ``neck`` (FPN) and ``head`` (SparseBEVHead)."""
+    sd: "OrderedDict[str, torch.Tensor]" = OrderedDict()
+    if "backbone" in params:
+        _resnet(sd, params["backbone"], batch_stats["backbone"])
+    if "neck" in params:
+        _fpn(sd, params["neck"])
+    if "head" in params:
+        _head(sd, params["head"])
+    return sd

@@ -1,0 +1,101 @@
+"""The port stands alone: no module of ``sparsebev_tpu_torch`` and nothing
+``chip_smoke.py`` loads imports ``jax`` or the JAX package, and the smoke
+script refuses to run (printing no result) without a card or without the
+package beside it."""
+
+import os
+import pkgutil
+import re
+import shutil
+import subprocess
+import sys
+
+import pytest
+import torch
+
+torch.set_num_threads(1)
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PKG = os.path.join(REPO, "sparsebev_tpu_torch")
+# matches jax/flax and the JAX package, never the bare prefix of the port
+_FORBIDDEN = re.compile(
+    r"^\s*(import|from)\s+(jax|flax|sparsebev_tpu)(\.|\s|$)")
+
+
+def _port_modules():
+    names = ["sparsebev_tpu_torch"]
+    for info in pkgutil.walk_packages([PKG], prefix="sparsebev_tpu_torch."):
+        names.append(info.name)
+    return sorted(names)
+
+
+def _clean_env():
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("PYTHONPATH", "PYTHONSTARTUP")}
+    env["CUDA_VISIBLE_DEVICES"] = ""
+    return env
+
+
+def test_port_modules_import_without_jax():
+    mods = _port_modules()
+    assert "sparsebev_tpu_torch.ops.msmv_sampling" in mods
+    assert "sparsebev_tpu_torch.inference" in mods
+    code = (
+        "import sys\n"
+        f"sys.path.insert(0, {REPO!r})\n"
+        "import importlib\n"
+        f"for m in {mods!r}:\n"
+        "    importlib.import_module(m)\n"
+        "import chip_smoke\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax'\n"
+        "             or m.startswith(('jax.', 'flax', 'jaxlib'))\n"
+        "             or m == 'sparsebev_tpu'\n"
+        "             or m.startswith('sparsebev_tpu.'))\n"
+        "print('BAD', bad)\n")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, cwd=REPO, env=_clean_env(), timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert "BAD []" in out.stdout, out.stdout
+
+
+def test_port_sources_name_no_jax_import():
+    files = [os.path.join(d, f) for d, _, fs in os.walk(PKG) for f in fs
+             if f.endswith(".py")] + [os.path.join(REPO, "chip_smoke.py")]
+    bad = []
+    for path in files:
+        with open(path) as fh:
+            for i, line in enumerate(fh, 1):
+                if _FORBIDDEN.match(line):
+                    bad.append(f"{os.path.relpath(path, REPO)}:{i}: {line}")
+    assert not bad, "".join(bad)
+
+
+def test_chip_smoke_fails_without_a_card():
+    out = subprocess.run([sys.executable, "chip_smoke.py"],
+                         capture_output=True, text=True, cwd=REPO,
+                         env=_clean_env(), timeout=300)
+    assert out.returncode != 0
+    assert '"ok"' not in out.stdout
+    assert "FAIL" in out.stderr
+
+
+def test_chip_smoke_fails_alone(tmp_path):
+    shutil.copy(os.path.join(REPO, "chip_smoke.py"), tmp_path)
+    out = subprocess.run([sys.executable, "chip_smoke.py"],
+                         capture_output=True, text=True, cwd=tmp_path,
+                         env=_clean_env(), timeout=300)
+    assert out.returncode != 0
+    assert '"ok"' not in out.stdout
+    assert "sparsebev_tpu_torch" in out.stderr
+
+
+@pytest.mark.parametrize("src", ["msmv_pack", "msmv_sample"])
+def test_cuda_sources_declare_their_tpu_kernel_and_bound(src):
+    """Each kernel source notes the TPU function it replaces, its bound and
+    its design, and exports the C entry its wrapper binds."""
+    with open(os.path.join(PKG, "csrc", f"{src}.cu")) as fh:
+        text = fh.read()
+    assert "Replaces: sparsebev_tpu/ops/" in text
+    assert "Bound:" in text and "Design:" in text
+    assert f"{src}_error_string" in text
+    assert "return cudaGetLastError()" in text.replace("(int)", "")
