@@ -3,23 +3,32 @@
 
     python3 chip_smoke.py
 
-Phases (any failure exits non-zero and prints no result line):
+Phases (any failure exits non-zero and prints no result line; each phase
+prints its wall time):
   1. environment: the card, its power limit, torch's CUDA version, nvcc,
      triton;
-  2. build every CUDA kernel of the streaming path from ``sparsebev_tpu_torch/
-     csrc`` (one nvcc per source, all started together);
-  3. each kernel at the flagship r50 shapes against its plain PyTorch
-     version on the same inputs (pack: bit for bit; sampling: within the
-     stated tolerance), timed with CUDA events, beside its bound;
-  4. streaming inference of ``configs/r50_nuimg_704x256.py`` at full width
-     with seeded random weights: 12 samples of a synthetic 6-camera stream,
-     one new frame per sample over the T=8 window. The kernel launch counts
-     are reset just before this run and read just after it; the outputs must
-     be finite and match a second run that uses the plain versions;
+  2. build every CUDA kernel of the two streaming paths from
+     ``sparsebev_tpu_torch/csrc`` (one nvcc per source, all started
+     together): the y-fold pack, the pair-mode pack and the sampling
+     forward;
+  3. each kernel at the shapes of each path that runs it against its plain
+     PyTorch version on the same inputs (bit for bit; the sampling op in
+     fp32 within 1e-5 of the output scale), timed with CUDA events beside
+     its bound and, where one PyTorch call computes the same function,
+     beside that call. At vov99 the sampling op is checked in both of its
+     accumulation orders (with and without a group-split level);
+  4. streaming inference at full width with seeded random weights, one new
+     frame per sample of a synthetic 6-camera stream, for each path:
+     ``configs/r50_nuimg_704x256.py`` (12 samples, T=8, 704x256) and
+     ``configs/vov99_dd3d_1600x640_trainval_future.py`` (10 samples, T=15,
+     1600x640, pair level 0). The kernel launch counts are reset just
+     before each path's run and read just after it; the outputs must be
+     finite and match a second run of the same stream that uses the plain
+     versions;
   5. a ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and last
      ``{"ok": true, "device": {...}}``.
 
-Needs one CUDA card; imports nothing of JAX.
+Needs one CUDA card (it uses ``cuda:0`` alone); imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -32,9 +41,21 @@ import sys
 import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
-CONFIG = os.path.join(HERE, "configs", "r50_nuimg_704x256.py")
-NUM_SAMPLES = 12
 PROFILE_SAMPLES = 4
+# the streaming paths: config, samples, the kernels each path must launch,
+# and the shapes its kernels see (sampling: level shapes, pair/y-fold mode
+# and group-split flags per level, frames T, queries Q)
+PATHS = (
+    dict(name="r50", config="configs/r50_nuimg_704x256.py", samples=12,
+         kernels=("pack", "sampling"),
+         levels=[(64, 176), (32, 88), (16, 44), (8, 22)],
+         yfold=(True,) * 4, gsplit=(False,) * 4, t=8, q=900),
+    dict(name="vov99", config="configs/vov99_dd3d_1600x640_trainval_future.py",
+         samples=10, kernels=("pack", "pack_pair", "sampling"),
+         levels=[(160, 400), (80, 200), (40, 100), (20, 50), (10, 25)],
+         yfold=(False, True, True, True, True),
+         gsplit=(False, False, False, True, False), t=15, q=1600),
+)
 # the plain versions issue up to ~100 small launches per call: keep the
 # card busy long enough (~20 ms) that all of them are queued before it idles
 PLAIN_BUSY_CYCLES = 40_000_000
@@ -92,10 +113,17 @@ def time_ms(torch, fn, reps: int, flush, busy_cycles=2_000_000) -> float:
 
 # ------------------------------------------------------------- phase 3 --
 
-def check_pack(torch, dev, flush, bw):
+def _bit_equal(torch, got, want):
+    if got.dtype == torch.bfloat16:
+        return torch.equal(got.view(torch.int16), want.view(torch.int16))
+    return torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+def check_pack(torch, dev, flush, bw, path):
+    """The y-fold pack at every y-fold level of one frame of ``path``."""
     from sparsebev_tpu_torch.ops.msmv_pack import pack_level, pack_level_plain
     gen = torch.Generator(device=dev).manual_seed(1)
-    levels = [(64, 176), (32, 88), (16, 44), (8, 22)]
+    levels = [hw for hw, yf in zip(path["levels"], path["yfold"]) if yf]
     m, c, g = 6, 256, 4
     ms = plain_ms = 0.0
     nbytes = 0
@@ -106,7 +134,7 @@ def check_pack(torch, dev, flush, bw):
         got = pack_level(feat, g)
         want = pack_level_plain(feat, g)
         torch.cuda.synchronize()
-        if not torch.equal(got.view(torch.int16), want.view(torch.int16)):
+        if not _bit_equal(torch, got, want):
             fail(f"pack kernel differs from its plain version at {h}x{w}")
         err = max(err, (got.float() - want.float()).abs().max().item())
         ms += time_ms(torch, lambda: pack_level(feat, g), 30, flush)
@@ -114,20 +142,58 @@ def check_pack(torch, dev, flush, bw):
                             flush, PLAIN_BUSY_CYCLES)
         nbytes += (feat.numel() + got.numel()) * 2
     bound_ms = nbytes / bw * 1e3
-    log(f"pack: bit-equal to plain at all 4 levels; one frame {ms:.4f} ms "
-        f"(plain {plain_ms:.4f} ms), bound {bound_ms:.4f} ms "
-        f"({nbytes / 1e6:.1f} MB moved)")
-    return dict(name="msmv_pack_level", route="cuda",
-                source="sparsebev_tpu_torch/csrc/msmv_pack.cu",
-                replaces="sparsebev_tpu/ops/msmv_pack_pallas.py:63",
-                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+    log(f"pack [{path['name']}]: bit-equal to plain at all {len(levels)} "
+        f"y-fold levels; one frame {ms:.4f} ms (plain {plain_ms:.4f} ms), "
+        f"bound {bound_ms:.4f} ms ({nbytes / 1e6:.1f} MB moved)")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                 bound_by="bytes", library_ms=None)
+
+
+def check_pack_pair(torch, dev, flush, bw, path):
+    """The pair-mode pack at ``path``'s pair levels (vov99: level 0)."""
+    import torch.nn.functional as F
+    from sparsebev_tpu_torch.ops.msmv_pack import (pack_level_pair,
+                                                   pack_level_pair_plain)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    levels = [hw for hw, yf in zip(path["levels"], path["yfold"]) if not yf]
+    m, c, g = 6, 256, 4
+    ms = plain_ms = library_ms = 0.0
+    nbytes = 0
+    for h, w in levels:
+        feat = torch.randn((m, h, w, c), generator=gen, device=dev,
+                           dtype=torch.bfloat16)
+        got = pack_level_pair(feat, g)
+        want = pack_level_pair_plain(feat, g)
+        torch.cuda.synchronize()
+        if not _bit_equal(torch, got, want):
+            fail(f"pair pack kernel differs from its plain version at "
+                 f"{h}x{w}")
+
+        def library():
+            return F.pad(feat.view(m, h, w, g, c // g).permute(0, 1, 3, 2, 4),
+                         (0, 0, 0, 1))
+
+        if not _bit_equal(torch, got, library()):
+            fail("pair pack kernel differs from the F.pad library call")
+        ms += time_ms(torch, lambda: pack_level_pair(feat, g), 30, flush)
+        plain_ms += time_ms(torch, lambda: pack_level_pair_plain(feat, g),
+                            20, flush)
+        library_ms += time_ms(torch, library, 20, flush)
+        nbytes += (feat.numel() + got.numel()) * 2
+    bound_ms = nbytes / bw * 1e3
+    log(f"pack_pair [{path['name']}]: bit-equal to plain and to the F.pad "
+        f"call at {levels}; one frame {ms:.4f} ms (plain {plain_ms:.4f} ms, "
+        f"F.pad {library_ms:.4f} ms), bound {bound_ms:.4f} ms "
+        f"({nbytes / 1e6:.1f} MB moved)")
+    return dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by="bytes", library_ms=library_ms)
 
 
 def _needed_bytes(torch, packed, loc, sw):
     """Bytes the sampling forward must move for THESE inputs: every table
-    half-row that carries a nonzero tap weight, read once, plus the inputs
-    and the output. Also returns the fp32 operations of the fold."""
+    piece of C channels (a y-fold half-row or a pair row at one column) that
+    carries a nonzero tap weight, read once, plus the inputs and the output.
+    Also returns the fp32 operations of the fold."""
     from sparsebev_tpu_torch.ops.msmv_sampling import (
         _separable_slot_weights, _view_index)
     q, s, p, _ = loc.shape
@@ -145,11 +211,20 @@ def _needed_bytes(torch, packed, loc, sw):
         sx, ry, (wxa, wxb), (wya, wyb) = _separable_slot_weights(
             x * (w - 1), y * (h - 1), h, w)
         col = packed.row_index(batch_row, view, ry, h) * (w + 1) + sx
+        if packed.yfold[lvl]:          # key: half-row of one column
+            rows = [(col * 2, wya), (col * 2 + 1, wyb)]
+            step = 2
+        else:                          # key: pair row of one column
+            col1 = packed.row_index(batch_row, view,
+                                    torch.clamp(ry + 1, max=h - 1), h) \
+                * (w + 1) + sx
+            rows = [(col, wya), (col1, wyb)]
+            step = 1
         keys = []
         for slot, wx in ((0, wxa), (1, wxb)):
-            for half, wy in ((0, wya), (1, wyb)):
+            for base, wy in rows:
                 live = (wx != 0) & (wy * lw[:, lvl] != 0)
-                keys.append(((col + slot) * 2 + half)[live])
+                keys.append((base + slot * step)[live])
         table_bytes += torch.unique(torch.cat(keys)).numel() * c * itemsize
     io_bytes = (loc.numel() + sw.numel()) * 4 + slices.numel() * 4 \
         + k * c * itemsize
@@ -157,12 +232,15 @@ def _needed_bytes(torch, packed, loc, sw):
     return table_bytes + io_bytes, flops
 
 
-def check_sampling(torch, dev, flush, bw, fp32_rate):
+def check_sampling(torch, dev, flush, bw, fp32_rate, path):
+    """The sampling forward at ``path``'s shapes on a 16-slot ring, bf16
+    and fp32, in the path's accumulation order and (with a group-split
+    level) in the unsplit order too."""
     from sparsebev_tpu_torch.ops.msmv_sampling import (
         PackedFeatures, msmv_sampling, msmv_sampling_plain)
     gen = torch.Generator(device=dev).manual_seed(2)
-    levels = [(64, 176), (32, 88), (16, 44), (8, 22)]
-    slots, n, g, cg, t, q, p = 16, 6, 4, 64, 8, 900, 4
+    levels, yfold, gsplit = path["levels"], path["yfold"], path["gsplit"]
+    slots, n, g, cg, t, q, p = 16, 6, 4, 64, path["t"], path["q"], 4
     s = t * g
     loc = torch.stack([
         torch.rand((q, s, p), generator=gen, device=dev) * 1.04 - 0.02,
@@ -171,31 +249,51 @@ def check_sampling(torch, dev, flush, bw, fp32_rate):
     ], -1).contiguous()
     sw = torch.softmax(torch.randn((q, s, p, len(levels)), generator=gen,
                                    device=dev), -1).contiguous()
-    # the decoder's (g, t) slice order over ring slots of frames t = 0..7
+    # the decoder's (g, t) slice order over ring slots of frames t = 0..T-1
     slot_of_t = (torch.arange(20, 20 - t, -1, device=dev) % slots)
     slice_map = (slot_of_t[None, :] * g
                  + torch.arange(g, device=dev)[:, None]).reshape(s)
+    orders = [gsplit] + ([(False,) * len(levels)] if any(gsplit) else [])
     result = {}
+    err = 0.0
     for dtype in (torch.bfloat16, torch.float32):
-        tables = [torch.randn((slots * n * h * g, w + 1, 2 * cg),
+        tables = [torch.randn((slots * n * h * g, w + 1, (2 if yf else 1) * cg),
                               generator=gen, device=dev, dtype=dtype)
-                  for h, w in levels]
-        packed = PackedFeatures(tables, s, n, levels, cg, num_groups=g,
-                                slice_map=slice_map)
-        got = msmv_sampling(packed, loc, sw)
-        want = msmv_sampling_plain(packed, loc, sw)
-        torch.cuda.synchronize()
-        err = (got.float() - want.float()).abs().max().item()
-        scale = max(1.0, want.float().abs().max().item())
-        # bf16: output rounded to bf16 once per level, so a differently
-        # rounded fp32 partial sum can move it by a few bf16 ulps
-        tol = (4 * 2 ** -8 if dtype == torch.bfloat16 else 1e-5) * scale
-        exact = torch.equal(got, want)
-        log(f"sampling {str(dtype)[6:]}: max|kernel - plain| = {err:.3g} "
-            f"(tolerance {tol:.3g}, bit-equal: {exact})")
-        if not err <= tol:
-            fail(f"sampling kernel differs from its plain version ({dtype})")
+                  for (h, w), yf in zip(levels, yfold)]
+        by_order = []
+        for order in orders:
+            packed = PackedFeatures(tables, s, n, levels, cg, num_groups=g,
+                                    slice_map=slice_map, yfold=yfold,
+                                    gsplit=order)
+            got = msmv_sampling(packed, loc, sw)
+            by_order.append(got)
+            want = msmv_sampling_plain(packed, loc, sw)
+            torch.cuda.synchronize()
+            d = (got.float() - want.float()).abs().max().item()
+            err = max(err, d)
+            scale = max(1.0, want.float().abs().max().item())
+            exact = _bit_equal(torch, got, want)
+            name = "group-major" if any(order) else "unsplit"
+            log(f"sampling [{path['name']}] {str(dtype)[6:]} {name} order: "
+                f"max|kernel - plain| = {d:.3g}, bit-equal: {exact}")
+            # bf16 must give the plain version's bits; fp32 may differ by
+            # fp32 rounding of the same sums
+            if dtype == torch.bfloat16 and not exact \
+                    or not d <= 1e-5 * scale:
+                fail(f"sampling kernel differs from its plain version "
+                     f"({path['name']}, {dtype}, {name} order)")
+        if len(by_order) == 2:
+            # how far the pair levels' two accumulation orders drift apart
+            d = (by_order[0].float() - by_order[1].float()).abs()
+            log(f"sampling [{path['name']}] {str(dtype)[6:]}: the two orders "
+                f"differ in {int((d > 0).sum())} of {d.numel()} outputs, "
+                f"max {d.max().item():.4g} (output scale "
+                f"{by_order[0].float().abs().max().item():.4g})")
+        del by_order
         if dtype == torch.bfloat16:
+            packed = PackedFeatures(tables, s, n, levels, cg, num_groups=g,
+                                    slice_map=slice_map, yfold=yfold,
+                                    gsplit=gsplit)
             ms = time_ms(torch, lambda: msmv_sampling(packed, loc, sw), 30,
                          flush)
             plain_ms = time_ms(
@@ -205,19 +303,16 @@ def check_sampling(torch, dev, flush, bw, fp32_rate):
             bound_ms = max(nbytes / bw, flops / fp32_rate) * 1e3
             bound_by = "bytes" if nbytes / bw >= flops / fp32_rate \
                 else "operations"
-            log(f"sampling bf16: {ms:.4f} ms (plain {plain_ms:.4f} ms), "
-                f"bound {bound_ms:.4f} ms by {bound_by} "
+            log(f"sampling [{path['name']}] bf16: {ms:.4f} ms (plain "
+                f"{plain_ms:.4f} ms), bound {bound_ms:.4f} ms by {bound_by} "
                 f"({nbytes / 1e6:.1f} MB needed by these inputs; "
                 f"{q * s * p * len(levels) * 4 * cg * 2 / 1e6:.1f} MB of "
                 "windows if none were shared)")
-            result = dict(
-                name="msmv_sample_forward", route="cuda",
-                source="sparsebev_tpu_torch/csrc/msmv_sample.cu",
-                replaces="sparsebev_tpu/ops/msmv_sampling.py:1011",
-                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                bound_by=bound_by, library_ms=None)
+            result = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                          bound_by=bound_by, library_ms=None)
         del tables, packed, got, want
         torch.cuda.empty_cache()
+    result["max_abs_err"] = err
     return result
 
 
@@ -280,7 +375,7 @@ def run_stream(torch, det, samples, prefetch=True):
     return times, preds
 
 
-def breakdown(torch, det, samples):
+def breakdown(torch, det, samples, frame_label):
     """Where a streaming sample's time goes: the frame pass and the head
     timed apart (host clock, synchronized), and a torch.profiler trace of
     a few samples (device busy time, kernel launches, top kernels)."""
@@ -303,8 +398,7 @@ def breakdown(torch, det, samples):
 
     split = {}
     with torch.inference_mode():
-        for name, fn in (("frame pass (normalize, R50, FPN, 4 packs)",
-                          frame_pass),
+        for name, fn in ((f"frame pass ({frame_label})", frame_pass),
                          ("head (6 decoder layers, 6 sampling calls)",
                           head_pass)):
             reps = []
@@ -353,36 +447,52 @@ def breakdown(torch, det, samples):
             f"{e.count / n:6.1f} calls/sample  {e.key[:70]}")
 
 
-def streaming_phase(torch, dev):
+def streaming_phase(torch, dev, path):
+    """Stream ``path``'s config at full width; returns the launch count of
+    every kernel in this run and the median ms/sample."""
     from sparsebev_tpu_torch.bbox.nms_free_coder import build_coder
     from sparsebev_tpu_torch.config import Config
     from sparsebev_tpu_torch.inference import StreamingDetector
     from sparsebev_tpu_torch.models.detector import build_detector
     from sparsebev_tpu_torch.ops import msmv_pack, msmv_sampling, projection
 
-    cfg = Config.fromfile(CONFIG)
+    config = os.path.join(HERE, path["config"])
+    if not os.path.isfile(config):
+        fail(f"missing {config}")
+    cfg = Config.fromfile(config)
     head = cfg.model["pts_bbox_head"]
     t = head["num_frames"]
     image_h, image_w = cfg.ida_aug_conf["final_dim"]
+    num_samples = path["samples"]
+    name = path["name"]
     model = build_detector(cfg, device=dev, seed=0)
     coder = build_coder(cfg)
-    stream = make_stream(NUM_SAMPLES + PROFILE_SAMPLES, t, image_h, image_w)
-    samples = stream[:NUM_SAMPLES]
-    log(f"streaming: {CONFIG} (Q={head['num_query']}, T={t}, "
-        f"{image_w}x{image_h}, {head['num_layers']} layers, "
-        f"{cfg.model['compute_dtype']}), {NUM_SAMPLES} samples")
+    stream = make_stream(num_samples + PROFILE_SAMPLES, t, image_h, image_w)
+    samples = stream[:num_samples]
+    backbone = cfg.model["img_backbone"]
+    label = (f"{backbone.get('spec_name', backbone['type'])} "
+             f"{backbone.get('depth', '')}".strip())
+    log(f"streaming [{name}]: {config} ({label}, Q={head['num_query']}, "
+        f"T={t}, {image_w}x{image_h}, {head['num_levels']} levels, "
+        f"{head['num_layers']} layers, {cfg.model['compute_dtype']}), "
+        f"{num_samples} samples")
 
-    counters = (msmv_pack.pack_level, msmv_sampling.msmv_sampling)
+    counters = dict(pack=msmv_pack.pack_level,
+                    pack_pair=msmv_pack.pack_level_pair,
+                    sampling=msmv_sampling.msmv_sampling)
     det = StreamingDetector(model, num_frames=t, device=dev)
+    torch.cuda.reset_peak_memory_stats(dev)
     with torch.inference_mode():
-        for c in counters:
+        for c in counters.values():
             c.launches = 0
         times, preds = run_stream(torch, det, samples)
-        launches = [c.launches for c in counters]
-    log(f"streaming: kernel launches pack={launches[0]} "
-        f"sampling={launches[1]}")
-    if min(launches) <= 0:
-        fail("a kernel of the streaming path was never launched")
+        launches = {k: c.launches for k, c in counters.items()}
+    peak = torch.cuda.max_memory_allocated(dev)
+    log(f"streaming [{name}]: kernel launches "
+        + " ".join(f"{k}={v}" for k, v in launches.items()))
+    for k in path["kernels"]:
+        if launches[k] <= 0:
+            fail(f"kernel {k} of the {name} path was never launched")
     for i, pr in enumerate(preds):
         if not all(bool(torch.isfinite(v).all()) for v in pr.values()):
             fail(f"non-finite predictions at sample {i}")
@@ -397,36 +507,44 @@ def streaming_phase(torch, dev):
         fail("non-finite decoded boxes")
     steady = times[1:]
     ms = statistics.median(steady)
-    log("streaming: per-sample ms " + " ".join(f"{x:.2f}" for x in times))
-    log(f"streaming: median {ms:.3f} ms/sample over samples 1..{len(times) - 1}"
-        f" ({1e3 / ms:.2f} FPS); sample 0 {times[0]:.1f} ms; "
-        f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
+    log(f"streaming [{name}]: per-sample ms "
+        + " ".join(f"{x:.2f}" for x in times))
+    log(f"streaming [{name}]: median {ms:.3f} ms/sample over samples "
+        f"1..{len(times) - 1} ({1e3 / ms:.2f} FPS); sample 0 "
+        f"{times[0]:.1f} ms; peak memory {peak / 2**30:.2f} GiB; "
         f"{int(dec['mask'].sum())} of {dec['mask'].numel()} decoded boxes "
         "pass the score threshold")
-    breakdown(torch, det, stream[NUM_SAMPLES:])
+    modes = "".join("y" if yf else "p" for yf in model.pts_bbox_head
+                    .table_yfold)
+    breakdown(torch, det, stream[num_samples:],
+              f"normalize, {label}, FPN, packs {modes}")
     del det
     torch.cuda.empty_cache()
 
-    # the same stream with the plain versions of both kernels on the card
-    saved = (msmv_pack._pack_level_cuda, msmv_sampling._msmv_sampling_cuda,
+    # the same stream with the plain versions of the kernels on the card
+    saved = (msmv_pack._pack_level_cuda, msmv_pack._pack_level_pair_cuda,
+             msmv_sampling._msmv_sampling_cuda,
              projection.project_points_qmajor)
     valid = []
 
     def project_and_count(*a, **k):
-        loc, v = saved[2](*a, **k)
+        loc, v = saved[3](*a, **k)
         valid.append(v.mean().item())
         return loc, v
 
     msmv_pack._pack_level_cuda = msmv_pack.pack_level_plain
+    msmv_pack._pack_level_pair_cuda = msmv_pack.pack_level_pair_plain
     msmv_sampling._msmv_sampling_cuda = msmv_sampling.msmv_sampling_plain
     projection.project_points_qmajor = project_and_count
     try:
         plain_det = StreamingDetector(model, num_frames=t, device=dev)
         _, plain_preds = run_stream(torch, plain_det, samples, prefetch=False)
+        del plain_det
     finally:
-        (msmv_pack._pack_level_cuda, msmv_sampling._msmv_sampling_cuda,
+        (msmv_pack._pack_level_cuda, msmv_pack._pack_level_pair_cuda,
+         msmv_sampling._msmv_sampling_cuda,
          projection.project_points_qmajor) = saved
-    log(f"streaming: share of sampling points that land in a view: "
+    log(f"streaming [{name}]: share of sampling points that land in a view: "
         f"{statistics.mean(valid):.3f}")
     if statistics.mean(valid) < 0.2:
         fail("too few sampling points land in a camera view")
@@ -434,20 +552,60 @@ def streaming_phase(torch, dev):
     # give the plain versions' bits, and an ulp-level difference in a
     # sampled feature would stay well inside 5% of the output scale
     worst = 0.0
+    exact = True
     for key in ("all_cls_scores", "all_bbox_preds"):
         for a, b in zip(preds, plain_preds):
             d = (a[key] - b[key]).abs().max().item()
             tol = 5e-2 * max(1.0, b[key].abs().max().item())
             worst = max(worst, d / tol)
+            exact = exact and torch.equal(a[key], b[key])
             if not d <= tol:
                 fail(f"kernel run differs from the plain run in {key}: "
                      f"{d:.4g} > {tol:.4g}")
         d_last = (preds[-1][key] - plain_preds[-1][key]).abs().max().item()
-        log(f"streaming: kernel vs plain run, last sample {key}: "
+        log(f"streaming [{name}]: kernel vs plain run, last sample {key}: "
             f"max abs diff {d_last:.4g}")
-    log(f"streaming: kernel vs plain within tolerance over all samples "
-        f"(worst {worst:.3g} of the tolerance)")
+    log(f"streaming [{name}]: kernel vs plain within tolerance over all "
+        f"samples (worst {worst:.3g} of the tolerance; bit-equal: {exact})")
+    del model, preds, plain_preds
+    torch.cuda.empty_cache()
     return launches, ms
+
+
+KERNELS = dict(
+    pack=dict(name="msmv_pack_level", route="cuda",
+              source="sparsebev_tpu_torch/csrc/msmv_pack.cu",
+              replaces="sparsebev_tpu/ops/msmv_pack_pallas.py:63"),
+    pack_pair=dict(name="msmv_pack_pair_level", route="cuda",
+                   source="sparsebev_tpu_torch/csrc/msmv_pack_pair.cu",
+                   replaces="sparsebev_tpu/ops/msmv_pack_pallas.py:154"),
+    sampling=dict(name="msmv_sample_forward", route="cuda",
+                  source="sparsebev_tpu_torch/csrc/msmv_sample.cu",
+                  replaces="sparsebev_tpu/ops/msmv_sampling.py:1011"),
+)
+_CHECKS = dict(pack=check_pack, pack_pair=check_pack_pair,
+               sampling=check_sampling)
+
+
+def kernels_line(measured, launches):
+    """The ``{"kernels": [...]}`` object: per kernel its launches summed
+    over the paths (and per path), and its numbers. The headline numbers
+    are those of the first path that runs the kernel (r50 for the kernels
+    of the first slice); every path's are under ``by_path``."""
+    keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    rows = []
+    for k, info in KERNELS.items():
+        by_path = measured[k]
+        head = by_path[next(iter(by_path))]
+        rows.append(dict(
+            info,
+            launches=sum(launches[p][k] for p in launches),
+            max_abs_err=max(m["max_abs_err"] for m in by_path.values()),
+            **{key: head[key] for key in keys},
+            launches_by_path={p: launches[p][k] for p in launches},
+            by_path={p: {key: m[key] for key in keys}
+                     for p, m in by_path.items()}))
+    return {"kernels": rows}
 
 
 def main() -> int:
@@ -465,8 +623,6 @@ def main() -> int:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke run needs a "
              "CUDA card")
-    if not os.path.isfile(CONFIG):
-        fail(f"missing {CONFIG}")
     dev = torch.device("cuda", 0)
     name = torch.cuda.get_device_name(0)
     smi = nvidia_smi_line()
@@ -482,43 +638,51 @@ def main() -> int:
         nvcc_msg = f"{nvcc} ({ver.splitlines()[-1] if ver else '?'})"
     except RuntimeError as e:
         fail(str(e))
+    visible = torch.cuda.device_count()
     log(f"env: {smi}; torch {torch.__version__} CUDA {torch.version.cuda}; "
-        f"nvcc {nvcc_msg}; import triton: {triton_ok}; "
-        f"devices {torch.cuda.device_count()}")
+        f"nvcc {nvcc_msg}; import triton: {triton_ok}")
+    log(f"env: {visible} card(s) visible; this run uses cuda:0 alone")
     bw, fp32_rate = peaks(name)
     log(f"env: bound rates for {name}: {bw / 1e12:.2f} TB/s, "
         f"{fp32_rate / 1e12:.0f} TFLOP/s fp32")
 
     t0 = time.perf_counter()
+    sources = ["msmv_pack", "msmv_pack_pair", "msmv_sample"]
     try:
-        logs = build.build_all(["msmv_pack", "msmv_sample"])
+        logs = build.build_all(sources)
     except RuntimeError as e:
         fail(str(e))
-    log(f"build: nvcc {' '.join(build.NVCC_FLAGS)}: both kernels built in "
-        f"{time.perf_counter() - t0:.1f} s")
+    log(f"build: nvcc {' '.join(build.NVCC_FLAGS)}: {len(sources)} kernels "
+        f"built in {time.perf_counter() - t0:.1f} s")
     for src, text in logs.items():
         for line in text.splitlines():
             if any(w in line for w in ("Used", "spill", "error", "warning")):
                 log(f"build[{src}]: {line.strip()}")
 
     torch.backends.cudnn.benchmark = False
+    t0 = time.perf_counter()
     flush = torch.empty(64 * 2**20, dtype=torch.int32, device=dev)  # 256 MB
-    kernels = [check_pack(torch, dev, flush, bw),
-               check_sampling(torch, dev, flush, bw, fp32_rate)]
+    measured = {k: {} for k in KERNELS}
+    for path in PATHS:
+        for k in path["kernels"]:
+            args = (fp32_rate,) if k == "sampling" else ()
+            measured[k][path["name"]] = _CHECKS[k](torch, dev, flush, bw,
+                                                   *args, path)
     del flush
     torch.cuda.empty_cache()
+    log(f"phase: kernel checks took {time.perf_counter() - t0:.1f} s")
 
-    launches, _ = streaming_phase(torch, dev)
-    for k, n in zip(kernels, launches):
-        k["launches"] = n
-    keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
-            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
-    log(json.dumps({"kernels": [{key: k[key] for key in keys}
-                                for k in kernels]}))
+    launches = {}
+    for path in PATHS:
+        t0 = time.perf_counter()
+        launches[path["name"]], _ = streaming_phase(torch, dev, path)
+        log(f"phase: streaming [{path['name']}] took "
+            f"{time.perf_counter() - t0:.1f} s")
+
+    log(json.dumps(kernels_line(measured, launches)))
     log(smi)
     log(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": name,
-        "count": torch.cuda.device_count()}}))
+        "platform": "gpu", "kind": name, "count": 1}}))
     return 0
 
 

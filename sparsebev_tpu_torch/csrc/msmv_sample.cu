@@ -1,31 +1,43 @@
-// Multi-scale multi-view bilinear sampling forward over y-fold tables (sm_90a).
+// Multi-scale multi-view bilinear sampling forward over y-fold and pair-mode
+// tables (sm_90a).
 //
 // Replaces: sparsebev_tpu/ops/msmv_sampling.py::_yfold_forward (:1011): the
-// XLA window gather (:1171) plus the tap fold _fold_window_taps (:893), and
-// its group-major twin _gmajor_forward (:910) for group-split levels. That
-// op is not Pallas on the TPU; it is the reference model's one custom CUDA
-// op, written here by hand.
+// XLA window gathers (:1171 y-fold, :1215 pair) plus the tap folds
+// (_fold_window_taps :893, the pair fold :1220-1228), and its group-major
+// twin _gmajor_forward (:910, pair branch :981-1003). That op is not Pallas
+// on the TPU; it is the reference model's one custom CUDA op, written here
+// by hand.
 //
 // For each point k (query-major order (q, s, p)) and each level l:
 //   view  = clip(round(v * (N-1)), 0, N-1); pixel = loc * (size - 1)
 //   (sx, ry, wxa, wxb, wya, wyb) = the separable slot weights with the
 //   shifted-window remap at x0/y0 = -1 (_separable_slot_weights :600)
-//   row   = ((bt * N + view) * H + ry) * G + gi, (bt, gi) = divmod(slice_map[s], G)
-//   window = table[row, sx:sx+2, 0:2C]  (all four bilinear taps)
-//   out[k] += fold(window) weighted by sw[k, l]
+//   row(y) = ((bt * N + view) * H + y) * G + gi, (bt, gi) = divmod(slice_map[s], G)
+//   y-fold level: window = table[row(ry), sx:sx+2, 0:2C] (all four taps)
+//   pair level:   windows table[row(ry), sx:sx+2, 0:C] and
+//                 table[row(min(ry+1, H-1)), sx:sx+2, 0:C]
+//   out[k] += fold(windows) weighted by sw[k, l]
 // Output [Q, S, P, C] in the table dtype (bf16 or fp32).
 //
-// Numerics follow the JAX order exactly: the x weights are rounded to the
-// table dtype and multiplied with the taps in that dtype; the two x taps add
-// in fp32, the y and level weights fold in fp32; each level's result is
-// rounded to the table dtype and added to an accumulator kept in the table
-// dtype. Built with --fmad=false, so every product and sum rounds on its own
-// as in the plain PyTorch version.
+// Numerics follow the bits XLA gives for the JAX code under jit: y-fold
+// levels round the x weights to the table dtype; pair levels round the
+// products wx * wy * lw to it. A bf16 tap times its bf16 weight is exact in
+// fp32 and is not rounded (XLA's excess-precision rewrite drops that
+// rounding). Taps add in fp32; each level's sum is rounded to the table
+// dtype and added to an accumulator kept in the table dtype. A pair level
+// adds its two y taps in fp32 and rounds once when `gmajor` is set (the
+// group-major forward, taken when any level is group-split), and rounds and
+// adds each y tap on its own otherwise (the unsplit forward). Built with
+// --fmad=false, so every product and sum rounds on its own as in the plain
+// PyTorch version.
 //
 // Bound: bytes. Per call at flagship r50 (Q=900, S=32, P=4, 4 levels, C=64,
 // bf16): 115,200 points x 4 levels x 512-byte windows = 236 MB if no window
 // is shared, 14.7 MB of output and 3.2 MB of geometry, about 76 us at
-// 3.35 TB/s. The arithmetic (about 0.2 GFLOP) is far below the card's rate.
+// 3.35 TB/s. At vov99 (Q=1600, S=60, P=4, 5 levels, the pair level reading
+// two 256-byte windows): 384,000 points x 5 x 512 B = 983 MB if no window is
+// shared, 49 MB of output and about 12 MB of geometry, at most about
+// 0.31 ms. The arithmetic is far below the card's rate.
 //
 // Design: one warp per point, all levels. Each lane owns two channels and
 // reads them from the four tap half-rows of each window: a warp's loads of
@@ -47,6 +59,7 @@ struct Levels {
   const void* table[kMaxLevels];
   int h[kMaxLevels];
   int w[kMaxLevels];
+  int yfold[kMaxLevels];  // 1: rows [w+1, 2c] (y-fold), 0: [w+1, c] (pair)
 };
 
 __device__ __forceinline__ float round_bf16(float v) {
@@ -78,17 +91,9 @@ struct Pair<__nv_bfloat16> {
   }
 };
 
-// One tap-pair fold of one channel: x fold of both y halves, then y/level.
 template <bool kBf16>
-__device__ __forceinline__ float fold(float a0, float a1, float b0, float b1,
-                                      float xa, float xb, float fya,
-                                      float fyb) {
-  if (kBf16) {
-    const float ta = round_bf16(a0 * xa) + round_bf16(a1 * xb);
-    const float tb = round_bf16(b0 * xa) + round_bf16(b1 * xb);
-    return ta * fya + tb * fyb;
-  }
-  return (a0 * xa + a1 * xb) * fya + (b0 * xa + b1 * xb) * fyb;
+__device__ __forceinline__ float to_table(float v) {
+  return kBf16 ? round_bf16(v) : v;
 }
 
 template <typename T, bool kBf16>
@@ -97,7 +102,8 @@ __global__ void msmv_sample_kernel(Levels lv, int num_levels,
                                    const float* __restrict__ sw,
                                    const int* __restrict__ slice_map,
                                    T* __restrict__ out, int64_t num_points,
-                                   int s, int p, int n, int g, int c) {
+                                   int s, int p, int n, int g, int c,
+                                   bool gmajor) {
   const int lane = threadIdx.x & 31;
   const int64_t k = ((int64_t)blockIdx.x * blockDim.x + threadIdx.x) >> 5;
   if (k >= num_points) return;
@@ -138,38 +144,75 @@ __global__ void msmv_sample_kernel(Levels lv, int num_levels,
     const bool shy = iy0 < 0;
     const int sx = min(max(ix0, 0), w - 1);
     const int ry = min(max(iy0, 0), h - 1);
-    float wxa = shx ? wx1 : wx0;
-    float wxb = shx ? 0.f : wx1;
+    const float wxa = shx ? wx1 : wx0;
+    const float wxb = shx ? 0.f : wx1;
     const float wya = shy ? wy1 : wy0;
     const float wyb = shy ? 0.f : wy1;
-    if (kBf16) {  // x weights in the table dtype (_fold_window_taps :902)
-      wxa = round_bf16(wxa);
-      wxb = round_bf16(wxb);
-    }
     const float lw = sw[k * num_levels + l];
-    const float fya = wya * lw;
-    const float fyb = wyb * lw;
+    const T* table = static_cast<const T*>(lv.table[l]);
 
-    const int64_t row = (((int64_t)bt * n + view) * h + ry) * g + gi;
-    const T* col0 = static_cast<const T*>(lv.table[l]) +
-                    (row * (w + 1) + sx) * (int64_t)(2 * c);
-    const T* col1 = col0 + 2 * c;
+    if (lv.yfold[l]) {
+      // x weights in the table dtype (_fold_window_taps :902)
+      const float xa = to_table<kBf16>(wxa);
+      const float xb = to_table<kBf16>(wxb);
+      const float fya = wya * lw;
+      const float fyb = wyb * lw;
+      const int64_t row = (((int64_t)bt * n + view) * h + ry) * g + gi;
+      const T* col0 = table + (row * (w + 1) + sx) * (int64_t)(2 * c);
+      const T* col1 = col0 + 2 * c;
+#pragma unroll
+      for (int j = 0; j < kMaxPairsPerLane; ++j) {
+        const int cc = 2 * (lane + 32 * j);
+        if (cc < c) {
+          const float2 a0 = Pair<T>::load(col0 + cc);
+          const float2 b0 = Pair<T>::load(col0 + c + cc);
+          const float2 a1 = Pair<T>::load(col1 + cc);
+          const float2 b1 = Pair<T>::load(col1 + c + cc);
+          const float r0 = (a0.x * xa + a1.x * xb) * fya +
+                           (b0.x * xa + b1.x * xb) * fyb;
+          const float r1 = (a0.y * xa + a1.y * xb) * fya +
+                           (b0.y * xa + b1.y * xb) * fyb;
+          acc0[j] = to_table<kBf16>(acc0[j] + to_table<kBf16>(r0));
+          acc1[j] = to_table<kBf16>(acc1[j] + to_table<kBf16>(r1));
+        }
+      }
+      continue;
+    }
+
+    // pair level: rows ry and min(ry+1, h-1); wyb is 0 wherever row ry+1
+    // is invalid, so the clamp changes no weight. Weights wx * (wy * lw)
+    // rounded to the table dtype (:1223-1225).
+    const float wyl0 = wya * lw;
+    const float wyl1 = wyb * lw;
+    const float w00 = to_table<kBf16>(wxa * wyl0);
+    const float w01 = to_table<kBf16>(wxb * wyl0);
+    const float w10 = to_table<kBf16>(wxa * wyl1);
+    const float w11 = to_table<kBf16>(wxb * wyl1);
+    const int64_t row0 = (((int64_t)bt * n + view) * h + ry) * g + gi;
+    const int64_t row1 =
+        (((int64_t)bt * n + view) * h + min(ry + 1, h - 1)) * g + gi;
+    const T* top = table + (row0 * (w + 1) + sx) * (int64_t)c;
+    const T* bot = table + (row1 * (w + 1) + sx) * (int64_t)c;
 #pragma unroll
     for (int j = 0; j < kMaxPairsPerLane; ++j) {
       const int cc = 2 * (lane + 32 * j);
       if (cc < c) {
-        const float2 a0 = Pair<T>::load(col0 + cc);
-        const float2 b0 = Pair<T>::load(col0 + c + cc);
-        const float2 a1 = Pair<T>::load(col1 + cc);
-        const float2 b1 = Pair<T>::load(col1 + c + cc);
-        const float r0 = fold<kBf16>(a0.x, a1.x, b0.x, b1.x, wxa, wxb, fya, fyb);
-        const float r1 = fold<kBf16>(a0.y, a1.y, b0.y, b1.y, wxa, wxb, fya, fyb);
-        if (kBf16) {
-          acc0[j] = round_bf16(acc0[j] + round_bf16(r0));
-          acc1[j] = round_bf16(acc1[j] + round_bf16(r1));
-        } else {
-          acc0[j] += r0;
-          acc1[j] += r1;
+        const float2 a0 = Pair<T>::load(top + cc);
+        const float2 a1 = Pair<T>::load(top + c + cc);
+        const float2 b0 = Pair<T>::load(bot + cc);
+        const float2 b1 = Pair<T>::load(bot + c + cc);
+        const float t0x = a0.x * w00 + a1.x * w01;
+        const float t0y = a0.y * w00 + a1.y * w01;
+        const float t1x = b0.x * w10 + b1.x * w11;
+        const float t1y = b0.y * w10 + b1.y * w11;
+        if (gmajor) {  // _gmajor_forward :986-1003: one add per level
+          acc0[j] = to_table<kBf16>(acc0[j] + to_table<kBf16>(t0x + t1x));
+          acc1[j] = to_table<kBf16>(acc1[j] + to_table<kBf16>(t0y + t1y));
+        } else {       // _yfold_forward :1211-1228: one add per y tap
+          acc0[j] = to_table<kBf16>(acc0[j] + to_table<kBf16>(t0x));
+          acc1[j] = to_table<kBf16>(acc1[j] + to_table<kBf16>(t0y));
+          acc0[j] = to_table<kBf16>(acc0[j] + to_table<kBf16>(t1x));
+          acc1[j] = to_table<kBf16>(acc1[j] + to_table<kBf16>(t1y));
         }
       }
     }
@@ -185,14 +228,17 @@ __global__ void msmv_sample_kernel(Levels lv, int num_levels,
 
 extern "C" {
 
-// tables/heights/widths: host arrays of num_levels entries; each table is
-// [rows, w+1, 2c] contiguous in the output dtype. loc [K, 3] and sw [K, L]
-// fp32, slice_map [s] int32, out [K, c]; K = num_points = Q * s * p.
+// tables/heights/widths/yfold: host arrays of num_levels entries; each
+// table is [rows, w+1, 2c] (yfold 1) or [rows, w+1, c] (yfold 0) contiguous
+// in the output dtype. loc [K, 3] and sw [K, L] fp32, slice_map [s] int32,
+// out [K, c]; K = num_points = Q * s * p. gmajor selects the pair levels'
+// accumulation order (see the header).
 int msmv_sample_forward(const void* const* tables, const int* heights,
-                        const int* widths, int num_levels, const float* loc,
-                        const float* sw, const int* slice_map, void* out,
+                        const int* widths, const int* yfold, int num_levels,
+                        const float* loc, const float* sw,
+                        const int* slice_map, void* out,
                         long long num_points, int s, int p, int n, int g,
-                        int c, int is_bf16, void* stream) {
+                        int c, int is_bf16, int gmajor, void* stream) {
   if (num_levels < 1 || num_levels > kMaxLevels || c % 2 != 0 ||
       c > 64 * kMaxPairsPerLane || s < 1 || p < 1 || n < 1 || g < 1)
     return (int)cudaErrorInvalidValue;
@@ -201,6 +247,7 @@ int msmv_sample_forward(const void* const* tables, const int* heights,
     lv.table[l] = tables[l];
     lv.h[l] = heights[l];
     lv.w[l] = widths[l];
+    lv.yfold[l] = yfold[l] != 0;
   }
   if (num_points == 0) return (int)cudaGetLastError();
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -209,11 +256,12 @@ int msmv_sample_forward(const void* const* tables, const int* heights,
   if (is_bf16) {
     msmv_sample_kernel<__nv_bfloat16, true><<<(unsigned)blocks, threads, 0, st>>>(
         lv, num_levels, loc, sw, slice_map,
-        static_cast<__nv_bfloat16*>(out), num_points, s, p, n, g, c);
+        static_cast<__nv_bfloat16*>(out), num_points, s, p, n, g, c,
+        gmajor != 0);
   } else {
     msmv_sample_kernel<float, false><<<(unsigned)blocks, threads, 0, st>>>(
         lv, num_levels, loc, sw, slice_map, static_cast<float*>(out),
-        num_points, s, p, n, g, c);
+        num_points, s, p, n, g, c, gmajor != 0);
   }
   return (int)cudaGetLastError();
 }

@@ -3,9 +3,12 @@
 
 Per sample, only frames whose key (the absolute path of the frame's first
 view) is not cached go through the backbone; they are packed into grouped
-y-fold sampling tables and written into a slot of a fixed ring of device
-buffers. The decoder reads the ring through a [T]-slot indirection
-(``ring_packed``), so history frames are never copied or re-packed. Slots
+sampling tables (y-fold or pair rows per level, ``table_yfold``) and
+written into a slot of a fixed ring of device buffers. The ring carries the
+head's ``table_gsplit`` flags, which pick the pair levels' accumulation
+order as the JAX package's group-split ring does. The decoder reads the
+ring through a [T]-slot indirection (``ring_packed``), so history frames
+are never copied or re-packed. Slots
 are handed out FIFO (evict at ``cache_size`` frames) and a frame of the
 sample being assembled is never evicted.
 """
@@ -59,7 +62,8 @@ class StreamingDetector:
             return self.slot_of_key[key]
         fp = self.model.forward_frame_packed(frame_imgs_fn())
         if self.ring is None:
-            self._meta = fp.meta()
+            self._meta = fp.meta(
+                gsplit=self.model.pts_bbox_head.table_gsplit)
             self.ring = ring_init(fp, self.cache_size)
         slot = self._slot_for_new_frame(protected)
         ring_update(self.ring, fp, slot)

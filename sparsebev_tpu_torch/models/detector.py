@@ -1,7 +1,8 @@
 """SparseBEV detector at inference (counterpart of
-``sparsebev_tpu/models/detector.py``): normalize -> pad -> ResNet -> FPN ->
-grouped y-fold pack of one frame (the streaming unit of work) and the head
-over packed tables.
+``sparsebev_tpu/models/detector.py``): normalize -> pad -> ResNet or VoVNet
+-> FPN -> grouped pack of one frame (y-fold or pair rows per level, the
+head's ``table_yfold``; the streaming unit of work) and the head over packed
+tables.
 
 Images keep the JAX package's channel-last layout ``[B, T*N, H, W, 3]`` (raw
 BGR) at the public functions; the backbone runs in channels_last memory, so
@@ -22,6 +23,9 @@ from ..utils.device import resolve_device
 from .fpn import FPN
 from .head import SparseBEVHead
 from .resnet import ResNet
+from .vovnet import VoVNet
+
+_BACKBONES = {"ResNet": ResNet, "VoVNet": VoVNet}
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 # head-config keys that parametrize training / decoding, not the module
@@ -56,11 +60,11 @@ class SparseBEV(nn.Module):
         super().__init__()
         bb = dict(img_backbone)
         bb_type = bb.pop("type", "ResNet")
-        if bb_type != "ResNet":
+        if bb_type not in _BACKBONES:
             raise NotImplementedError(
                 f"backbone {bb_type} is not ported yet (ROADMAP Queue 1 "
                 "item 13)")
-        self.img_backbone = ResNet(**bb)
+        self.img_backbone = _BACKBONES[bb_type](**bb)
         self.img_neck = None
         if img_neck is not None:
             nk = dict(img_neck)
@@ -105,11 +109,13 @@ class SparseBEV(nn.Module):
                 for f in feats]
 
     def forward_frame_packed(self, img: torch.Tensor):
-        """Extract ONE frame's pyramid and pack it into grouped y-fold
-        sampling tables. img: ``[B, N, H, W, 3]`` raw BGR."""
+        """Extract ONE frame's pyramid and pack it into grouped sampling
+        tables, y-fold or pair rows per level (the head's ``table_yfold``).
+        img: ``[B, N, H, W, 3]`` raw BGR."""
         feats = self.extract_feat(self.preprocess(img))
         head = self.pts_bbox_head
-        return pack_mlvl_feats_grouped(feats, head.num_views, head.num_groups)
+        return pack_mlvl_feats_grouped(feats, head.num_views, head.num_groups,
+                                       yfold=head.table_yfold)
 
     def forward_head(self, packed, lidar2img, time_diff, image_h: int,
                      image_w: int):

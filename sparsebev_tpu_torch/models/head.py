@@ -21,8 +21,8 @@ def _per_level(spec, n):
 def check_table_options(num_levels: int, table_yfold=True, table_fp8=False,
                         table_split=1, table_gsplit=False,
                         table_gsplit_pack=False) -> None:
-    """Accept the layout-only group-split options; refuse the table modes
-    that are not ported yet."""
+    """Accept per-level table modes (``table_yfold``) and the group-split
+    options; refuse the table modes that are not ported yet."""
     for name, spec in (("table_yfold", table_yfold),
                        ("table_fp8", table_fp8),
                        ("table_split", table_split),
@@ -31,10 +31,6 @@ def check_table_options(num_levels: int, table_yfold=True, table_fp8=False,
         if len(_per_level(spec, num_levels)) != num_levels:
             raise ValueError(f"{name}={spec!r} does not have one entry per "
                              f"level ({num_levels} levels)")
-    if not all(_per_level(table_yfold, num_levels)):
-        raise NotImplementedError(
-            "table_yfold=False (plain-row tables and the pair-mode pack) is "
-            "not ported yet (ROADMAP Queue 2 item 4)")
     if any(_per_level(table_fp8, num_levels)):
         raise NotImplementedError(
             "table_fp8 (fp8 streaming rings) is not ported yet "
@@ -70,6 +66,12 @@ class SparseBEVHead(nn.Module):
         self.num_views = num_views
         self.pc_range = list(pc_range)
         self.compute_dtype = compute_dtype
+        # per-level table mode of the pack and the group-split flags of the
+        # streaming ring (which pick the pair levels' accumulation order)
+        self.table_yfold = tuple(bool(v) for v in
+                                 _per_level(table_yfold, num_levels))
+        self.table_gsplit = tuple(bool(v) for v in
+                                  _per_level(table_gsplit, num_levels))
         self.init_query_bbox = nn.Embedding(num_query, 10)
         # DAB-DETR style label embedding; row num_classes = "no object"
         self.label_enc = nn.Embedding(num_classes + 1, in_channels - 1)

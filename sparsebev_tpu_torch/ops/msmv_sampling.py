@@ -1,16 +1,16 @@
-"""Multi-scale multi-view bilinear sampling over y-fold tables.
+"""Multi-scale multi-view bilinear sampling over y-fold and pair-mode tables.
 
 Counterpart of ``sparsebev_tpu/ops/msmv_sampling.py``, main-path subset:
-``PackedFeatures`` and its (b, t, n, h, g) row order, the grouped y-fold
-pack, the streaming table ring, ``table_acc_dtype``, the separable slot
-weights, the readable oracle ``msmv_sampling_reference`` and the production
-op ``msmv_sampling``.
+``PackedFeatures`` and its (b, t, n, h, g) row order, the grouped pack
+(y-fold and pair levels), the streaming table ring, ``table_acc_dtype``, the
+separable slot weights, the readable oracle ``msmv_sampling_reference`` and
+the production op ``msmv_sampling``.
 
 ``msmv_sampling`` holds the second CUDA kernel of the port
 (``csrc/msmv_sample.cu``): it replaces the JAX package's XLA window gather
 plus tap fold (``_yfold_forward`` :1011, ``_fold_window_taps`` :893,
 ``_gmajor_forward`` :910) with one kernel that computes the point geometry,
-reads each point's (2 columns x 2C) window per level, weights and sums it.
+reads each point's windows per level, weights and sums them.
 :func:`msmv_sampling_plain` is its plain PyTorch version and follows the JAX
 order of operations (see ``table_acc_dtype``).
 
@@ -19,13 +19,28 @@ Semantics (as in the JAX module): locations are ``[Q, S, P, 3]`` with x, y in
 (view = clip(round(v * (N - 1)))); scale weights ``[Q, S, P, L]``; output
 ``[Q, S, P, C]`` = sum_l w_l * bilinear(level l) with zero padding per tap.
 
-Not in this slice: plain-row (pair-mode) tables (``table_yfold=False``),
-chunk-split rings (``table_split > 1``), fp8 rings (``table_fp8``) — configs
-that ask for them are refused by ``models/head.py::check_table_options`` —
-and the hybrid one-hot sampler (``set_sampling_impl``). Group-split flags
-(``table_gsplit``, ``table_gsplit_pack``) are layout options: the JAX
-package's group-split forward is bitwise equal to the unsplit one, so the
-port keeps one table per level.
+Table modes, per level (``table_yfold``): a y-fold level's row ``y`` holds
+``feat[y] ‖ feat[y+1]`` (2C wide, one window read per point); a pair level's
+row holds ``feat[y]`` alone (C wide, 1x feature memory, two row reads per
+point). Group-split flags (``table_gsplit``) do not change the tables: the
+port keeps one table per level. They select the ACCUMULATION ORDER of pair
+levels, which is the one place where the JAX package's group-major forward
+(taken when any level is group-split) differs from the unsplit one in bf16:
+``_gmajor_forward`` adds a pair level's two y taps in fp32 and rounds once
+into the accumulator; ``_yfold_forward`` rounds and adds each y tap on its
+own. For y-fold levels the two orders are the same, bit for bit.
+
+bf16 bits: the port gives the bits XLA gives on the CPU under ``jax.jit``
+(the way the JAX package runs), in both orders. There XLA's excess-precision
+rewrite drops exactly one rounding of the written JAX code: a bf16 tap times
+its bf16 weight is kept in fp32 (where it is exact) instead of being rounded
+to bf16. The weights, each level's sum and the bf16 accumulator are rounded
+as written. (Run op by op, outside ``jit``, JAX rounds the products too.)
+
+Not in this slice: chunk-split rings (``table_split > 1``), fp8 rings
+(``table_fp8``) — configs that ask for them are refused by
+``models/head.py::check_table_options`` — and the hybrid one-hot sampler
+(``set_sampling_impl``).
 """
 
 from __future__ import annotations
@@ -36,7 +51,7 @@ from typing import Optional, Sequence
 import torch
 
 from ..kernels import build
-from .msmv_pack import pack_level
+from .msmv_pack import pack_level, pack_level_pair
 
 
 def set_sampling_impl(name: str) -> None:
@@ -49,23 +64,42 @@ def set_sampling_impl(name: str) -> None:
         raise ValueError(f"unknown sampling impl {name!r}")
 
 
-class PackedFeatures:
-    """Per-level y-fold row tables ``[rows, W_l + 1, 2C]``.
+def _per_level(spec, n, name):
+    """A bool (or int) spec broadcast to ``n`` levels, or a per-level
+    sequence checked for length."""
+    if isinstance(spec, (bool, int)):
+        return (bool(spec),) * n
+    spec = tuple(bool(v) for v in spec)
+    if len(spec) != n:
+        raise ValueError(f"per-level {name} sequence has {len(spec)} entries "
+                         f"for {n} feature levels")
+    return spec
 
-    Row ``y`` of each image holds ``feat[y] ‖ feat[y+1]`` on the channel axis
+
+class PackedFeatures:
+    """Per-level row tables: y-fold ``[rows, W_l + 1, 2C]`` or pair
+    ``[rows, W_l + 1, C]`` (``yfold``, a bool or one flag per level).
+
+    A y-fold row ``y`` holds ``feat[y] ‖ feat[y+1]`` on the channel axis
     (``feat[H]`` reads as zeros) plus one zero guard column, so one
-    (2 columns x 2C) window holds all four bilinear taps of a point.
+    (2 columns x 2C) window holds all four bilinear taps of a point. A pair
+    row holds ``feat[y]`` plus the guard column; a point reads rows ``y`` and
+    ``min(y+1, H-1)``.
 
     Rows are ordered (b, t, n, h, g): a slice index ``s`` in [0, batch) is
     ``(bt = s // G, g = s % G)``. ``slice_map`` (optional int ``[batch]``)
     maps logical slices to physical ones (the streaming ring holds frames in
     slot order); it is applied per slice, before any per-point work.
-    ``tables`` may hold ``None`` entries in a geometry-only copy (:meth:`meta`).
+    ``gsplit`` (a bool or one flag per level) marks the group-split levels of
+    the JAX layout; here it only selects the pair-level accumulation order
+    (see the module docstring). ``tables`` may hold ``None`` entries in a
+    geometry-only copy (:meth:`meta`).
     """
 
     def __init__(self, tables, batch: int, num_views: int, level_shapes,
                  channels: int, num_groups: int = 1,
-                 slice_map: Optional[torch.Tensor] = None):
+                 slice_map: Optional[torch.Tensor] = None, yfold=True,
+                 gsplit=False):
         self.tables = tuple(tables)
         self.batch = batch
         self.num_views = num_views
@@ -73,6 +107,11 @@ class PackedFeatures:
         self.channels = channels
         self.num_groups = num_groups
         self.slice_map = slice_map
+        n = len(self.level_shapes)
+        self.yfold = _per_level(yfold, n, "yfold")
+        self.gsplit = _per_level(gsplit, n, "gsplit")
+        if any(gs and not yf for gs, yf in zip(self.gsplit, self.yfold)):
+            raise ValueError("table_gsplit requires a yfold level")
 
     def row_index(self, slice_idx, view, row_y, height):
         """Flat table row for (slice, view, y-row) under the row order above."""
@@ -83,44 +122,56 @@ class PackedFeatures:
         gi = slice_idx % g
         return ((bt * self.num_views + view) * height + row_y) * g + gi
 
-    def meta(self) -> "PackedFeatures":
-        """Geometry-only copy (no table buffers)."""
+    def row_width(self, level: int) -> int:
+        """Channels of one table row of ``level``: 2C y-fold, C pair."""
+        return (2 if self.yfold[level] else 1) * self.channels
+
+    def meta(self, gsplit=None) -> "PackedFeatures":
+        """Geometry-only copy (no table buffers). ``gsplit`` replaces the
+        group-split flags (the streaming ring's ``table_gsplit``)."""
         return PackedFeatures((None,) * len(self.tables), self.batch,
                               self.num_views, self.level_shapes,
-                              self.channels, self.num_groups)
+                              self.channels, self.num_groups,
+                              yfold=self.yfold,
+                              gsplit=self.gsplit if gsplit is None else gsplit)
 
 
 def pack_mlvl_feats_grouped(mlvl_feats: Sequence[torch.Tensor],
-                            num_views: int,
-                            num_groups: int) -> PackedFeatures:
-    """Pack per-frame pyramids ``[B, T*N, H, W, C]`` into grouped y-fold
-    tables ``[B*T*N*H*G, W+1, 2Cg]`` (row order (b, t, n, h, g)), one
-    :func:`~.msmv_pack.pack_level` call per level. (Group-split configs
-    pack the same single table; see the module docstring.)"""
+                            num_views: int, num_groups: int,
+                            yfold=True) -> PackedFeatures:
+    """Pack per-frame pyramids ``[B, T*N, H, W, C]`` into grouped tables,
+    row order (b, t, n, h, g): y-fold levels as ``[B*T*N*H*G, W+1, 2Cg]``
+    (one :func:`~.msmv_pack.pack_level` call each), pair levels
+    (``yfold`` False for the level) as ``[B*T*N*H*G, W+1, Cg]`` (one
+    :func:`~.msmv_pack.pack_level_pair` call each)."""
     n, g = num_views, num_groups
     b, tn = mlvl_feats[0].shape[0], mlvl_feats[0].shape[1]
     t = tn // n
     c = mlvl_feats[0].shape[-1]
     cg = c // g
+    yfold = _per_level(yfold, len(mlvl_feats), "yfold")
     tables, shapes = [], []
-    for feat in mlvl_feats:
+    for feat, yf in zip(mlvl_feats, yfold):
         h, w = feat.shape[2], feat.shape[3]
-        t2 = pack_level(feat.reshape(b * t * n, h, w, c), g)
-        tables.append(t2.reshape(b * t * n * h * g, w + 1, 2 * cg))
+        pack = pack_level if yf else pack_level_pair
+        t2 = pack(feat.reshape(b * t * n, h, w, c), g)
+        tables.append(t2.reshape(b * t * n * h * g, w + 1, t2.shape[-1]))
         shapes.append((h, w))
-    return PackedFeatures(tables, b * t * g, n, shapes, cg, num_groups=g)
+    return PackedFeatures(tables, b * t * g, n, shapes, cg, num_groups=g,
+                          yfold=yfold)
 
 
 def ring_init(frame_packed: PackedFeatures, num_slots: int):
     """Allocate an all-zero table ring with ``num_slots`` frame slots: a
-    per-level tuple of ``[num_slots*N*H*G, W+1, 2Cg]`` tensors of the
-    single-frame ``frame_packed`` tables' dtype and device."""
+    per-level tuple of ``[num_slots*N*H*G, W+1, row]`` tensors (row = 2Cg
+    for y-fold levels, Cg for pair levels) of the single-frame
+    ``frame_packed`` tables' dtype and device."""
     t0 = frame_packed.tables[0]
     rows = frame_packed.num_views * frame_packed.num_groups
-    ch = 2 * frame_packed.channels
-    return tuple(torch.zeros((num_slots * rows * h, w + 1, ch),
+    return tuple(torch.zeros((num_slots * rows * h, w + 1,
+                              frame_packed.row_width(lvl)),
                              dtype=t0.dtype, device=t0.device)
-                 for h, w in frame_packed.level_shapes)
+                 for lvl, (h, w) in enumerate(frame_packed.level_shapes))
 
 
 def ring_update(ring_tables, frame_packed: PackedFeatures, slot: int):
@@ -131,7 +182,7 @@ def ring_update(ring_tables, frame_packed: PackedFeatures, slot: int):
         raise ValueError("ring_update expects single-frame, B=1 packed tables")
     for ring, frame in zip(ring_tables, frame_packed.tables):
         rows = frame.shape[0]
-        if ring.shape[0] % rows:
+        if ring.shape[0] % rows or ring.shape[1:] != frame.shape[1:]:
             raise ValueError("frame tables do not tile the ring")
         ring[slot * rows:(slot + 1) * rows].copy_(frame)
     return ring_tables
@@ -142,7 +193,8 @@ def ring_packed(ring_tables, slots_of_t: torch.Tensor, num_frames: int,
     """View a table ring as PackedFeatures for the decoder.
 
     ``slots_of_t``: int ``[T]`` — the ring slot of each logical frame
-    (0 = newest), carried as ``slice_map [T*G]``."""
+    (0 = newest), carried as ``slice_map [T*G]``. The table modes and
+    group-split flags come from ``frame_packed_meta``."""
     g = frame_packed_meta.num_groups
     slots_of_t = slots_of_t.to(torch.int64)
     groups = torch.arange(g, dtype=torch.int64, device=slots_of_t.device)
@@ -152,7 +204,8 @@ def ring_packed(ring_tables, slots_of_t: torch.Tensor, num_frames: int,
                           frame_packed_meta.num_views,
                           frame_packed_meta.level_shapes,
                           frame_packed_meta.channels, num_groups=g,
-                          slice_map=slice_map)
+                          slice_map=slice_map, yfold=frame_packed_meta.yfold,
+                          gsplit=frame_packed_meta.gsplit)
 
 
 def table_acc_dtype(packed: PackedFeatures) -> torch.dtype:
@@ -268,12 +321,31 @@ def msmv_sampling_reference(mlvl_feats: Sequence[torch.Tensor],
 
 def _fold_window_taps(g0, g1, fxa, fxb, fya, fyb, c):
     """y-fold window contraction: the window's two columns ``g0``/``g1``
-    ``[K, 2C]`` -> ``[K, C]``. The x fold runs as products in the table
-    dtype with fp32 adds; the y/level weights fold in fp32."""
-    xa = fxa[:, None].to(g0.dtype)
-    xb = fxb[:, None].to(g0.dtype)
-    return (((g0[:, :c] * xa).float() + (g1[:, :c] * xb).float()) * fya
-            + ((g0[:, c:] * xa).float() + (g1[:, c:] * xb).float()) * fyb)
+    ``[K, 2C]`` -> fp32 ``[K, C]``. The x weights are rounded to the table
+    dtype; each tap times its x weight is taken in fp32 (exact for bf16
+    operands: XLA under ``jit`` drops the bf16 rounding of these products,
+    see the module docstring), the two x taps add in fp32 and the y/level
+    weights fold in fp32 (``_fold_window_taps`` :893)."""
+    xa = fxa[:, None].to(g0.dtype).float()
+    xb = fxb[:, None].to(g0.dtype).float()
+    g0, g1 = g0.float(), g1.float()
+    return ((g0[:, :c] * xa + g1[:, :c] * xb) * fya
+            + (g0[:, c:] * xa + g1[:, c:] * xb) * fyb)
+
+
+def _pair_level_taps(flat, col0, col1, wxa, wxb, wya, wyb, lw):
+    """Pair-level taps: the (2 columns x C) windows at rows ``ry`` (flat
+    column ``col0``) and ``min(ry+1, H-1)`` (``col1``) -> one fp32 ``[K, C]``
+    sum per y tap. The x and y/level weights multiply in fp32 and round to
+    the table dtype together; tap products are taken in fp32 and added in
+    fp32 (``_yfold_forward`` :1223-1227)."""
+    taps = []
+    for col, wy in ((col0, wya), (col1, wyb)):
+        wyl = wy * lw
+        w0 = (wxa * wyl)[:, None].to(flat.dtype).float()
+        w1 = (wxb * wyl)[:, None].to(flat.dtype).float()
+        taps.append(flat[col].float() * w0 + flat[col + 1].float() * w1)
+    return taps
 
 
 def _check_geometry(packed, loc, sw):
@@ -294,7 +366,8 @@ def msmv_sampling_plain(packed: PackedFeatures,
                         sampling_locations: torch.Tensor,
                         scale_weights: torch.Tensor) -> torch.Tensor:
     """Plain PyTorch version of the sampling forward (query-major): the
-    JAX ``_yfold_forward`` with its order of operations."""
+    JAX ``_yfold_forward`` with its order of operations, or
+    ``_gmajor_forward``'s when a level is group-split."""
     _check_geometry(packed, sampling_locations, scale_weights)
     q, s, p, _ = sampling_locations.shape
     n, c = packed.num_views, packed.channels
@@ -309,18 +382,32 @@ def msmv_sampling_plain(packed: PackedFeatures,
     batch_row = slices.repeat_interleave(p).repeat(q)          # (q, s, p)
     lw_levels = scale_weights.reshape(k, num_levels).t().float()
     acc_dtype = table_acc_dtype(packed)
+    gmajor = any(packed.gsplit)
     out = torch.zeros((k, c), dtype=acc_dtype, device=dev)
     for lvl, (h, w) in enumerate(packed.level_shapes):
         sx, ry, (wxa, wxb), (wya, wyb) = _separable_slot_weights(
             x * (w - 1), y * (h - 1), h, w)
         lw = lw_levels[lvl]
-        row = packed.row_index(batch_row, view, ry, h)
-        flat = packed.tables[lvl].reshape(-1, 2 * c)
-        col = row * (w + 1) + sx
-        lvl_out = _fold_window_taps(flat[col], flat[col + 1], wxa, wxb,
-                                    (wya * lw)[:, None], (wyb * lw)[:, None],
-                                    c)
-        out = out + lvl_out.to(acc_dtype)
+        flat = packed.tables[lvl].reshape(-1, packed.row_width(lvl))
+        if packed.yfold[lvl]:
+            col = packed.row_index(batch_row, view, ry, h) * (w + 1) + sx
+            lvl_out = _fold_window_taps(flat[col], flat[col + 1], wxa, wxb,
+                                        (wya * lw)[:, None],
+                                        (wyb * lw)[:, None], c)
+            out = out + lvl_out.to(acc_dtype)
+            continue
+        # pair level: wyb is 0 wherever row ry+1 is invalid, so the clamp
+        # changes no weight
+        col0 = packed.row_index(batch_row, view, ry, h) * (w + 1) + sx
+        col1 = packed.row_index(batch_row, view,
+                                torch.clamp(ry + 1, max=h - 1), h) \
+            * (w + 1) + sx
+        taps = _pair_level_taps(flat, col0, col1, wxa, wxb, wya, wyb, lw)
+        if gmajor:        # both y taps in fp32, one add (_gmajor_forward)
+            out = out + (taps[0] + taps[1]).to(acc_dtype)
+        else:             # one add per y tap (_yfold_forward)
+            for tap in taps:
+                out = out + tap.to(acc_dtype)
     return out.reshape(q, s, p, c)
 
 
@@ -347,8 +434,8 @@ def _lib():
     if not _SIGNATURE_SET:
         vp, ci = ctypes.c_void_p, ctypes.c_int
         lib.msmv_sample_forward.argtypes = [
-            vp, vp, vp, ci, vp, vp, vp, vp, ctypes.c_longlong,
-            ci, ci, ci, ci, ci, ci, vp]
+            vp, vp, vp, vp, ci, vp, vp, vp, vp, ctypes.c_longlong,
+            ci, ci, ci, ci, ci, ci, ci, vp]
         lib.msmv_sample_forward.restype = ci
         _SIGNATURE_SET = True
     return lib
@@ -366,10 +453,16 @@ def _msmv_sampling_cuda(packed, loc, sw):
     dtype = packed.tables[0].dtype
     if dtype not in (torch.bfloat16, torch.float32):
         raise ValueError(f"msmv_sampling: no kernel for {dtype} tables")
-    for t in packed.tables:
+    for lvl, (t, (h, w)) in enumerate(zip(packed.tables,
+                                          packed.level_shapes)):
         if t.dtype != dtype or t.device != dev or not t.is_contiguous():
             raise ValueError("msmv_sampling: tables must be contiguous, of "
                              f"one dtype, on {dev}")
+        if t.dim() != 3 or t.shape[1:] != (w + 1, packed.row_width(lvl)) \
+                or t.shape[0] % h:
+            raise ValueError(f"msmv_sampling: level {lvl} table "
+                             f"{tuple(t.shape)} does not match its shape "
+                             f"{h}x{w} and mode")
     q, s, p, _ = loc.shape
     c = packed.channels
     slice_map = (torch.arange(s, device=dev) if packed.slice_map is None
@@ -381,14 +474,15 @@ def _msmv_sampling_cuda(packed, loc, sw):
         *[t.data_ptr() for t in packed.tables])
     heights = (ctypes.c_int * num_levels)(*[h for h, _ in packed.level_shapes])
     widths = (ctypes.c_int * num_levels)(*[w for _, w in packed.level_shapes])
+    yfold = (ctypes.c_int * num_levels)(*[int(v) for v in packed.yfold])
     lib = _lib()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.msmv_sample_forward(
-            tables, heights, widths, num_levels, loc.data_ptr(),
+            tables, heights, widths, yfold, num_levels, loc.data_ptr(),
             sw.data_ptr(), slice_map.data_ptr(), out.data_ptr(), q * s * p,
             s, p, packed.num_views, packed.num_groups, c,
-            int(dtype == torch.bfloat16), stream)
+            int(dtype == torch.bfloat16), int(any(packed.gsplit)), stream)
     build.check(lib, "msmv_sample", rc)
     msmv_sampling.launches += 1
     return out

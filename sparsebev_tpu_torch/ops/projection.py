@@ -84,8 +84,8 @@ def sampling_4d(sample_points_q: torch.Tensor,
 
     Args:
       sample_points_q: ``[Q, B, G, T, P, 3]`` world-space points.
-      packed: grouped y-fold tables whose slice space is (b, t, g)-ordered,
-        with an optional ring ``slice_map``.
+      packed: grouped tables (y-fold or pair per level) whose slice space
+        is (b, t, g)-ordered, with an optional ring ``slice_map``.
       scale_weights: ``[B, Q, G, T, P, L]`` softmaxed level weights.
       lidar2img: ``[B, T*N, 4, 4]``.
     Returns:
@@ -116,7 +116,8 @@ def sampling_4d(sample_points_q: torch.Tensor,
         logical = packed.slice_map.to(dev)[logical]
     view = PackedFeatures(packed.tables, b * g * t, packed.num_views,
                           packed.level_shapes, packed.channels,
-                          num_groups=packed.num_groups, slice_map=logical)
+                          num_groups=packed.num_groups, slice_map=logical,
+                          yfold=packed.yfold, gsplit=packed.gsplit)
 
     final = msmv_sampling(view, loc.contiguous(),
                           sw.float().contiguous())            # [Q, BGT, P, C]

@@ -3,7 +3,7 @@
 The port's modules use the reference state-dict key names (``img_backbone.*``,
 ``img_neck.*``, ``pts_bbox_head.*``), so :func:`state_dict_from_jax` is the
 inverse of the JAX package's torch-checkpoint porting
-(``utils/checkpoint_io.py::_port_resnet``, ``_port_fpn``,
+(``utils/checkpoint_io.py::_port_resnet``, ``_port_vovnet``, ``_port_fpn``,
 ``_port_sparsebev_head``): Linear kernels ``[in, out]`` are transposed, conv
 kernels go from HWIO to OIHW, ``in_proj_weight`` is transposed, and the BN
 ``scale/bias`` params and ``mean/var`` statistics become
@@ -71,6 +71,36 @@ def _resnet(sd, params, stats, prefix="img_backbone."):
                 s["downsample_bn"])
 
 
+def _vovnet(sd, params, stats, prefix="img_backbone."):
+    """JAX ``stem{k}`` / ``stage{n}_block{b}`` -> the reference's
+    ``stem.stem_{k}/...`` / ``stage{n}.OSA{n}_{b+1}....`` keys."""
+    def convbn(dst, p, s):
+        _conv(sd, f"{dst}/conv", p["conv"]["kernel"])
+        _bn(sd, f"{dst}/norm", p["norm"], s["norm"])
+
+    for k in (1, 2, 3):
+        convbn(f"{prefix}stem.stem_{k}", params[f"stem{k}"],
+               stats[f"stem{k}"])
+    block_re = re.compile(r"^stage(\d+)_block(\d+)$")
+    for name in params:
+        m = block_re.match(name)
+        if not m:
+            continue
+        n, b = m.group(1), int(m.group(2)) + 1
+        tag = f"OSA{n}_{b}"
+        dst = f"{prefix}stage{n}.{tag}"
+        p, s = params[name], stats[name]
+        i = 0
+        while f"layer{i}" in p:
+            convbn(f"{dst}.layers.{i}.{tag}_{i}", p[f"layer{i}"],
+                   s[f"layer{i}"])
+            i += 1
+        convbn(f"{dst}.concat.{tag}_concat", p["concat"], s["concat"])
+        if "ese" in p:
+            _conv(sd, f"{dst}.ese.fc", p["ese"]["fc"]["kernel"],
+                  p["ese"]["fc"]["bias"])
+
+
 def _fpn(sd, params, prefix="img_neck."):
     i = 0
     while f"lateral_conv{i}" in params:
@@ -120,10 +150,12 @@ def state_dict_from_jax(params: Dict[str, Any],
                         batch_stats: Dict[str, Any]) -> "OrderedDict":
     """The port's ``state_dict`` from the JAX detector's ``{params,
     batch_stats}`` trees (leaves as numpy arrays): subtrees ``backbone``
-    (ResNet), ``neck`` (FPN) and ``head`` (SparseBEVHead)."""
+    (ResNet, or VoVNet when it holds ``stem1``), ``neck`` (FPN) and
+    ``head`` (SparseBEVHead)."""
     sd: "OrderedDict[str, torch.Tensor]" = OrderedDict()
     if "backbone" in params:
-        _resnet(sd, params["backbone"], batch_stats["backbone"])
+        bb = _vovnet if "stem1" in params["backbone"] else _resnet
+        bb(sd, params["backbone"], batch_stats["backbone"])
     if "neck" in params:
         _fpn(sd, params["neck"])
     if "head" in params:

@@ -89,7 +89,8 @@ def test_chip_smoke_fails_alone(tmp_path):
     assert "sparsebev_tpu_torch" in out.stderr
 
 
-@pytest.mark.parametrize("src", ["msmv_pack", "msmv_sample"])
+@pytest.mark.parametrize("src", ["msmv_pack", "msmv_pack_pair",
+                                 "msmv_sample"])
 def test_cuda_sources_declare_their_tpu_kernel_and_bound(src):
     """Each kernel source notes the TPU function it replaces, its bound and
     its design, and exports the C entry its wrapper binds."""

@@ -77,7 +77,7 @@ def test_build_raises_without_nvcc(monkeypatch, tmp_path):
     monkeypatch.delenv("CUDA_HOME", raising=False)
     monkeypatch.delenv("CUDA_PATH", raising=False)
     with pytest.raises(RuntimeError, match="nvcc not found"):
-        build.build_all(["msmv_pack", "msmv_sample"])
+        build.build_all(["msmv_pack", "msmv_pack_pair", "msmv_sample"])
     assert os.path.isfile(os.path.join(build.CSRC_DIR, "msmv_sample.cu"))
 
 
@@ -156,16 +156,17 @@ def test_sampling_matches_jax_fp32(gsplit):
 
 
 def test_sampling_bf16_tables_match_jax():
-    """bf16 tables: bf16 output, bf16 tap products and per-level rounding
-    in the JAX order give the same bits as XLA on the CPU."""
+    """bf16 tables: bf16 output, and the roundings of the JAX order as XLA
+    applies them under ``jit`` on the CPU (weights, per-level sums and the
+    accumulator rounded; tap products kept in fp32) give the same bits."""
     rng = np.random.RandomState(3)
     _, _, jring, _, tring = _packed_pair(rng, "bfloat16", False)
     q, p, s = 9, 3, 3 * G
     loc = _locations(rng, q, s, p)
     sw = rng.rand(q, s, p, len(LEVELS)).astype(np.float32)
-    want = np.asarray(jms.msmv_sampling(jring, jnp.asarray(loc),
-                                        jnp.asarray(sw), qmajor=True)
-                      ).astype(np.float32)
+    want = np.asarray(jax.jit(lambda r: jms.msmv_sampling(
+        r, jnp.asarray(loc), jnp.asarray(sw), qmajor=True))(jring)
+    ).astype(np.float32)
     got = tms.msmv_sampling(tring, torch.from_numpy(loc),
                             torch.from_numpy(sw))
     assert got.dtype == torch.bfloat16

@@ -230,7 +230,7 @@ def test_entry_points_need_cuda_by_default():
 @pytest.mark.parametrize("override", [
     {"table_fp8": True},
     {"table_split": 2},
-    {"table_yfold": (False, True, True, True)},
+    {"table_fp8": (True, False, False, False)},
 ])
 def test_unported_table_modes_raise(override):
     cfg = copy.deepcopy(MODEL)
