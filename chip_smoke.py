@@ -7,16 +7,17 @@ Phases (any failure exits non-zero and prints no result line; each phase
 prints its wall time):
   1. environment: the card, its power limit, torch's CUDA version, nvcc,
      triton;
-  2. build every CUDA kernel of the two streaming paths from
-     ``sparsebev_tpu_torch/csrc`` (one nvcc per source, all started
-     together): the y-fold pack, the pair-mode pack and the sampling
-     forward;
-  3. each kernel at the shapes of each path that runs it against its plain
-     PyTorch version on the same inputs (bit for bit; the sampling op in
-     fp32 within 1e-5 of the output scale), timed with CUDA events beside
-     its bound and, where one PyTorch call computes the same function,
-     beside that call. At vov99 the sampling op is checked in both of its
-     accumulation orders (with and without a group-split level);
+  2. build every CUDA kernel of the port from ``sparsebev_tpu_torch/csrc``
+     (one nvcc per source, all started together): the y-fold pack, the
+     pair-mode pack, the sampling forward, the one-hot level sampler, the
+     mixing core (two entries) and the tap-fold epilogue;
+  3. the first three kernels at the shapes of each streaming path that runs
+     them against their plain PyTorch versions on the same inputs (bit for
+     bit; the sampling op in fp32 within 1e-5 of the output scale), timed
+     with CUDA events beside their bounds and, where one PyTorch call
+     computes the same function, beside that call. At vov99 the sampling op
+     is checked in both of its accumulation orders (with and without a
+     group-split level);
   4. streaming inference at full width with seeded random weights, one new
      frame per sample of a synthetic 6-camera stream, for each path:
      ``configs/r50_nuimg_704x256.py`` (12 samples, T=8, 704x256) and
@@ -24,8 +25,21 @@ prints its wall time):
      1600x640, pair level 0). The kernel launch counts are reset just
      before each path's run and read just after it; the outputs must be
      finite and match a second run of the same stream that uses the plain
-     versions;
-  5. a ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and last
+     versions. One more sample of each stream records the inputs of the
+     next phase: an ``AdaptiveMixing`` call's operands (a forward hook),
+     and at r50 one sampling call's points and the sample's T frames of
+     FPN maps;
+  5. the hybrid sampling path (``set_sampling_impl("hybrid")``,
+     ``pack_mlvl_feats`` and slice-major ``msmv_sampling``) at r50 full
+     width on those maps and points, with bf16 and fp32 features: bit for
+     bit against the same call through the plain versions and within a
+     stated tolerance of the "xla" y-fold path; the one-hot kernel per
+     level against its plain version; then the op-level entry points of the
+     other new kernels on the recorded inputs: ``mixing_core`` and
+     ``mixing_core_batched`` at r50 and vov99, ``tap_fold_epilogue`` on
+     windows gathered from the r50 ring. Each phase's launch counts are
+     reset just before its run and read just after;
+  6. a ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and last
      ``{"ok": true, "device": {...}}``.
 
 Needs one CUDA card (it uses ``cuda:0`` alone); imports nothing of JAX.
@@ -33,6 +47,7 @@ Needs one CUDA card (it uses ``cuda:0`` alone); imports nothing of JAX.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import statistics
@@ -47,7 +62,7 @@ PROFILE_SAMPLES = 4
 # and group-split flags per level, frames T, queries Q)
 PATHS = (
     dict(name="r50", config="configs/r50_nuimg_704x256.py", samples=12,
-         kernels=("pack", "sampling"),
+         kernels=("pack", "sampling"), hybrid_source=True,
          levels=[(64, 176), (32, 88), (16, 44), (8, 22)],
          yfold=(True,) * 4, gsplit=(False,) * 4, t=8, q=900),
     dict(name="vov99", config="configs/vov99_dd3d_1600x640_trainval_future.py",
@@ -59,10 +74,12 @@ PATHS = (
 # the plain versions issue up to ~100 small launches per call: keep the
 # card busy long enough (~20 ms) that all of them are queued before it idles
 PLAIN_BUSY_CYCLES = 40_000_000
-# peak device-memory rate and fp32 (non-tensor-core) rate by card
-# (NVIDIA data sheets, dense); the H100 SXM figures are the default
-_PEAKS = (("H200", 4.8e12, 67e12), ("H100 NVL", 3.9e12, 60e12),
-          ("H100 PCIe", 2.0e12, 51e12), ("H100", 3.35e12, 67e12))
+# peak device-memory rate, fp32 (non-tensor-core) rate and dense bf16
+# tensor-core rate by card (NVIDIA data sheets); H100 SXM is the default
+_PEAKS = (("H200", 4.8e12, 67e12, 989e12),
+          ("H100 NVL", 3.9e12, 60e12, 835e12),
+          ("H100 PCIe", 2.0e12, 51e12, 756e12),
+          ("H100", 3.35e12, 67e12, 989e12))
 
 
 def fail(msg: str) -> None:
@@ -75,9 +92,9 @@ def log(msg: str) -> None:
 
 
 def peaks(name: str):
-    for key, bw, fp32 in _PEAKS:
+    for key, *rates in _PEAKS:
         if key.lower() in name.lower():
-            return bw, fp32
+            return rates
     return _PEAKS[-1][1:]
 
 
@@ -447,9 +464,83 @@ def breakdown(torch, det, samples, frame_label):
             f"{e.count / n:6.1f} calls/sample  {e.key[:70]}")
 
 
+@contextlib.contextmanager
+def plain_versions():
+    """Route the CUDA branch of the pack, sampling and one-hot wrappers to
+    their plain PyTorch versions (on the card) for the duration."""
+    from sparsebev_tpu_torch.ops import msmv_onehot, msmv_pack, msmv_sampling
+    saved = (msmv_pack._pack_level_cuda, msmv_pack._pack_level_pair_cuda,
+             msmv_sampling._msmv_sampling_cuda, msmv_onehot._onehot_cuda)
+    msmv_pack._pack_level_cuda = msmv_pack.pack_level_plain
+    msmv_pack._pack_level_pair_cuda = msmv_pack.pack_level_pair_plain
+    msmv_sampling._msmv_sampling_cuda = msmv_sampling.msmv_sampling_plain
+    msmv_onehot._onehot_cuda = msmv_onehot.onehot_sample_level_plain
+    try:
+        yield
+    finally:
+        (msmv_pack._pack_level_cuda, msmv_pack._pack_level_pair_cuda,
+         msmv_sampling._msmv_sampling_cuda, msmv_onehot._onehot_cuda) = saved
+
+
+def capture_inputs(torch, det, model, stream, path):
+    """Inputs of phase 5, from one more sample of ``path``'s stream (the
+    last one streamed, its frames already in the ring): the operands
+    ``(x, m, s)`` of its first ``AdaptiveMixing`` call, recorded by a
+    forward hook as the layer computes them; for the hybrid source path
+    also its first sampling call (the ring view, query-major locations and
+    weights) and its T frames of FPN maps (``[T, N, H, W, C]`` per level,
+    the frame pass run again on those frames' pixels)."""
+    from sparsebev_tpu_torch.models.decoder import AdaptiveMixing
+    from sparsebev_tpu_torch.ops import projection
+
+    mixer = next(mod for mod in model.modules()
+                 if isinstance(mod, AdaptiveMixing))
+    cap = {}
+
+    def hook(mod, inputs, _out):
+        if "mixing" in cap:
+            return
+        x, query = inputs
+        b, q, g, p, c = x.shape
+        params = mod.parameter_generator(query).reshape(
+            b * q, g, mod.m_params + mod.s_params)
+        cap["mixing"] = (
+            x.reshape(b * q, g, p, c).to(query.dtype).contiguous(),
+            params[..., :mod.m_params].reshape(b * q, g, c, c).contiguous(),
+            params[..., mod.m_params:].reshape(
+                b * q, g, mod.out_points, mod.in_points).contiguous())
+
+    sampling = projection.msmv_sampling
+
+    def record(packed, loc, sw, *a, **k):
+        cap.setdefault("sampling", (packed, loc.clone(), sw.clone()))
+        return sampling(packed, loc, sw, *a, **k)
+
+    source = path.get("hybrid_source", False)
+    handle = mixer.register_forward_hook(hook)
+    if source:
+        projection.msmv_sampling = record
+    try:
+        det.infer(*stream[-1])
+    finally:
+        handle.remove()
+        projection.msmv_sampling = sampling
+    if not source:
+        return cap
+    last = len(stream) - 1
+    with torch.inference_mode():
+        frames = [model.extract_feat(model.preprocess(torch.from_numpy(
+            stream[max(last - j, 0)][0]).to(det.device)))
+            for j in range(det.num_frames)]
+    cap["fpn"] = [torch.stack([f[lvl][0] for f in frames])
+                  for lvl in range(len(frames[0]))]
+    return cap
+
+
 def streaming_phase(torch, dev, path):
     """Stream ``path``'s config at full width; returns the launch count of
-    every kernel in this run and the median ms/sample."""
+    every kernel in this run, the median ms/sample and the inputs that
+    :func:`capture_inputs` recorded."""
     from sparsebev_tpu_torch.bbox.nms_free_coder import build_coder
     from sparsebev_tpu_torch.config import Config
     from sparsebev_tpu_torch.inference import StreamingDetector
@@ -465,6 +556,9 @@ def streaming_phase(torch, dev, path):
     image_h, image_w = cfg.ida_aug_conf["final_dim"]
     num_samples = path["samples"]
     name = path["name"]
+    # device memory that earlier phases still hold (the inputs recorded for
+    # phase 5): the path's peak is counted above it
+    held = torch.cuda.memory_allocated(dev)
     model = build_detector(cfg, device=dev, seed=0)
     coder = build_coder(cfg)
     stream = make_stream(num_samples + PROFILE_SAMPLES, t, image_h, image_w)
@@ -487,7 +581,7 @@ def streaming_phase(torch, dev, path):
             c.launches = 0
         times, preds = run_stream(torch, det, samples)
         launches = {k: c.launches for k, c in counters.items()}
-    peak = torch.cuda.max_memory_allocated(dev)
+    peak = torch.cuda.max_memory_allocated(dev) - held
     log(f"streaming [{name}]: kernel launches "
         + " ".join(f"{k}={v}" for k, v in launches.items()))
     for k in path["kernels"]:
@@ -511,39 +605,36 @@ def streaming_phase(torch, dev, path):
         + " ".join(f"{x:.2f}" for x in times))
     log(f"streaming [{name}]: median {ms:.3f} ms/sample over samples "
         f"1..{len(times) - 1} ({1e3 / ms:.2f} FPS); sample 0 "
-        f"{times[0]:.1f} ms; peak memory {peak / 2**30:.2f} GiB; "
+        f"{times[0]:.1f} ms; peak memory {peak / 2**30:.2f} GiB (above "
+        f"{held / 2**30:.2f} GiB held by earlier phases); "
         f"{int(dec['mask'].sum())} of {dec['mask'].numel()} decoded boxes "
         "pass the score threshold")
     modes = "".join("y" if yf else "p" for yf in model.pts_bbox_head
                     .table_yfold)
     breakdown(torch, det, stream[num_samples:],
               f"normalize, {label}, FPN, packs {modes}")
+    captured = capture_inputs(torch, det, model, stream, path)
     del det
     torch.cuda.empty_cache()
 
     # the same stream with the plain versions of the kernels on the card
-    saved = (msmv_pack._pack_level_cuda, msmv_pack._pack_level_pair_cuda,
-             msmv_sampling._msmv_sampling_cuda,
-             projection.project_points_qmajor)
+    project = projection.project_points_qmajor
     valid = []
 
     def project_and_count(*a, **k):
-        loc, v = saved[3](*a, **k)
+        loc, v = project(*a, **k)
         valid.append(v.mean().item())
         return loc, v
 
-    msmv_pack._pack_level_cuda = msmv_pack.pack_level_plain
-    msmv_pack._pack_level_pair_cuda = msmv_pack.pack_level_pair_plain
-    msmv_sampling._msmv_sampling_cuda = msmv_sampling.msmv_sampling_plain
     projection.project_points_qmajor = project_and_count
     try:
-        plain_det = StreamingDetector(model, num_frames=t, device=dev)
-        _, plain_preds = run_stream(torch, plain_det, samples, prefetch=False)
-        del plain_det
+        with plain_versions():
+            plain_det = StreamingDetector(model, num_frames=t, device=dev)
+            _, plain_preds = run_stream(torch, plain_det, samples,
+                                        prefetch=False)
+            del plain_det
     finally:
-        (msmv_pack._pack_level_cuda, msmv_pack._pack_level_pair_cuda,
-         msmv_sampling._msmv_sampling_cuda,
-         projection.project_points_qmajor) = saved
+        projection.project_points_qmajor = project
     log(f"streaming [{name}]: share of sampling points that land in a view: "
         f"{statistics.mean(valid):.3f}")
     if statistics.mean(valid) < 0.2:
@@ -569,7 +660,349 @@ def streaming_phase(torch, dev, path):
         f"samples (worst {worst:.3g} of the tolerance; bit-equal: {exact})")
     del model, preds, plain_preds
     torch.cuda.empty_cache()
-    return launches, ms
+    return launches, ms, captured
+
+
+# ------------------------------------------------------------- phase 5 --
+
+# hybrid vs "xla" path on the same inputs: the one-hot levels take bf16
+# tables (for fp32 features, a rounding of every tap), bf16 y and x weights
+# and round each column's weighted taps to bf16 (JAX msmv_pallas.py
+# :119-125, :81), where the y-fold path keeps fp32 (bf16 features: bf16
+# x weights only); with a bf16 accumulator each level's sum rounds too. A
+# few bf16 roundings of values up to the output scale, hence 2^-5 of it.
+HYBRID_VS_XLA_TOL = 2.0 ** -5
+# tap fold vs the sampling op on the same points: the epilogue takes the x
+# weights in fp32 and sums the levels in fp32 with one rounding at the end;
+# the bf16 op rounds the x weights to bf16 and each level's sum into a bf16
+# accumulator: again a few bf16 roundings (2^-5 of the output scale). In
+# fp32 only the order of the fp32 sums differs (1e-5 of the scale).
+TAP_FOLD_VS_SAMPLING_TOL = {"bfloat16": 2.0 ** -5, "float32": 1e-5}
+# mixing kernels vs plain: fp32 sums in another order. fp32: 1e-5 of the
+# output scale. bf16: h1 and the output are rounded to bf16, so an fp32
+# difference across a rounding boundary flips one bf16 ulp (2^-7 of the
+# value at most) of h1, which the second product and LN carry on, or of the
+# output: 2^-7 of each value plus 2^-8 of the output scale.
+MIXING_TOL = {"float32": (0.0, 1e-5), "bfloat16": (2.0 ** -7, 2.0 ** -8)}
+
+
+def _slice_feats(fpn, groups):
+    """Per-level FPN maps ``[T, N, H, W, G*Cg]`` -> ``[G*T, N, H, W, Cg]``:
+    slice ``g*T + t`` is group g of frame t, the slice order of the
+    decoder's locations (``project_points_qmajor``)."""
+    out = []
+    for f in fpn:
+        t, n, h, w, c = f.shape
+        out.append(f.reshape(t, n, h, w, groups, c // groups)
+                   .permute(4, 0, 1, 2, 3, 5)
+                   .reshape(groups * t, n, h, w, c // groups).contiguous())
+    return out
+
+
+def hybrid_phase(torch, flush, bw, cap):
+    """This slice's path at r50 full width: ``set_sampling_impl("hybrid")``,
+    ``pack_mlvl_feats`` and slice-major ``msmv_sampling`` on the recorded
+    FPN maps (split into G groups) and one decoder layer's points, with bf16
+    and fp32 features. Returns the launch counts of the path's runs and the
+    one-hot kernel's numbers (each MXU level against its plain version)."""
+    from sparsebev_tpu_torch.ops import msmv_onehot, msmv_pack
+    from sparsebev_tpu_torch.ops import msmv_sampling as ms
+    _, loc_q, sw_q = cap["sampling"]
+    loc = loc_q.transpose(0, 1).contiguous()           # [S, Q, P, 3]
+    sw = sw_q.transpose(0, 1).contiguous()             # [S, Q, P, L]
+    s, q, p, _ = loc.shape
+    t = cap["fpn"][0].shape[0]
+    feats = _slice_feats(cap["fpn"], s // t)
+    counters = dict(pack=msmv_pack.pack_level, sampling=ms.msmv_sampling,
+                    onehot=msmv_onehot.onehot_sample_level)
+    launches = dict.fromkeys(counters, 0)
+
+    def run(fs, impl):
+        ms.set_sampling_impl(impl)
+        return ms.msmv_sampling(ms.pack_mlvl_feats(fs), loc, sw, qmajor=False)
+
+    try:
+        for dtype in (torch.bfloat16, torch.float32):
+            fs = [f.to(dtype) for f in feats]
+            dname = str(dtype)[6:]
+            for c in counters.values():
+                c.launches = 0
+            got = run(fs, "hybrid")
+            torch.cuda.synchronize()
+            for k, c in counters.items():
+                launches[k] += c.launches
+            packed = ms.pack_mlvl_feats(fs)
+            mxu = [lvl for lvl, m in enumerate(packed.mxu_tables)
+                   if m is not None]
+            acc = torch.float32 if packed.tables[0] is None else dtype
+            if tuple(got.shape) != (s, q, p, feats[0].shape[-1]) \
+                    or got.dtype != acc or mxu != [1, 2, 3]:
+                fail(f"hybrid path: output {tuple(got.shape)} {got.dtype}, "
+                     f"one-hot levels {mxu}")
+            if not bool(torch.isfinite(got).all()):
+                fail("hybrid path: non-finite output")
+            with plain_versions():
+                plain = run(fs, "hybrid")
+            xla = run(fs, "xla")
+            torch.cuda.synchronize()
+            if not _bit_equal(torch, got, plain):
+                d = (got.float() - plain.float()).abs().max().item()
+                fail(f"hybrid path ({dname}) differs from its plain run "
+                     f"(max {d:.4g})")
+            d = (got.float() - xla.float()).abs().max().item()
+            scale = xla.float().abs().max().item()
+            log(f"hybrid [r50] {dname} features: one-hot levels {mxu}, "
+                f"y-fold levels {[lvl for lvl in range(len(packed.tables)) if lvl not in mxu]}; "
+                f"bit-equal to the plain run; max|hybrid - xla| = {d:.4g} "
+                f"(output scale {scale:.4g}, tolerance "
+                f"{HYBRID_VS_XLA_TOL * scale:.4g}); mean "
+                f"{(got.float() - xla.float()).abs().mean().item():.3g}")
+            if not d <= HYBRID_VS_XLA_TOL * scale:
+                fail(f"hybrid path ({dname}) is too far from the xla path")
+            ms.set_sampling_impl("xla")
+            packed_x = ms.pack_mlvl_feats(fs)
+            busy = PLAIN_BUSY_CYCLES      # each of these makes many launches
+            times = dict(
+                hybrid=time_ms(torch, lambda: run(fs, "hybrid"), 20, flush,
+                               busy),
+                xla=time_ms(torch, lambda: run(fs, "xla"), 20, flush, busy),
+                hybrid_sampling=time_ms(torch, lambda: ms.msmv_sampling(
+                    packed, loc, sw, qmajor=False), 20, flush, busy),
+                xla_sampling=time_ms(torch, lambda: ms.msmv_sampling(
+                    packed_x, loc, sw, qmajor=False), 20, flush, busy))
+            log(f"hybrid [r50] {dname} features: pack + sampling "
+                f"{times['hybrid']:.4f} ms (xla path {times['xla']:.4f} ms); "
+                f"sampling alone {times['hybrid_sampling']:.4f} ms (xla "
+                f"{times['xla_sampling']:.4f} ms)")
+            del got, plain, xla, packed_x
+        onehot = check_onehot(torch, flush, bw, packed, loc, sw)
+    finally:
+        ms.set_sampling_impl("xla")
+    log("hybrid [r50]: kernel launches "
+        + " ".join(f"{k}={v}" for k, v in launches.items()))
+    for k, v in launches.items():
+        if v <= 0:
+            fail(f"kernel {k} of the hybrid path was never launched")
+    return launches, onehot
+
+
+def check_onehot(torch, flush, bw, packed, loc, sw):
+    """The one-hot kernel at each MXU level of the hybrid pack against its
+    plain version, bit for bit, timed. The bound counts the table runs
+    (C bf16 values) that these points touch with a nonzero weight, read
+    once, 28 bytes of per-point arguments and the fp32 output."""
+    from sparsebev_tpu_torch.ops import msmv_sampling as ms
+    from sparsebev_tpu_torch.ops.msmv_onehot import (
+        onehot_sample_level, onehot_sample_level_plain)
+    s, q, p, _ = loc.shape
+    k, c = s * q * p, packed.channels
+    x, y = loc[..., 0].reshape(k), loc[..., 1].reshape(k)
+    view = ms._view_index(loc[..., 2].reshape(k), packed.num_views)
+    si = torch.arange(s, device=loc.device).repeat_interleave(q * p)
+    ms_total = plain_total = nbytes = 0.0
+    for lvl, table in enumerate(packed.mxu_tables):
+        if table is None:
+            continue
+        h, w = packed.level_shapes[lvl]
+        args = [a.reshape(s, q * p).contiguous()
+                for a in ms._onehot_level_weights(
+                    x, y, view, sw[..., lvl].reshape(k).float(), h, w)]
+        got = onehot_sample_level(table, *args, w=w, c=c)
+        want = onehot_sample_level_plain(table, *args, w=w, c=c)
+        torch.cuda.synchronize()
+        if not _bit_equal(torch, got, want):
+            d = (got - want).abs().max().item()
+            fail(f"one-hot kernel differs from its plain version at level "
+                 f"{lvl} ({h}x{w}, max {d:.4g})")
+        kern = time_ms(torch, lambda: onehot_sample_level(table, *args, w=w,
+                                                          c=c), 30, flush)
+        plain = time_ms(torch, lambda: onehot_sample_level_plain(
+            table, *args, w=w, c=c), 20, flush, PLAIN_BUSY_CYCLES)
+        rows0, rows1, wy0, wy1, x0, wx0, wx1 = [a.reshape(k) for a in args]
+        nh = table.shape[1]
+        keys = []
+        for rows, wy in ((rows0, wy0), (rows1, wy1)):
+            for dx, wx in ((0, wx0), (1, wx1)):
+                live = (wy != 0) & (wx != 0)
+                keys.append(((si * nh + rows.long()) * w + x0.long()
+                             + dx)[live])
+        touched = torch.unique(torch.cat(keys)).numel() * c * 2
+        lvl_bytes = touched + k * (28 + 4 * c)
+        log(f"onehot [hybrid] level {lvl} ({h}x{w}, {table.numel() * 2 / 1e6:.1f}"
+            f" MB table): bit-equal to plain; {kern:.4f} ms (plain "
+            f"{plain:.4f} ms), bound {lvl_bytes / bw * 1e3:.4f} ms "
+            f"({touched / 1e6:.1f} MB of the table touched, "
+            f"{lvl_bytes / 1e6:.1f} MB in all)")
+        ms_total += kern
+        plain_total += plain
+        nbytes += lvl_bytes
+    return dict(max_abs_err=0.0, ms=ms_total, plain_ms=plain_total,
+                bound_ms=nbytes / bw * 1e3, bound_by="bytes",
+                library_ms=None)
+
+
+def _gather_windows(torch, packed, loc, sw):
+    """The y-fold windows ``[K, 2, 2C]`` of every level at these query-major
+    points and their weights ``[K, 4]`` = (wxa, wxb, wya*lw, wyb*lw)."""
+    from sparsebev_tpu_torch.ops import msmv_sampling as ms
+    q, s, p, _ = loc.shape
+    k, c = q * s * p, packed.channels
+    x, y = loc[..., 0].reshape(k), loc[..., 1].reshape(k)
+    view = ms._view_index(loc[..., 2].reshape(k), packed.num_views)
+    batch_row = packed.slice_map.to(torch.int64).repeat_interleave(p) \
+        .repeat(q)
+    lw = sw.reshape(k, -1)
+    gathered, weights = [], []
+    for lvl, (h, w) in enumerate(packed.level_shapes):
+        sx, ry, (wxa, wxb), (wya, wyb) = ms._separable_slot_weights(
+            x * (w - 1), y * (h - 1), h, w)
+        flat = packed.tables[lvl].reshape(-1, 2 * c)
+        col = packed.row_index(batch_row, view, ry, h) * (w + 1) + sx
+        gathered.append(torch.stack([flat[col], flat[col + 1]], 1))
+        weights.append(torch.stack([wxa, wxb, wya * lw[:, lvl],
+                                    wyb * lw[:, lvl]], 1).contiguous())
+    return gathered, weights
+
+
+def check_tap_fold(torch, flush, bw, fp32_rate, cap):
+    """``tap_fold_epilogue`` on the windows of the r50 ring at one decoder
+    layer's points (K = Q*T*G*P, L = 4): its entry point once (counted),
+    bf16 and fp32 windows bit for bit against the plain version, and
+    within a stated tolerance of the sampling op on the same points."""
+    from sparsebev_tpu_torch.ops import msmv_sampling as ms
+    from sparsebev_tpu_torch.ops.msmv_epilogue import (
+        tap_fold_epilogue, tap_fold_epilogue_plain)
+    packed, loc, sw = cap["sampling"]
+    if not all(packed.yfold):
+        fail("tap fold: the r50 ring should hold y-fold levels only")
+    c = packed.channels
+    gathered, weights = _gather_windows(torch, packed, loc, sw)
+    k = weights[0].shape[0]
+    tap_fold_epilogue.launches = 0
+    first = tap_fold_epilogue(gathered, weights, c, torch.bfloat16)
+    torch.cuda.synchronize()
+    launches = tap_fold_epilogue.launches
+    if launches <= 0 or not bool(torch.isfinite(first).all()):
+        fail("tap fold: the kernel was not launched or gave non-finite values")
+    fp32_packed = ms.PackedFeatures(
+        [t.float() for t in packed.tables], packed.batch, packed.num_views,
+        packed.level_shapes, c, num_groups=packed.num_groups,
+        slice_map=packed.slice_map, yfold=packed.yfold)
+    err = 0.0
+    for dtype, pk in ((torch.bfloat16, packed), (torch.float32, fp32_packed)):
+        dname = str(dtype)[6:]
+        gs = [g.to(dtype) for g in gathered]
+        got = tap_fold_epilogue(gs, weights, c, dtype)
+        want = tap_fold_epilogue_plain(gs, weights, c, dtype)
+        ref = ms.msmv_sampling(pk, loc, sw).reshape(k, c)
+        torch.cuda.synchronize()
+        if not _bit_equal(torch, got, want):
+            fail(f"tap fold kernel ({dname}) differs from its plain version")
+        d = (got.float() - ref.float()).abs().max().item()
+        scale = ref.float().abs().max().item()
+        tol = TAP_FOLD_VS_SAMPLING_TOL[dname] * scale
+        log(f"tap_fold [r50] {dname} windows: bit-equal to plain; "
+            f"max|fold - sampling op| = {d:.4g} (output scale {scale:.4g}, "
+            f"tolerance {tol:.4g})")
+        if not d <= tol:
+            fail(f"tap fold ({dname}) is too far from the sampling op")
+        err = max(err, d)
+        del gs, got, want, ref
+    ms_k = time_ms(torch, lambda: tap_fold_epilogue(
+        gathered, weights, c, torch.bfloat16), 30, flush)
+    plain_ms = time_ms(torch, lambda: tap_fold_epilogue_plain(
+        gathered, weights, c, torch.bfloat16), 20, flush, PLAIN_BUSY_CYCLES)
+    nbytes = sum(g.numel() * 2 + w.numel() * 4
+                 for g, w in zip(gathered, weights)) + k * c * 2
+    flops = k * len(gathered) * 10 * c + k * c
+    bound_ms = max(nbytes / bw, flops / fp32_rate) * 1e3
+    bound_by = "bytes" if nbytes / bw >= flops / fp32_rate else "operations"
+    log(f"tap_fold [r50] bf16: K={k}, {len(gathered)} levels: {ms_k:.4f} ms "
+        f"(plain {plain_ms:.4f} ms), bound {bound_ms:.4f} ms by {bound_by} "
+        f"({nbytes / 1e6:.1f} MB); launches in its run: {launches}")
+    return {"tap_fold": launches}, dict(
+        max_abs_err=err, ms=ms_k, plain_ms=plain_ms, bound_ms=bound_ms,
+        bound_by=bound_by, library_ms=None)
+
+
+def check_mixing(torch, flush, bw, fp32_rate, bf16_rate, name, xms):
+    """``mixing_core`` (two-pass) and ``mixing_core_batched`` (one-pass) on
+    one ``AdaptiveMixing`` call's operands of the ``name`` stream, as
+    recorded (bf16) and in fp32: each entry point once (counted), then
+    against the plain version within ``MIXING_TOL``, timed beside the
+    decoder's own chain (two ``torch.matmul`` and two ``_ln2d``)."""
+    from sparsebev_tpu_torch.models.decoder import _ln2d
+    from sparsebev_tpu_torch.ops import mixing
+    torch.backends.cuda.matmul.allow_tf32 = False
+    x, m, s = xms
+    n, g, p, c = x.shape
+    o = s.shape[2]
+    entries = dict(mixing=(mixing.mixing_core, "twopass"),
+                   mixing_batched=(mixing.mixing_core_batched, "onepass"))
+    launches = dict.fromkeys(entries, 0)
+    err = dict.fromkeys(entries, 0.0)
+    result = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        dname = str(dtype)[6:]
+        xd, md, sd = (t.to(dtype).contiguous() for t in (x, m, s))
+        for fn, _ in entries.values():
+            fn.launches = 0
+        outs = {key: fn(xd, md, sd) for key, (fn, _) in entries.items()}
+        torch.cuda.synchronize()
+        for key, (fn, _) in entries.items():
+            launches[key] += fn.launches
+        rtol, atol = MIXING_TOL[dname]
+        for key, (fn, stats) in entries.items():
+            got = outs[key]
+            want = mixing.mixing_core_plain(xd, md, sd, stats=stats)
+            torch.cuda.synchronize()
+            if got.dtype != dtype or tuple(got.shape) != (n, g, o, c) \
+                    or not bool(torch.isfinite(got).all()):
+                fail(f"{key} [{name}]: output {tuple(got.shape)} {got.dtype}")
+            diff = (got.float() - want.float()).abs()
+            scale = max(1.0, want.float().abs().max().item())
+            bad = diff > rtol * want.float().abs() + atol * scale
+            log(f"{key} [{name}] {dname}: max|kernel - plain| = "
+                f"{diff.max().item():.4g} (output scale {scale:.4g}), "
+                f"{int((diff > 0).sum())} of {diff.numel()} differ, "
+                f"{int(bad.sum())} beyond the tolerance")
+            if bool(bad.any()):
+                fail(f"{key} kernel [{name}, {dname}] differs from its plain "
+                     "version beyond the tolerance")
+            err[key] = max(err[key], diff.max().item())
+
+        def chain():
+            h = torch.matmul(xd, md)
+            h = torch.relu(_ln2d(h)).to(dtype)
+            return torch.relu(_ln2d(torch.matmul(sd, h))).to(dtype)
+
+        items = n * g
+        nbytes = (xd.numel() + md.numel() + sd.numel() + items * o * c) \
+            * xd.element_size()
+        flops = 2 * items * (p * c * c + o * p * c)
+        rate = bf16_rate if dtype == torch.bfloat16 else fp32_rate
+        bound_ms = max(nbytes / bw, flops / rate) * 1e3
+        bound_by = "bytes" if nbytes / bw >= flops / rate else "operations"
+        chain_ms = time_ms(torch, chain, 20, flush, PLAIN_BUSY_CYCLES)
+        for key, (fn, stats) in entries.items():
+            kern = time_ms(torch, lambda: fn(xd, md, sd), 30, flush)
+            plain = time_ms(torch, lambda: mixing.mixing_core_plain(
+                xd, md, sd, stats=stats), 20, flush, PLAIN_BUSY_CYCLES)
+            log(f"{key} [{name}] {dname}: {items} items (BQ={n}, G={g}, "
+                f"P={p}, C={c}, O={o}) "
+                f"{kern:.4f} ms (plain {plain:.4f} ms; the decoder's chain "
+                f"{chain_ms:.4f} ms), bound {bound_ms:.4f} ms by {bound_by} "
+                f"({nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP)")
+            if dtype == torch.bfloat16:
+                result[key] = dict(ms=kern, plain_ms=plain, bound_ms=bound_ms,
+                                   bound_by=bound_by, library_ms=None,
+                                   chain_ms=chain_ms)
+        del xd, md, sd, outs
+    for key, v in launches.items():
+        if v <= 0:
+            fail(f"kernel {key} was never launched in its run [{name}]")
+        result[key]["max_abs_err"] = err[key]
+    return launches, result
 
 
 KERNELS = dict(
@@ -582,6 +1015,18 @@ KERNELS = dict(
     sampling=dict(name="msmv_sample_forward", route="cuda",
                   source="sparsebev_tpu_torch/csrc/msmv_sample.cu",
                   replaces="sparsebev_tpu/ops/msmv_sampling.py:1011"),
+    onehot=dict(name="msmv_onehot_sample_level", route="cuda",
+                source="sparsebev_tpu_torch/csrc/msmv_onehot.cu",
+                replaces="sparsebev_tpu/ops/msmv_pallas.py:89"),
+    mixing=dict(name="mixing_core_twopass", route="cuda",
+                source="sparsebev_tpu_torch/csrc/mixing.cu",
+                replaces="sparsebev_tpu/ops/mixing_pallas.py:74"),
+    mixing_batched=dict(name="mixing_core_onepass", route="cuda",
+                        source="sparsebev_tpu_torch/csrc/mixing.cu",
+                        replaces="sparsebev_tpu/ops/mixing_pallas.py:160"),
+    tap_fold=dict(name="tap_fold_epilogue", route="cuda",
+                  source="sparsebev_tpu_torch/csrc/tap_fold.cu",
+                  replaces="sparsebev_tpu/ops/msmv_epilogue_pallas.py:73"),
 )
 _CHECKS = dict(pack=check_pack, pack_pair=check_pack_pair,
                sampling=check_sampling)
@@ -589,20 +1034,26 @@ _CHECKS = dict(pack=check_pack, pack_pair=check_pack_pair,
 
 def kernels_line(measured, launches):
     """The ``{"kernels": [...]}`` object: per kernel its launches summed
-    over the paths (and per path), and its numbers. The headline numbers
-    are those of the first path that runs the kernel (r50 for the kernels
-    of the first slice); every path's are under ``by_path``."""
+    over the runs that drive it (streaming paths, the hybrid path, the
+    op-level runs; per run under ``launches_by_path``), and its numbers.
+    The headline numbers are those of the first path that measured the
+    kernel (r50 where it runs there); every path's are under ``by_path``.
+    The mixing rows add ``chain_ms``, the decoder's own chain on the same
+    inputs (a yardstick, not a library call)."""
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     rows = []
     for k, info in KERNELS.items():
         by_path = measured[k]
         head = by_path[next(iter(by_path))]
+        extra = {key: v for key, v in head.items()
+                 if key not in keys and key != "max_abs_err"}
         rows.append(dict(
             info,
-            launches=sum(launches[p][k] for p in launches),
+            launches=sum(run.get(k, 0) for run in launches.values()),
             max_abs_err=max(m["max_abs_err"] for m in by_path.values()),
-            **{key: head[key] for key in keys},
-            launches_by_path={p: launches[p][k] for p in launches},
+            **{key: head[key] for key in keys}, **extra,
+            launches_by_path={p: run[k] for p, run in launches.items()
+                              if k in run},
             by_path={p: {key: m[key] for key in keys}
                      for p, m in by_path.items()}))
     return {"kernels": rows}
@@ -642,12 +1093,14 @@ def main() -> int:
     log(f"env: {smi}; torch {torch.__version__} CUDA {torch.version.cuda}; "
         f"nvcc {nvcc_msg}; import triton: {triton_ok}")
     log(f"env: {visible} card(s) visible; this run uses cuda:0 alone")
-    bw, fp32_rate = peaks(name)
+    bw, fp32_rate, bf16_rate = peaks(name)
     log(f"env: bound rates for {name}: {bw / 1e12:.2f} TB/s, "
-        f"{fp32_rate / 1e12:.0f} TFLOP/s fp32")
+        f"{fp32_rate / 1e12:.0f} TFLOP/s fp32, {bf16_rate / 1e12:.0f} "
+        "TFLOP/s bf16 tensor cores")
 
     t0 = time.perf_counter()
-    sources = ["msmv_pack", "msmv_pack_pair", "msmv_sample"]
+    sources = ["msmv_pack", "msmv_pack_pair", "msmv_sample", "msmv_onehot",
+               "mixing", "tap_fold"]
     try:
         logs = build.build_all(sources)
     except RuntimeError as e:
@@ -672,12 +1125,36 @@ def main() -> int:
     torch.cuda.empty_cache()
     log(f"phase: kernel checks took {time.perf_counter() - t0:.1f} s")
 
-    launches = {}
+    launches, captured = {}, {}
     for path in PATHS:
         t0 = time.perf_counter()
-        launches[path["name"]], _ = streaming_phase(torch, dev, path)
+        launches[path["name"]], _, captured[path["name"]] = streaming_phase(
+            torch, dev, path)
         log(f"phase: streaming [{path['name']}] took "
             f"{time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    flush = torch.empty(64 * 2**20, dtype=torch.int32, device=dev)
+    source = next(p["name"] for p in PATHS if p.get("hybrid_source"))
+    with torch.inference_mode():
+        launches["hybrid"], measured["onehot"]["hybrid"] = hybrid_phase(
+            torch, flush, bw, captured[source])
+    log(f"phase: hybrid path took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        for path in PATHS:
+            pname = path["name"]
+            launches[f"mixing {pname}"], res = check_mixing(
+                torch, flush, bw, fp32_rate, bf16_rate, pname,
+                captured[pname].pop("mixing"))
+            for key, m in res.items():
+                measured[key][pname] = m
+        launches[f"tap_fold {source}"], measured["tap_fold"][source] = \
+            check_tap_fold(torch, flush, bw, fp32_rate, captured[source])
+    del flush, captured
+    torch.cuda.empty_cache()
+    log(f"phase: mixing and tap fold checks took "
+        f"{time.perf_counter() - t0:.1f} s")
 
     log(json.dumps(kernels_line(measured, launches)))
     log(smi)

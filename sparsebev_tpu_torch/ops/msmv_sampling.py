@@ -37,10 +37,18 @@ its bf16 weight is kept in fp32 (where it is exact) instead of being rounded
 to bf16. The weights, each level's sum and the bf16 accumulator are rounded
 as written. (Run op by op, outside ``jit``, JAX rounds the products too.)
 
-Not in this slice: chunk-split rings (``table_split > 1``), fp8 rings
-(``table_fp8``) — configs that ask for them are refused by
-``models/head.py::check_table_options`` — and the hybrid one-hot sampler
-(``set_sampling_impl``).
+The hybrid entry point (``set_sampling_impl("hybrid")``, JAX :51-64):
+:func:`pack_mlvl_feats` then keeps every level of at most
+``_MXU_LEVEL_MAX_ELEMS`` elements per sample as a bf16 ``[B, N*H, W*C]``
+table (``PackedFeatures.mxu_tables``), and :func:`msmv_sampling` given such
+tables takes slice-major points and samples those levels with
+``msmv_onehot.onehot_sample_level`` (``csrc/msmv_onehot.cu``), the others with
+the y-fold kernel. As in the JAX package, the model path never gets there:
+``projection.sampling_4d`` warns and packs without MXU tables.
+
+Not in this slice: chunk-split rings (``table_split > 1``) and fp8 rings
+(``table_fp8``); configs that ask for them are refused by
+``models/head.py::check_table_options``.
 """
 
 from __future__ import annotations
@@ -51,17 +59,26 @@ from typing import Optional, Sequence
 import torch
 
 from ..kernels import build
+from .msmv_onehot import onehot_sample_level
 from .msmv_pack import pack_level, pack_level_pair
+
+# sampling implementation: "xla" (y-fold tables for every level; the
+# default) or "hybrid" (pack_mlvl_feats keeps the small levels as bf16
+# tables for the one-hot sampler; inference only)
+_SAMPLING_IMPL = "xla"
+# a level goes to the one-hot sampler when N*H*W*C is at most this
+_MXU_LEVEL_MAX_ELEMS = 2_200_000
 
 
 def set_sampling_impl(name: str) -> None:
-    """Only the y-fold path exists in the port (the JAX default, "xla")."""
-    if name == "hybrid":
-        raise NotImplementedError(
-            "the hybrid one-hot sampler (sparsebev_tpu/ops/msmv_pallas.py) is "
-            "not ported yet (ROADMAP Queue 2 item 7)")
-    if name != "xla":
+    global _SAMPLING_IMPL
+    if name not in ("xla", "hybrid"):
         raise ValueError(f"unknown sampling impl {name!r}")
+    _SAMPLING_IMPL = name
+
+
+def get_sampling_impl() -> str:
+    return _SAMPLING_IMPL
 
 
 def _per_level(spec, n, name):
@@ -93,14 +110,17 @@ class PackedFeatures:
     ``gsplit`` (a bool or one flag per level) marks the group-split levels of
     the JAX layout; here it only selects the pair-level accumulation order
     (see the module docstring). ``tables`` may hold ``None`` entries in a
-    geometry-only copy (:meth:`meta`).
+    geometry-only copy (:meth:`meta`) and for the levels that
+    ``mxu_tables`` (hybrid impl only, :func:`pack_mlvl_feats`) holds as bf16
+    ``[B, N*H, W*C]`` tables.
     """
 
     def __init__(self, tables, batch: int, num_views: int, level_shapes,
                  channels: int, num_groups: int = 1,
                  slice_map: Optional[torch.Tensor] = None, yfold=True,
-                 gsplit=False):
+                 gsplit=False, mxu_tables=()):
         self.tables = tuple(tables)
+        self.mxu_tables = tuple(mxu_tables)
         self.batch = batch
         self.num_views = num_views
         self.level_shapes = tuple(tuple(s) for s in level_shapes)
@@ -134,6 +154,29 @@ class PackedFeatures:
                               self.channels, self.num_groups,
                               yfold=self.yfold,
                               gsplit=self.gsplit if gsplit is None else gsplit)
+
+
+def pack_mlvl_feats(mlvl_feats: Sequence[torch.Tensor]) -> PackedFeatures:
+    """Pack pyramids ``[B, N, H, W, C]`` (slice-major, one group) for
+    :func:`msmv_sampling`: y-fold tables ``[B*N*H, W+1, 2C]`` (one
+    :func:`~.msmv_pack.pack_level` call each, G = 1). Under the "hybrid" impl
+    a level with ``N*H*W*C <= _MXU_LEVEL_MAX_ELEMS`` is kept instead as a bf16
+    ``[B, N*H, W*C]`` table for the one-hot sampler (JAX :163-183)."""
+    b, n = mlvl_feats[0].shape[0], mlvl_feats[0].shape[1]
+    c = mlvl_feats[0].shape[-1]
+    hybrid = _SAMPLING_IMPL == "hybrid"
+    tables, shapes, mxu = [], [], []
+    for feat in mlvl_feats:
+        h, w = feat.shape[2], feat.shape[3]
+        if hybrid and n * h * w * c <= _MXU_LEVEL_MAX_ELEMS:
+            mxu.append(feat.reshape(b, n * h, w * c).to(torch.bfloat16))
+            tables.append(None)
+        else:
+            mxu.append(None)
+            t = pack_level(feat.reshape(b * n, h, w, c), 1)
+            tables.append(t.reshape(b * n * h, w + 1, 2 * c))
+        shapes.append((h, w))
+    return PackedFeatures(tables, b, n, shapes, c, mxu_tables=mxu)
 
 
 def pack_mlvl_feats_grouped(mlvl_feats: Sequence[torch.Tensor],
@@ -411,13 +454,105 @@ def msmv_sampling_plain(packed: PackedFeatures,
     return out.reshape(q, s, p, c)
 
 
+def _onehot_level_weights(x, y, view, lw, h, w):
+    """Per-point arguments of :func:`~.msmv_onehot.onehot_sample_level` for
+    one level (the JAX hybrid branch, :1096-1115): the rows of the two y
+    taps, their weights with ``lw`` folded in, the left column of a window
+    clipped to ``[0, W-2]`` and its two columns' weights, remapped at both
+    image edges."""
+    x_pix = _clamp_pixels(x * (w - 1), w)
+    y_pix = _clamp_pixels(y * (h - 1), h)
+    x0f = torch.floor(x_pix)
+    y0f = torch.floor(y_pix)
+    lx = x_pix - x0f
+    ly = y_pix - y0f
+    ix0 = x0f.to(torch.int64)
+    iy0 = y0f.to(torch.int64)
+    inx0 = (ix0 >= 0) & (ix0 <= w - 1)
+    inx1 = (ix0 + 1 >= 0) & (ix0 + 1 <= w - 1)
+    iny0 = (iy0 >= 0) & (iy0 <= h - 1)
+    iny1 = (iy0 + 1 >= 0) & (iy0 + 1 <= h - 1)
+    wy0 = (1.0 - ly) * iny0 * lw
+    wy1 = ly * iny1 * lw
+    zero = torch.zeros_like(lx)
+    s0 = ix0.clamp(0, w - 2)
+    wx0 = (torch.where(s0 == ix0, (1.0 - lx) * inx0, zero)
+           + torch.where(s0 == ix0 + 1, lx * inx1, zero))
+    wx1 = (torch.where(s0 + 1 == ix0, (1.0 - lx) * inx0, zero)
+           + torch.where(s0 + 1 == ix0 + 1, lx * inx1, zero))
+    rows0 = view * h + iy0.clamp(0, h - 1)
+    rows1 = view * h + (iy0 + 1).clamp(0, h - 1)
+    i32 = torch.int32
+    return (rows0.to(i32), rows1.to(i32), wy0, wy1, s0.to(i32), wx0, wx1)
+
+
+def _hybrid_forward(packed: PackedFeatures, loc: torch.Tensor,
+                    sw: torch.Tensor) -> torch.Tensor:
+    """Slice-major hybrid path (JAX ``_yfold_forward`` with MXU tables,
+    :1085-1126): the y-fold levels, a prefix of the level list, through the
+    sampling op, then each one-hot level's result cast to the accumulator
+    dtype and added in level order."""
+    s, q, p, three = loc.shape
+    levels = packed.level_shapes
+    if three != 3 or s != packed.batch \
+            or tuple(sw.shape) != (s, q, p, len(levels)):
+        raise ValueError(f"hybrid sampling: locations {tuple(loc.shape)} and "
+                         f"weights {tuple(sw.shape)} do not match "
+                         f"{packed.batch} slices and {len(levels)} levels")
+    if packed.num_groups != 1 or packed.slice_map is not None:
+        raise ValueError("hybrid sampling takes pack_mlvl_feats' ungrouped "
+                         "tables")
+    n_yf = sum(1 for t in packed.tables if t is not None)
+    if any(t is None for t in packed.tables[:n_yf]) or any(
+            packed.mxu_tables[lvl] is None for lvl in range(n_yf, len(levels))):
+        raise ValueError("hybrid sampling: the y-fold levels must come before "
+                         "the one-hot levels")
+    acc_dtype = table_acc_dtype(packed)
+    c = packed.channels
+    k = s * q * p
+    if n_yf:
+        prefix = PackedFeatures(packed.tables[:n_yf], s, packed.num_views,
+                                levels[:n_yf], c)
+        out = msmv_sampling(prefix, loc.transpose(0, 1).contiguous(),
+                            sw[..., :n_yf].transpose(0, 1).contiguous())
+        out = out.transpose(0, 1).reshape(k, c)
+    else:
+        out = torch.zeros((k, c), dtype=acc_dtype, device=loc.device)
+    x = loc[..., 0].reshape(k)
+    y = loc[..., 1].reshape(k)
+    view = _view_index(loc[..., 2].reshape(k), packed.num_views)
+    for lvl in range(n_yf, len(levels)):
+        h, w = levels[lvl]
+        args = _onehot_level_weights(x, y, view, sw[..., lvl].reshape(k)
+                                     .float(), h, w)
+        res = onehot_sample_level(packed.mxu_tables[lvl],
+                                  *[a.reshape(s, q * p).contiguous()
+                                    for a in args], w=w, c=c)
+        out = out + res.reshape(k, c).to(acc_dtype)
+    return out.reshape(s, q, p, c)
+
+
 def msmv_sampling(packed: PackedFeatures,
                   sampling_locations: torch.Tensor,
-                  scale_weights: torch.Tensor) -> torch.Tensor:
-    """Production sampling op, query-major (the JAX ``qmajor=True``
-    layout): locations ``[Q, S, P, 3]``, weights ``[Q, S, P, L]`` ->
-    ``[Q, S, P, C]`` in ``table_acc_dtype``. CPU tensors take the plain
-    version; CUDA tensors launch the kernel (or raise)."""
+                  scale_weights: torch.Tensor,
+                  qmajor: bool = True) -> torch.Tensor:
+    """Production sampling op. Query-major by default (the JAX
+    ``qmajor=True`` layout, which every caller in the port uses): locations
+    ``[Q, S, P, 3]``, weights ``[Q, S, P, L]`` -> ``[Q, S, P, C]`` in
+    ``table_acc_dtype``; with ``qmajor=False`` all three are slice-major
+    ``[S, Q, P, ...]``. Tables with one-hot levels (``mxu_tables``, the
+    hybrid impl) take the slice-major layout only, as in JAX. CPU tensors
+    take the plain versions; CUDA tensors launch the kernels (or raise)."""
+    if any(t is not None for t in packed.mxu_tables):
+        if qmajor:
+            raise ValueError("the hybrid one-hot path takes slice-major "
+                             "points only (qmajor=False)")
+        return _hybrid_forward(packed, sampling_locations, scale_weights)
+    if not qmajor:
+        out = msmv_sampling(packed,
+                            sampling_locations.transpose(0, 1).contiguous(),
+                            scale_weights.transpose(0, 1).contiguous())
+        return out.transpose(0, 1).contiguous()
     if sampling_locations.device.type == "cpu":
         return msmv_sampling_plain(packed, sampling_locations, scale_weights)
     return _msmv_sampling_cuda(packed, sampling_locations, scale_weights)

@@ -16,7 +16,8 @@ import torch
 
 from .box_ops import decode_bbox
 from .geometry import rotation_3d_in_axis
-from .msmv_sampling import PackedFeatures, msmv_sampling
+from .msmv_sampling import (PackedFeatures, get_sampling_impl, msmv_sampling,
+                            pack_mlvl_feats_grouped)
 
 
 def make_sample_points(query_bbox: torch.Tensor, offset: torch.Tensor,
@@ -85,7 +86,11 @@ def sampling_4d(sample_points_q: torch.Tensor,
     Args:
       sample_points_q: ``[Q, B, G, T, P, 3]`` world-space points.
       packed: grouped tables (y-fold or pair per level) whose slice space
-        is (b, t, g)-ordered, with an optional ring ``slice_map``.
+        is (b, t, g)-ordered, with an optional ring ``slice_map``; or the
+        raw pyramids ``[B*T*G, N, H, W, C]`` (slices in (b, t, g) order,
+        C channels per group), packed here with one group
+        (under ``set_sampling_impl("hybrid")`` with a warning: this pack has
+        no one-hot tables, as in the JAX package).
       scale_weights: ``[B, Q, G, T, P, L]`` softmaxed level weights.
       lidar2img: ``[B, T*N, 4, 4]``.
     Returns:
@@ -97,6 +102,18 @@ def sampling_4d(sample_points_q: torch.Tensor,
     dev = sample_points_q.device
     loc, _ = project_points_qmajor(sample_points_q, lidar2img, image_h,
                                    image_w, num_views, eps)
+    if not isinstance(packed, PackedFeatures):
+        if get_sampling_impl() == "hybrid":
+            # the grouped query-major pack has no one-hot tables, so the
+            # hybrid impl is unreachable from the model path: say so
+            # instead of silently using the y-fold path
+            import warnings
+            warnings.warn(
+                "set_sampling_impl('hybrid') has no effect on sampling_4d's "
+                "grouped pack path; using the XLA y-fold gather",
+                stacklevel=2)
+        packed = pack_mlvl_feats_grouped(list(packed), num_views,
+                                         num_groups=1)
 
     # weight pairing keeps the (B, G, T) fold quirk: loc slice (g, t) — flat
     # position j = t*G + g within a sample — takes the weights at flat
@@ -117,7 +134,8 @@ def sampling_4d(sample_points_q: torch.Tensor,
     view = PackedFeatures(packed.tables, b * g * t, packed.num_views,
                           packed.level_shapes, packed.channels,
                           num_groups=packed.num_groups, slice_map=logical,
-                          yfold=packed.yfold, gsplit=packed.gsplit)
+                          yfold=packed.yfold, gsplit=packed.gsplit,
+                          mxu_tables=packed.mxu_tables)
 
     final = msmv_sampling(view, loc.contiguous(),
                           sw.float().contiguous())            # [Q, BGT, P, C]

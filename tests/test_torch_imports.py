@@ -40,6 +40,8 @@ def test_port_modules_import_without_jax():
     mods = _port_modules()
     assert "sparsebev_tpu_torch.ops.msmv_sampling" in mods
     assert "sparsebev_tpu_torch.inference" in mods
+    for op in ("msmv_onehot", "mixing", "msmv_epilogue"):
+        assert f"sparsebev_tpu_torch.ops.{op}" in mods
     code = (
         "import sys\n"
         f"sys.path.insert(0, {REPO!r})\n"
@@ -90,7 +92,8 @@ def test_chip_smoke_fails_alone(tmp_path):
 
 
 @pytest.mark.parametrize("src", ["msmv_pack", "msmv_pack_pair",
-                                 "msmv_sample"])
+                                 "msmv_sample", "msmv_onehot", "mixing",
+                                 "tap_fold"])
 def test_cuda_sources_declare_their_tpu_kernel_and_bound(src):
     """Each kernel source notes the TPU function it replaces, its bound and
     its design, and exports the C entry its wrapper binds."""

@@ -213,8 +213,13 @@ def test_ring_update_and_table_dtype():
     view = tms.ring_packed(ring, torch.tensor([1, 1]), 2, fp.meta())
     assert view.slice_map.tolist() == [2, 3, 2, 3]
     assert tms.table_acc_dtype(view) == torch.bfloat16
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tms.set_sampling_impl("hybrid")
+    tms.set_sampling_impl("hybrid")
+    try:
+        assert tms.get_sampling_impl() == "hybrid"
+        with pytest.raises(ValueError, match="unknown sampling impl"):
+            tms.set_sampling_impl("onehot")
+    finally:
+        tms.set_sampling_impl("xla")
 
 
 # ------------------------------------------------------- projection & co --
