@@ -10,7 +10,9 @@ prints its wall time):
   2. build every CUDA kernel of the port from ``sparsebev_tpu_torch/csrc``
      (one nvcc per source, all started together): the y-fold pack, the
      pair-mode pack, the sampling forward, the one-hot level sampler, the
-     mixing core (two entries) and the tap-fold epilogue;
+     mixing core (two entries) and the tap-fold epilogue; for the sampling
+     forward and the mixing core, what ``ptxas -v`` reports per kernel
+     (registers, shared memory, stack frame, spills);
   3. the first three kernels at the shapes of each streaming path that runs
      them against their plain PyTorch versions on the same inputs (bit for
      bit; the sampling op in fp32 within 1e-5 of the output scale), timed
@@ -34,11 +36,16 @@ prints its wall time):
      width on those maps and points, with bf16 and fp32 features: bit for
      bit against the same call through the plain versions and within a
      stated tolerance of the "xla" y-fold path; the one-hot kernel per
-     level against its plain version; then the op-level entry points of the
-     other new kernels on the recorded inputs: ``mixing_core`` and
-     ``mixing_core_batched`` at r50 and vov99, ``tap_fold_epilogue`` on
-     windows gathered from the r50 ring. Each phase's launch counts are
-     reset just before its run and read just after;
+     level against its plain version; the sampling forward once more on
+     the recorded r50 points and ring (bit for bit against its plain
+     version, timed beside the bound of those inputs and the share of
+     windows that the points of one (query, slice) have in common); then
+     the op-level entry points of the other kernels on the recorded
+     inputs: ``mixing_core`` and ``mixing_core_batched`` at r50 and vov99
+     (bf16 and fp32, each with its achieved bytes/s and share of its
+     bound), ``tap_fold_epilogue`` on windows gathered from the r50 ring.
+     Each phase's launch counts are reset just before its run and read
+     just after;
   6. a ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and last
      ``{"ok": true, "device": {...}}``.
 
@@ -50,6 +57,7 @@ from __future__ import annotations
 import contextlib
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -71,6 +79,8 @@ PATHS = (
          yfold=(False, True, True, True, True),
          gsplit=(False, False, False, True, False), t=15, q=1600),
 )
+# sources whose ptxas report is printed per kernel
+PTXAS_REPORTS = ("msmv_sample", "mixing")
 # the plain versions issue up to ~100 small launches per call: keep the
 # card busy long enough (~20 ms) that all of them are queued before it idles
 PLAIN_BUSY_CYCLES = 40_000_000
@@ -106,6 +116,60 @@ def nvidia_smi_line() -> str:
     if out.returncode != 0:
         fail(f"nvidia-smi failed: {out.stderr.strip()}")
     return out.stdout.strip().splitlines()[0]
+
+
+def _template_args(mangled: str) -> str:
+    """Readable form of the template arguments these kernels use, from
+    their Itanium mangling: ``f``, ``<n><name>``, ``Li<n>E``, ``Lb<0|1>E``."""
+    out, rest = [], mangled
+    while rest:
+        m = re.match(r"f|Li(\d+)E|Lb([01])E|(\d+)", rest)
+        if not m:
+            return mangled
+        rest = rest[m.end():]
+        if m.group(0) == "f":
+            out.append("float")
+        elif m.group(1):
+            out.append(m.group(1))
+        elif m.group(2):
+            out.append("true" if m.group(2) == "1" else "false")
+        else:
+            n = int(m.group(3))
+            out.append(rest[:n])
+            rest = rest[n:]
+    return ", ".join(out)
+
+
+def ptxas_report(text: str):
+    """Per kernel of one source's ``nvcc -Xptxas -v`` output: the template
+    arguments of its entry (from the mangled name), registers, bytes of
+    static shared memory, stack frame and spill stores / loads."""
+    rows, entry = [], None
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            name = m.group(1)
+            # _ZN..<len>kernel_nameI<template args>EEv<parameters>
+            k = re.search(r"\d+([a-z_]+kernel)I(.+?)EEv", name)
+            entry = dict(kernel=f"{k.group(1)}<{_template_args(k.group(2))}>"
+                         if k else name,
+                         regs=0, smem=0, stack=0, spill_stores=0,
+                         spill_loads=0)
+            rows.append(entry)
+            continue
+        if entry is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m:
+            entry["stack"], entry["spill_stores"], entry["spill_loads"] = \
+                map(int, m.groups())
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            entry["regs"] = int(m.group(1))
+            sm = re.search(r"(\d+) bytes smem", line)
+            entry["smem"] = int(sm.group(1)) if sm else 0
+    return rows
 
 
 def time_ms(torch, fn, reps: int, flush, busy_cycles=2_000_000) -> float:
@@ -249,6 +313,50 @@ def _needed_bytes(torch, packed, loc, sw):
     return table_bytes + io_bytes, flops
 
 
+def _window_sharing(torch, packed, loc):
+    """Share of (point, level) windows that another point of the same
+    (query, slice) also reads: the P points of one (query, slice) sit in
+    one warp of the sampling kernel, so these are the reads that can hit in
+    L1 (or merge) instead of going to L2 or device memory."""
+    from sparsebev_tpu_torch.ops.msmv_sampling import (
+        _separable_slot_weights, _view_index)
+    q, s, p, _ = loc.shape
+    k = q * s * p
+    x = loc[..., 0].reshape(k)
+    y = loc[..., 1].reshape(k)
+    view = _view_index(loc[..., 2].reshape(k), packed.num_views)
+    shared = 0
+    for h, w in packed.level_shapes:
+        sx, ry, _, _ = _separable_slot_weights(x * (w - 1), y * (h - 1), h, w)
+        # within one (query, slice) the frame and group are the same
+        key = ((view * h + ry) * (w + 1) + sx).reshape(q * s, p)
+        key = key.sort(dim=1).values
+        shared += int((key[:, 1:] == key[:, :-1]).sum())
+    return shared / (k * len(packed.level_shapes))
+
+
+def _time_sampling(torch, flush, bw, fp32_rate, packed, loc, sw, label):
+    """Time the sampling forward and its plain version on these inputs
+    beside their bound; logs one line that starts ``sampling [<label>``."""
+    from sparsebev_tpu_torch.ops.msmv_sampling import (msmv_sampling,
+                                                       msmv_sampling_plain)
+    ms = time_ms(torch, lambda: msmv_sampling(packed, loc, sw), 30, flush)
+    plain_ms = time_ms(torch, lambda: msmv_sampling_plain(packed, loc, sw),
+                       20, flush, PLAIN_BUSY_CYCLES)
+    nbytes, flops = _needed_bytes(torch, packed, loc, sw)
+    bound_ms = max(nbytes / bw, flops / fp32_rate) * 1e3
+    bound_by = "bytes" if nbytes / bw >= flops / fp32_rate else "operations"
+    windows = loc[..., 0].numel() * len(packed.level_shapes) * 4 \
+        * packed.channels * packed.tables[0].element_size()
+    log(f"sampling [{label}: {ms:.4f} ms (plain {plain_ms:.4f} ms), bound "
+        f"{bound_ms:.4f} ms by {bound_by} ({nbytes / 1e6:.1f} MB needed by "
+        f"these inputs; {windows / 1e6:.1f} MB of windows if none were "
+        f"shared; {100 * _window_sharing(torch, packed, loc):.1f}% of the "
+        "windows are shared within a (query, slice))")
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by, library_ms=None)
+
+
 def check_sampling(torch, dev, flush, bw, fp32_rate, path):
     """The sampling forward at ``path``'s shapes on a 16-slot ring, bf16
     and fp32, in the path's accumulation order and (with a group-split
@@ -311,26 +419,33 @@ def check_sampling(torch, dev, flush, bw, fp32_rate, path):
             packed = PackedFeatures(tables, s, n, levels, cg, num_groups=g,
                                     slice_map=slice_map, yfold=yfold,
                                     gsplit=gsplit)
-            ms = time_ms(torch, lambda: msmv_sampling(packed, loc, sw), 30,
-                         flush)
-            plain_ms = time_ms(
-                torch, lambda: msmv_sampling_plain(packed, loc, sw), 20,
-                flush, PLAIN_BUSY_CYCLES)
-            nbytes, flops = _needed_bytes(torch, packed, loc, sw)
-            bound_ms = max(nbytes / bw, flops / fp32_rate) * 1e3
-            bound_by = "bytes" if nbytes / bw >= flops / fp32_rate \
-                else "operations"
-            log(f"sampling [{path['name']}] bf16: {ms:.4f} ms (plain "
-                f"{plain_ms:.4f} ms), bound {bound_ms:.4f} ms by {bound_by} "
-                f"({nbytes / 1e6:.1f} MB needed by these inputs; "
-                f"{q * s * p * len(levels) * 4 * cg * 2 / 1e6:.1f} MB of "
-                "windows if none were shared)")
-            result = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                          bound_by=bound_by, library_ms=None)
+            result = _time_sampling(torch, flush, bw, fp32_rate, packed,
+                                    loc, sw, f"{path['name']}] bf16")
         del tables, packed, got, want
         torch.cuda.empty_cache()
     result["max_abs_err"] = err
     return result
+
+
+def check_sampling_recorded(torch, flush, bw, fp32_rate, cap, name):
+    """The sampling forward on one decoder layer's recorded points and the
+    stream's ring: bit for bit against the plain version, timed beside the
+    bound of these inputs."""
+    from sparsebev_tpu_torch.ops.msmv_sampling import (msmv_sampling,
+                                                       msmv_sampling_plain)
+    packed, loc, sw = cap["sampling"]
+    got = msmv_sampling(packed, loc, sw)
+    want = msmv_sampling_plain(packed, loc, sw)
+    torch.cuda.synchronize()
+    if not _bit_equal(torch, got, want):
+        fail(f"sampling kernel differs from its plain version on the "
+             f"recorded {name} points")
+    del got, want
+    result = _time_sampling(
+        torch, flush, bw, fp32_rate, packed, loc, sw,
+        f"{name} recorded points] {str(packed.tables[0].dtype)[6:]}, "
+        "bit-equal to plain")
+    return dict(result, max_abs_err=0.0)
 
 
 # ------------------------------------------------------------- phase 4 --
@@ -988,15 +1103,25 @@ def check_mixing(torch, flush, bw, fp32_rate, bf16_rate, name, xms):
             kern = time_ms(torch, lambda: fn(xd, md, sd), 30, flush)
             plain = time_ms(torch, lambda: mixing.mixing_core_plain(
                 xd, md, sd, stats=stats), 20, flush, PLAIN_BUSY_CYCLES)
-            log(f"{key} [{name}] {dname}: {items} items (BQ={n}, G={g}, "
-                f"P={p}, C={c}, O={o}) "
+            rate_gbs = nbytes / kern / 1e6
+            share = bound_ms / kern
+            log(f"{key} [{name}] {dname} "
+                f"({mixing.mixing_route(dtype, p, c, o)} kernel): {items} "
+                f"items (BQ={n}, G={g}, P={p}, C={c}, O={o}) "
                 f"{kern:.4f} ms (plain {plain:.4f} ms; the decoder's chain "
                 f"{chain_ms:.4f} ms), bound {bound_ms:.4f} ms by {bound_by} "
-                f"({nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP)")
+                f"({nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP): "
+                f"{rate_gbs:.0f} GB/s achieved, {100 * share:.1f}% of the "
+                "bound")
             if dtype == torch.bfloat16:
                 result[key] = dict(ms=kern, plain_ms=plain, bound_ms=bound_ms,
                                    bound_by=bound_by, library_ms=None,
-                                   chain_ms=chain_ms)
+                                   chain_ms=chain_ms, gbytes_per_s=rate_gbs,
+                                   bound_share=share)
+            else:
+                result[key].update(fp32_ms=kern, fp32_bound_ms=bound_ms,
+                                   fp32_gbytes_per_s=rate_gbs,
+                                   fp32_bound_share=share)
         del xd, md, sd, outs
     for key, v in launches.items():
         if v <= 0:
@@ -1039,7 +1164,9 @@ def kernels_line(measured, launches):
     The headline numbers are those of the first path that measured the
     kernel (r50 where it runs there); every path's are under ``by_path``.
     The mixing rows add ``chain_ms``, the decoder's own chain on the same
-    inputs (a yardstick, not a library call)."""
+    inputs (a yardstick, not a library call), the achieved ``gbytes_per_s``
+    and ``bound_share`` (bound over time), and the same for fp32 inputs
+    under ``fp32_*``."""
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     rows = []
     for k, info in KERNELS.items():
@@ -1054,7 +1181,8 @@ def kernels_line(measured, launches):
             **{key: head[key] for key in keys}, **extra,
             launches_by_path={p: run[k] for p, run in launches.items()
                               if k in run},
-            by_path={p: {key: m[key] for key in keys}
+            by_path={p: {key: v for key, v in m.items()
+                         if key != "max_abs_err"}
                      for p, m in by_path.items()}))
     return {"kernels": rows}
 
@@ -1108,6 +1236,13 @@ def main() -> int:
     log(f"build: nvcc {' '.join(build.NVCC_FLAGS)}: {len(sources)} kernels "
         f"built in {time.perf_counter() - t0:.1f} s")
     for src, text in logs.items():
+        if src in PTXAS_REPORTS:
+            for r in ptxas_report(text):
+                log(f"ptxas[{src}]: {r['kernel']}: {r['regs']} registers, "
+                    f"{r['smem']} bytes static shared memory, {r['stack']} "
+                    f"bytes stack frame, spills {r['spill_stores']} / "
+                    f"{r['spill_loads']} bytes (stores / loads)")
+            continue
         for line in text.splitlines():
             if any(w in line for w in ("Used", "spill", "error", "warning")):
                 log(f"build[{src}]: {line.strip()}")
@@ -1142,6 +1277,8 @@ def main() -> int:
     log(f"phase: hybrid path took {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     with torch.inference_mode():
+        measured["sampling"][f"{source} recorded"] = check_sampling_recorded(
+            torch, flush, bw, fp32_rate, captured[source], source)
         for path in PATHS:
             pname = path["name"]
             launches[f"mixing {pname}"], res = check_mixing(
@@ -1153,7 +1290,7 @@ def main() -> int:
             check_tap_fold(torch, flush, bw, fp32_rate, captured[source])
     del flush, captured
     torch.cuda.empty_cache()
-    log(f"phase: mixing and tap fold checks took "
+    log(f"phase: recorded-points sampling, mixing and tap fold checks took "
         f"{time.perf_counter() - t0:.1f} s")
 
     log(json.dumps(kernels_line(measured, launches)))

@@ -33,18 +33,42 @@
 //
 // Bound: bytes. Per call at flagship r50 (Q=900, S=32, P=4, 4 levels, C=64,
 // bf16): 115,200 points x 4 levels x 512-byte windows = 236 MB if no window
-// is shared, 14.7 MB of output and 3.2 MB of geometry, about 76 us at
-// 3.35 TB/s. At vov99 (Q=1600, S=60, P=4, 5 levels, the pair level reading
-// two 256-byte windows): 384,000 points x 5 x 512 B = 983 MB if no window is
-// shared, 49 MB of output and about 12 MB of geometry, at most about
-// 0.31 ms. The arithmetic is far below the card's rate.
+// is shared, 14.7 MB of output and 3.2 MB of geometry; the table pieces
+// that uniform random points touch with a nonzero weight come to about
+// 152 MB in all, 45 us at 3.35 TB/s. At vov99 (Q=1600, S=60, P=4, 5 levels,
+// the pair level reading two 256-byte windows): 384,000 points x 5 x 512 B
+// = 983 MB if no window is shared, about 659 MB needed, 0.197 ms. The
+// arithmetic is far below the card's rate.
 //
-// Design: one warp per point, all levels. Each lane owns two channels and
-// reads them from the four tap half-rows of each window: a warp's loads of
-// one half-row are 128 contiguous bytes (bf16, C = 64). The per-point
-// geometry (3 + L floats and one slice-map entry) is read by every lane of
-// the warp as a broadcast. No shared memory, no atomics: each output
-// element is written once by one lane.
+// Design: a group of lanes per point, 16 bytes per lane. Each lane owns one
+// 16-byte run of the C channels (8 bf16 or 4 fp32 values), so C = 64 takes
+// 8 lanes in bf16 (16 in fp32) and a warp carries 4 (2) points: the P = 4
+// points of one (query, slice) in the query-major order. One warp-level
+// load instruction now moves 512 bytes where the one-warp-per-point kernel
+// before it moved 128, and the point geometry (some 60 instructions a
+// level) runs once for four points instead of once for each. The level
+// count is a template parameter and the level loop is unrolled, so the
+// per-level table pointers and sizes are read from the kernel parameters at
+// fixed offsets (a run-time index would copy the parameter block to the
+// stack) and the kernel is written in two passes: the first computes every
+// level's weights and starts all 4 * L tap loads (ld.global.nc.v4) of the
+// point, the second folds them. The rounding per level and the order of
+// accumulation do not depend on when a tap was loaded, so the bits are
+// those of the plain version. The integer divisions (slice, frame, group)
+// are 32-bit and happen once per lane; rows and columns are 32-bit, only
+// the final byte offset is 64-bit. No shared memory, no atomics: each
+// output run is written once, by one lane, as 16 bytes.
+//
+// Measured by chip_smoke.py on an NVIDIA H100 80GB HBM3 at 700.00 W, bf16,
+// L2 flushed: 0.088 ms a call at r50 and 0.353 ms at vov99 on uniform random
+// points (the one-warp-per-point kernel before it: 0.154 and 0.582), 0.060 ms
+// on one r50 decoder layer's recorded points (bound 0.029). At the uniform
+// points that is the windows' 236 MB / 983 MB plus output and geometry at
+// about 2.9 TB/s: the kernel moves every window it is asked for at the
+// card's memory rate, and only windows shared between points (the bound
+// counts each once) could make it faster. 94 / 126 registers at 4 / 5
+// levels, no stack frame, no spills. Block sizes of 64 and 256 threads and
+// L1 no-allocate or evict-first loads were no faster.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -53,7 +77,7 @@
 namespace {
 
 constexpr int kMaxLevels = 8;
-constexpr int kMaxPairsPerLane = 4;  // C <= 256
+constexpr int kThreads = 128;
 
 struct Levels {
   const void* table[kMaxLevels];
@@ -66,64 +90,90 @@ __device__ __forceinline__ float round_bf16(float v) {
   return __bfloat162float(__float2bfloat16_rn(v));
 }
 
+// One lane's 16 bytes of a table row as floats, and back.
 template <typename T>
-struct Pair;
+struct Run;
 
 template <>
-struct Pair<float> {
-  __device__ static float2 load(const float* p) {
-    return __ldg(reinterpret_cast<const float2*>(p));
+struct Run<float> {
+  static constexpr int kVec = 4;
+  __device__ static void unpack(const uint4& v, float (&f)[kVec]) {
+    f[0] = __uint_as_float(v.x);
+    f[1] = __uint_as_float(v.y);
+    f[2] = __uint_as_float(v.z);
+    f[3] = __uint_as_float(v.w);
   }
-  __device__ static void store(float* p, float a, float b) {
-    *reinterpret_cast<float2*>(p) = make_float2(a, b);
+  __device__ static uint4 pack(const float (&f)[kVec]) {
+    return make_uint4(__float_as_uint(f[0]), __float_as_uint(f[1]),
+                      __float_as_uint(f[2]), __float_as_uint(f[3]));
   }
+  __device__ static float round(float v) { return v; }
 };
 
 template <>
-struct Pair<__nv_bfloat16> {
-  __device__ static float2 load(const __nv_bfloat16* p) {
-    const __nv_bfloat162 v =
-        __ldg(reinterpret_cast<const __nv_bfloat162*>(p));
-    return __bfloat1622float2(v);
+struct Run<__nv_bfloat16> {
+  static constexpr int kVec = 8;
+  __device__ static void unpack(const uint4& v, float (&f)[kVec]) {
+    // a bf16 is the upper half of its fp32
+    f[0] = __uint_as_float(v.x << 16);
+    f[1] = __uint_as_float(v.x & 0xffff0000u);
+    f[2] = __uint_as_float(v.y << 16);
+    f[3] = __uint_as_float(v.y & 0xffff0000u);
+    f[4] = __uint_as_float(v.z << 16);
+    f[5] = __uint_as_float(v.z & 0xffff0000u);
+    f[6] = __uint_as_float(v.w << 16);
+    f[7] = __uint_as_float(v.w & 0xffff0000u);
   }
-  __device__ static void store(__nv_bfloat16* p, float a, float b) {
-    *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+  // f holds values already rounded to bf16: the upper halves are exact
+  __device__ static uint4 pack(const float (&f)[kVec]) {
+    return make_uint4(
+        (__float_as_uint(f[0]) >> 16) | (__float_as_uint(f[1]) & 0xffff0000u),
+        (__float_as_uint(f[2]) >> 16) | (__float_as_uint(f[3]) & 0xffff0000u),
+        (__float_as_uint(f[4]) >> 16) | (__float_as_uint(f[5]) & 0xffff0000u),
+        (__float_as_uint(f[6]) >> 16) | (__float_as_uint(f[7]) & 0xffff0000u));
   }
+  __device__ static float round(float v) { return round_bf16(v); }
 };
 
-template <bool kBf16>
-__device__ __forceinline__ float to_table(float v) {
-  return kBf16 ? round_bf16(v) : v;
+__device__ __forceinline__ uint4 load16(const char* p) {
+  return __ldg(reinterpret_cast<const uint4*>(p));
 }
 
-template <typename T, bool kBf16>
-__global__ void msmv_sample_kernel(Levels lv, int num_levels,
-                                   const float* __restrict__ loc,
-                                   const float* __restrict__ sw,
-                                   const int* __restrict__ slice_map,
-                                   T* __restrict__ out, int64_t num_points,
-                                   int s, int p, int n, int g, int c,
-                                   bool gmajor) {
-  const int lane = threadIdx.x & 31;
-  const int64_t k = ((int64_t)blockIdx.x * blockDim.x + threadIdx.x) >> 5;
-  if (k >= num_points) return;
+// lanes_log2: log2 of the lanes that share a point (a power of two >=
+// c * sizeof(T) / 16; lanes past the last run idle).
+template <typename T, int L>
+__global__ void __launch_bounds__(kThreads)
+    msmv_sample_kernel(const Levels lv, const float* __restrict__ loc,
+                       const float* __restrict__ sw,
+                       const int* __restrict__ slice_map, T* __restrict__ out,
+                       unsigned num_points, unsigned s, unsigned p, unsigned n,
+                       unsigned g, int c, int lanes_log2, bool gmajor) {
+  constexpr int kVec = Run<T>::kVec;
+  const unsigned tid = blockIdx.x * kThreads + threadIdx.x;
+  const unsigned k = tid >> lanes_log2;
+  const int cc = (int)(tid & ((1u << lanes_log2) - 1u)) * kVec;
+  if (k >= num_points || cc >= c) return;
 
-  const int si = (int)((k / p) % s);
-  const float x = loc[k * 3 + 0];
-  const float y = loc[k * 3 + 1];
-  const float v = loc[k * 3 + 2];
+  const unsigned si = (k / p) % s;
+  const float x = __ldg(loc + (size_t)k * 3 + 0);
+  const float y = __ldg(loc + (size_t)k * 3 + 1);
+  const float v = __ldg(loc + (size_t)k * 3 + 2);
   const float vf = fminf(fmaxf(rintf(v * (float)(n - 1)), 0.f),
                          (float)(n - 1));
-  const int view = (int)vf;
-  const int phys = slice_map[si];
-  const int bt = phys / g;
-  const int gi = phys % g;
+  const unsigned view = (unsigned)vf;
+  const unsigned phys = (unsigned)__ldg(slice_map + si);
+  const unsigned bt = phys / g;
+  const unsigned gi = phys % g;
+  const unsigned cb = (unsigned)c * (unsigned)sizeof(T);  // C channels' bytes
+  const unsigned ccb = (unsigned)cc * (unsigned)sizeof(T);
 
-  float acc0[kMaxPairsPerLane], acc1[kMaxPairsPerLane];
+  // pass 1: every level's weights, and all of its four tap loads in flight.
+  // t00/t01: row ry at columns sx, sx+1; t10/t11: row ry+1 (y-fold: the
+  // second half of the same table row; pair: the next image row, clamped).
+  uint4 t00[L], t01[L], t10[L], t11[L];
+  float q0[L], q1[L], q2[L], q3[L];
 #pragma unroll
-  for (int j = 0; j < kMaxPairsPerLane; ++j) acc0[j] = acc1[j] = 0.f;
-
-  for (int l = 0; l < num_levels; ++l) {
+  for (int l = 0; l < L; ++l) {
     const int h = lv.h[l];
     const int w = lv.w[l];
     // clamping far-out pixels to [-2, size+1] keeps the int conversion in
@@ -148,80 +198,110 @@ __global__ void msmv_sample_kernel(Levels lv, int num_levels,
     const float wxb = shx ? 0.f : wx1;
     const float wya = shy ? wy1 : wy0;
     const float wyb = shy ? 0.f : wy1;
-    const float lw = sw[k * num_levels + l];
-    const T* table = static_cast<const T*>(lv.table[l]);
-
-    if (lv.yfold[l]) {
+    const float lw = __ldg(sw + (size_t)k * L + l);
+    const float fya = wya * lw;
+    const float fyb = wyb * lw;
+    const bool yf = lv.yfold[l] != 0;
+    if (yf) {
       // x weights in the table dtype (_fold_window_taps :902)
-      const float xa = to_table<kBf16>(wxa);
-      const float xb = to_table<kBf16>(wxb);
-      const float fya = wya * lw;
-      const float fyb = wyb * lw;
-      const int64_t row = (((int64_t)bt * n + view) * h + ry) * g + gi;
-      const T* col0 = table + (row * (w + 1) + sx) * (int64_t)(2 * c);
-      const T* col1 = col0 + 2 * c;
-#pragma unroll
-      for (int j = 0; j < kMaxPairsPerLane; ++j) {
-        const int cc = 2 * (lane + 32 * j);
-        if (cc < c) {
-          const float2 a0 = Pair<T>::load(col0 + cc);
-          const float2 b0 = Pair<T>::load(col0 + c + cc);
-          const float2 a1 = Pair<T>::load(col1 + cc);
-          const float2 b1 = Pair<T>::load(col1 + c + cc);
-          const float r0 = (a0.x * xa + a1.x * xb) * fya +
-                           (b0.x * xa + b1.x * xb) * fyb;
-          const float r1 = (a0.y * xa + a1.y * xb) * fya +
-                           (b0.y * xa + b1.y * xb) * fyb;
-          acc0[j] = to_table<kBf16>(acc0[j] + to_table<kBf16>(r0));
-          acc1[j] = to_table<kBf16>(acc1[j] + to_table<kBf16>(r1));
-        }
-      }
-      continue;
+      q0[l] = Run<T>::round(wxa);
+      q1[l] = Run<T>::round(wxb);
+      q2[l] = fya;
+      q3[l] = fyb;
+    } else {
+      // weights wx * (wy * lw) rounded to the table dtype (:1223-1225)
+      q0[l] = Run<T>::round(wxa * fya);
+      q1[l] = Run<T>::round(wxb * fya);
+      q2[l] = Run<T>::round(wxa * fyb);
+      q3[l] = Run<T>::round(wxb * fyb);
     }
+    const unsigned row =
+        ((bt * n + view) * (unsigned)h + (unsigned)ry) * g + gi;
+    const unsigned col = row * (unsigned)(w + 1) + (unsigned)sx;
+    // bytes between the two columns of a window, and from row ry to row
+    // ry+1: wyb is 0 wherever row ry+1 is invalid, so the clamp (a step of
+    // 0) changes no weight
+    const unsigned stepx = yf ? 2u * cb : cb;
+    const unsigned stepy =
+        yf ? cb : (ry < h - 1 ? g * (unsigned)(w + 1) * cb : 0u);
+    const char* top = static_cast<const char*>(lv.table[l]) +
+                      (uint64_t)col * stepx + ccb;
+    const char* bot = top + stepy;
+    t00[l] = load16(top);
+    t01[l] = load16(top + stepx);
+    t10[l] = load16(bot);
+    t11[l] = load16(bot + stepx);
+  }
 
-    // pair level: rows ry and min(ry+1, h-1); wyb is 0 wherever row ry+1
-    // is invalid, so the clamp changes no weight. Weights wx * (wy * lw)
-    // rounded to the table dtype (:1223-1225).
-    const float wyl0 = wya * lw;
-    const float wyl1 = wyb * lw;
-    const float w00 = to_table<kBf16>(wxa * wyl0);
-    const float w01 = to_table<kBf16>(wxb * wyl0);
-    const float w10 = to_table<kBf16>(wxa * wyl1);
-    const float w11 = to_table<kBf16>(wxb * wyl1);
-    const int64_t row0 = (((int64_t)bt * n + view) * h + ry) * g + gi;
-    const int64_t row1 =
-        (((int64_t)bt * n + view) * h + min(ry + 1, h - 1)) * g + gi;
-    const T* top = table + (row0 * (w + 1) + sx) * (int64_t)c;
-    const T* bot = table + (row1 * (w + 1) + sx) * (int64_t)c;
+  // pass 2: fold, level by level, in the table dtype's accumulator
+  float acc[kVec];
 #pragma unroll
-    for (int j = 0; j < kMaxPairsPerLane; ++j) {
-      const int cc = 2 * (lane + 32 * j);
-      if (cc < c) {
-        const float2 a0 = Pair<T>::load(top + cc);
-        const float2 a1 = Pair<T>::load(top + c + cc);
-        const float2 b0 = Pair<T>::load(bot + cc);
-        const float2 b1 = Pair<T>::load(bot + c + cc);
-        const float t0x = a0.x * w00 + a1.x * w01;
-        const float t0y = a0.y * w00 + a1.y * w01;
-        const float t1x = b0.x * w10 + b1.x * w11;
-        const float t1y = b0.y * w10 + b1.y * w11;
-        if (gmajor) {  // _gmajor_forward :986-1003: one add per level
-          acc0[j] = to_table<kBf16>(acc0[j] + to_table<kBf16>(t0x + t1x));
-          acc1[j] = to_table<kBf16>(acc1[j] + to_table<kBf16>(t0y + t1y));
-        } else {       // _yfold_forward :1211-1228: one add per y tap
-          acc0[j] = to_table<kBf16>(acc0[j] + to_table<kBf16>(t0x));
-          acc1[j] = to_table<kBf16>(acc1[j] + to_table<kBf16>(t0y));
-          acc0[j] = to_table<kBf16>(acc0[j] + to_table<kBf16>(t1x));
-          acc1[j] = to_table<kBf16>(acc1[j] + to_table<kBf16>(t1y));
-        }
+  for (int j = 0; j < kVec; ++j) acc[j] = 0.f;
+#pragma unroll
+  for (int l = 0; l < L; ++l) {
+    float a0[kVec], a1[kVec], b0[kVec], b1[kVec];
+    Run<T>::unpack(t00[l], a0);
+    Run<T>::unpack(t01[l], a1);
+    Run<T>::unpack(t10[l], b0);
+    Run<T>::unpack(t11[l], b1);
+    if (lv.yfold[l] != 0) {
+#pragma unroll
+      for (int j = 0; j < kVec; ++j) {
+        const float r = (a0[j] * q0[l] + a1[j] * q1[l]) * q2[l] +
+                        (b0[j] * q0[l] + b1[j] * q1[l]) * q3[l];
+        acc[j] = Run<T>::round(acc[j] + Run<T>::round(r));
+      }
+    } else if (gmajor) {  // _gmajor_forward :986-1003: one add per level
+#pragma unroll
+      for (int j = 0; j < kVec; ++j) {
+        const float u0 = a0[j] * q0[l] + a1[j] * q1[l];
+        const float u1 = b0[j] * q2[l] + b1[j] * q3[l];
+        acc[j] = Run<T>::round(acc[j] + Run<T>::round(u0 + u1));
+      }
+    } else {              // _yfold_forward :1211-1228: one add per y tap
+#pragma unroll
+      for (int j = 0; j < kVec; ++j) {
+        const float u0 = a0[j] * q0[l] + a1[j] * q1[l];
+        const float u1 = b0[j] * q2[l] + b1[j] * q3[l];
+        acc[j] = Run<T>::round(acc[j] + Run<T>::round(u0));
+        acc[j] = Run<T>::round(acc[j] + Run<T>::round(u1));
       }
     }
   }
-#pragma unroll
-  for (int j = 0; j < kMaxPairsPerLane; ++j) {
-    const int cc = 2 * (lane + 32 * j);
-    if (cc < c) Pair<T>::store(out + k * c + cc, acc0[j], acc1[j]);
+  *reinterpret_cast<uint4*>(reinterpret_cast<char*>(out) +
+                            (uint64_t)k * cb + ccb) = Run<T>::pack(acc);
+}
+
+template <typename T, int L>
+void launch_levels(const Levels& lv, const float* loc, const float* sw,
+                   const int* slice_map, void* out, unsigned num_points,
+                   int s, int p, int n, int g, int c, int lanes_log2,
+                   bool gmajor, cudaStream_t st) {
+  const unsigned blocks = (unsigned)(
+      (((uint64_t)num_points << lanes_log2) + kThreads - 1) / kThreads);
+  msmv_sample_kernel<T, L><<<blocks, kThreads, 0, st>>>(
+      lv, loc, sw, slice_map, static_cast<T*>(out), num_points, (unsigned)s,
+      (unsigned)p, (unsigned)n, (unsigned)g, c, lanes_log2, gmajor);
+}
+
+template <typename T>
+int launch(const Levels& lv, int num_levels, const float* loc,
+           const float* sw, const int* slice_map, void* out,
+           unsigned num_points, int s, int p, int n, int g, int c,
+           int lanes_log2, bool gmajor, cudaStream_t st) {
+#define SAMPLE_CASE(L)                                                     \
+  case L:                                                                  \
+    launch_levels<T, L>(lv, loc, sw, slice_map, out, num_points, s, p, n,  \
+                        g, c, lanes_log2, gmajor, st);                     \
+    break;
+  switch (num_levels) {
+    SAMPLE_CASE(1) SAMPLE_CASE(2) SAMPLE_CASE(3) SAMPLE_CASE(4)
+    SAMPLE_CASE(5) SAMPLE_CASE(6) SAMPLE_CASE(7) SAMPLE_CASE(8)
+    default:
+      return (int)cudaErrorInvalidValue;
   }
+#undef SAMPLE_CASE
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -230,20 +310,34 @@ extern "C" {
 
 // tables/heights/widths/yfold: host arrays of num_levels entries; each
 // table is [rows, w+1, 2c] (yfold 1) or [rows, w+1, c] (yfold 0) contiguous
-// in the output dtype. loc [K, 3] and sw [K, L] fp32, slice_map [s] int32,
-// out [K, c]; K = num_points = Q * s * p. gmajor selects the pair levels'
+// in the output dtype, 16-byte aligned, with rows * (w+1) below 2^31. loc
+// [K, 3] and sw [K, L] fp32, slice_map [s] int32, out [K, c] 16-byte
+// aligned; K = num_points = Q * s * p. c * itemsize is a multiple of 16 and
+// at most 512; lanes_per_point is the power of two >= c * itemsize / 16
+// that the caller chose (at most 32). gmajor selects the pair levels'
 // accumulation order (see the header).
 int msmv_sample_forward(const void* const* tables, const int* heights,
                         const int* widths, const int* yfold, int num_levels,
                         const float* loc, const float* sw,
                         const int* slice_map, void* out,
                         long long num_points, int s, int p, int n, int g,
-                        int c, int is_bf16, int gmajor, void* stream) {
-  if (num_levels < 1 || num_levels > kMaxLevels || c % 2 != 0 ||
-      c > 64 * kMaxPairsPerLane || s < 1 || p < 1 || n < 1 || g < 1)
+                        int c, int is_bf16, int gmajor, int lanes_per_point,
+                        void* stream) {
+  const int itemsize = is_bf16 ? 2 : 4;
+  int lanes_log2 = 0;
+  while ((1 << lanes_log2) < lanes_per_point) ++lanes_log2;
+  if (num_levels < 1 || num_levels > kMaxLevels || c < 1 ||
+      (c * itemsize) % 16 != 0 || lanes_per_point > 32 ||
+      (1 << lanes_log2) != lanes_per_point ||
+      lanes_per_point * 16 < c * itemsize || s < 1 || p < 1 || n < 1 ||
+      g < 1 || num_points < 0 || (num_points << lanes_log2) >= (1LL << 31) ||
+      (reinterpret_cast<uintptr_t>(out) & 15) != 0)
     return (int)cudaErrorInvalidValue;
-  Levels lv;
+  Levels lv = {};
   for (int l = 0; l < num_levels; ++l) {
+    if ((reinterpret_cast<uintptr_t>(tables[l]) & 15) != 0 ||
+        heights[l] < 1 || widths[l] < 1)
+      return (int)cudaErrorInvalidValue;
     lv.table[l] = tables[l];
     lv.h[l] = heights[l];
     lv.w[l] = widths[l];
@@ -251,19 +345,13 @@ int msmv_sample_forward(const void* const* tables, const int* heights,
   }
   if (num_points == 0) return (int)cudaGetLastError();
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int threads = 256;  // 8 points per block
-  const int64_t blocks = (num_points * 32 + threads - 1) / threads;
-  if (is_bf16) {
-    msmv_sample_kernel<__nv_bfloat16, true><<<(unsigned)blocks, threads, 0, st>>>(
-        lv, num_levels, loc, sw, slice_map,
-        static_cast<__nv_bfloat16*>(out), num_points, s, p, n, g, c,
-        gmajor != 0);
-  } else {
-    msmv_sample_kernel<float, false><<<(unsigned)blocks, threads, 0, st>>>(
-        lv, num_levels, loc, sw, slice_map, static_cast<float*>(out),
-        num_points, s, p, n, g, c, gmajor != 0);
-  }
-  return (int)cudaGetLastError();
+  if (is_bf16)
+    return launch<__nv_bfloat16>(lv, num_levels, loc, sw, slice_map, out,
+                                 (unsigned)num_points, s, p, n, g, c,
+                                 lanes_log2, gmajor != 0, st);
+  return launch<float>(lv, num_levels, loc, sw, slice_map, out,
+                       (unsigned)num_points, s, p, n, g, c, lanes_log2,
+                       gmajor != 0, st);
 }
 
 const char* msmv_sample_error_string(int err) {

@@ -101,6 +101,38 @@ def mixing_core_batched(x: torch.Tensor, m: torch.Tensor,
 
 mixing_core_batched.launches = 0  # kernel launches (in _mixing_cuda)
 
+# the tensor-core kernel of csrc/mixing.cu: mma.sync tiles are 16 deep, and
+# it is instantiated for the decoder's group width and out points
+_MMA_TILE = 16
+_MMA_CHANNELS = 64
+_MMA_OUT_POINTS = 128
+_MMA_MAX_POINTS = 64
+
+
+def padded_points(p: int) -> int:
+    """``p`` in-points rounded up to the tensor-core tile depth: the rows
+    of ``x @ m`` and the depth of ``s @ h1`` that the kernel computes. The
+    padding is zeros in the second product and stays out of both LNs, whose
+    statistics run over exactly ``p * C`` and ``O * C`` values."""
+    if p < 1:
+        raise ValueError(f"mixing_core: {p} in-points")
+    return -(-p // _MMA_TILE) * _MMA_TILE
+
+
+def mixing_route(dtype: torch.dtype, p: int, c: int, o: int) -> str:
+    """Which kernel of ``csrc/mixing.cu`` takes these operands: ``"mma"``
+    (bf16 tensor cores, asynchronous copies) for bf16 at ``C = 64``,
+    ``O = 128`` and an even ``P <= 64`` (a row of ``s`` must be a whole
+    number of 4-byte copies), else ``"fma"`` (fp32 FMA loops: fp32 inputs
+    keep full fp32, and bf16 at other shapes)."""
+    if dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"mixing_core: no kernel for {dtype}")
+    if dtype == torch.bfloat16 and c == _MMA_CHANNELS \
+            and o == _MMA_OUT_POINTS and p % 2 == 0 \
+            and padded_points(p) <= _MMA_MAX_POINTS:
+        return "mma"
+    return "fma"
+
 _SIGNATURE_SET = False
 
 
@@ -111,7 +143,7 @@ def _lib():
         vp, ci = ctypes.c_void_p, ctypes.c_int
         for fn in (lib.mixing_core_twopass, lib.mixing_core_onepass):
             fn.argtypes = [vp, vp, vp, vp, ctypes.c_longlong, ci, ci, ci, ci,
-                           ctypes.c_float, vp]
+                           ci, ctypes.c_float, vp]
             fn.restype = ci
         _SIGNATURE_SET = True
     return lib
@@ -129,19 +161,22 @@ def _mixing_cuda(x, m, s, two_pass: bool) -> torch.Tensor:
     if tuple(m.shape) != (bq, g, c, c) or tuple(s.shape) != (bq, g, o, p):
         raise ValueError(f"mixing_core: shapes {tuple(x.shape)}, "
                          f"{tuple(m.shape)}, {tuple(s.shape)} do not chain")
-    if x.dtype not in (torch.bfloat16, torch.float32):
-        raise ValueError(f"mixing_core: no kernel for {x.dtype}")
+    route = mixing_route(x.dtype, p, c, o)
     for name, t in (("x", x), ("m", m), ("s", s)):
         if t.dtype != x.dtype or t.device != dev or not t.is_contiguous():
             raise ValueError(f"mixing_core: {name} must be contiguous "
                              f"{x.dtype} on {dev}")
     out = torch.empty((bq, g, o, c), dtype=x.dtype, device=dev)
+    if route == "mma" and any(t.data_ptr() % 16 for t in (x, m, s, out)):
+        raise ValueError("mixing_core: operands must be 16-byte aligned")
+    padded = padded_points(p) if route == "mma" else 0
     lib = _lib()
     fn = lib.mixing_core_twopass if two_pass else lib.mixing_core_onepass
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = fn(x.data_ptr(), m.data_ptr(), s.data_ptr(), out.data_ptr(),
-                bq * g, p, c, o, int(x.dtype == torch.bfloat16), EPS, stream)
+                bq * g, p, c, o, int(x.dtype == torch.bfloat16), padded,
+                EPS, stream)
     build.check(lib, "mixing", rc)
     if two_pass:
         mixing_core.launches += 1

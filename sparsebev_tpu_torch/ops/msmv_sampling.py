@@ -570,10 +570,37 @@ def _lib():
         vp, ci = ctypes.c_void_p, ctypes.c_int
         lib.msmv_sample_forward.argtypes = [
             vp, vp, vp, vp, ci, vp, vp, vp, vp, ctypes.c_longlong,
-            ci, ci, ci, ci, ci, ci, ci, vp]
+            ci, ci, ci, ci, ci, ci, ci, ci, vp]
         lib.msmv_sample_forward.restype = ci
         _SIGNATURE_SET = True
     return lib
+
+
+_LANE_BYTES = 16     # each lane of the kernel loads and stores 16 bytes
+_MAX_LEVELS = 8      # the kernel is instantiated for 1..8 levels
+
+
+def sample_lanes_per_point(channels: int, dtype: torch.dtype) -> int:
+    """How many lanes of a warp share one sampling point in the kernel:
+    each lane owns one 16-byte run of the ``channels`` values, and a point
+    takes a power-of-two group of lanes (C=64: 8 lanes in bf16, 16 in fp32,
+    so a warp carries 4 or 2 points). Raises ``ValueError`` for what the
+    kernel does not take: another dtype, a channel run that is no multiple
+    of 16 bytes, or one longer than a warp's 512 bytes."""
+    if dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"msmv_sampling: no kernel for {dtype} tables")
+    nbytes = channels * dtype.itemsize
+    if channels < 1 or nbytes % _LANE_BYTES:
+        raise ValueError(
+            f"msmv_sampling: the kernel reads {_LANE_BYTES}-byte runs, so "
+            f"channels * itemsize must be a multiple of {_LANE_BYTES} (got "
+            f"{channels} channels of {dtype}: {nbytes} bytes)")
+    runs = nbytes // _LANE_BYTES
+    if runs > 32:
+        raise ValueError(
+            f"msmv_sampling: a point's {channels} channels of {dtype} take "
+            f"{runs} 16-byte runs, more than the 32 lanes of a warp")
+    return 1 << (runs - 1).bit_length()
 
 
 def _msmv_sampling_cuda(packed, loc, sw):
@@ -586,8 +613,10 @@ def _msmv_sampling_cuda(packed, loc, sw):
             raise ValueError(f"msmv_sampling: {name} must be contiguous fp32 "
                              f"on {dev}")
     dtype = packed.tables[0].dtype
-    if dtype not in (torch.bfloat16, torch.float32):
-        raise ValueError(f"msmv_sampling: no kernel for {dtype} tables")
+    lanes = sample_lanes_per_point(packed.channels, dtype)
+    if not 1 <= len(packed.level_shapes) <= _MAX_LEVELS:
+        raise ValueError(f"msmv_sampling: the kernel takes 1 to {_MAX_LEVELS} "
+                         f"levels, not {len(packed.level_shapes)}")
     for lvl, (t, (h, w)) in enumerate(zip(packed.tables,
                                           packed.level_shapes)):
         if t.dtype != dtype or t.device != dev or not t.is_contiguous():
@@ -598,7 +627,14 @@ def _msmv_sampling_cuda(packed, loc, sw):
             raise ValueError(f"msmv_sampling: level {lvl} table "
                              f"{tuple(t.shape)} does not match its shape "
                              f"{h}x{w} and mode")
+        if t.data_ptr() % _LANE_BYTES or t.shape[0] * (w + 1) >= 2 ** 31:
+            raise ValueError(f"msmv_sampling: level {lvl} table must be "
+                             f"{_LANE_BYTES}-byte aligned with fewer than "
+                             "2^31 columns in all")
     q, s, p, _ = loc.shape
+    if q * s * p * lanes >= 2 ** 31:
+        raise ValueError(f"msmv_sampling: {q * s * p} points are more than "
+                         "one launch takes")
     c = packed.channels
     slice_map = (torch.arange(s, device=dev) if packed.slice_map is None
                  else packed.slice_map)
@@ -617,7 +653,8 @@ def _msmv_sampling_cuda(packed, loc, sw):
             tables, heights, widths, yfold, num_levels, loc.data_ptr(),
             sw.data_ptr(), slice_map.data_ptr(), out.data_ptr(), q * s * p,
             s, p, packed.num_views, packed.num_groups, c,
-            int(dtype == torch.bfloat16), int(any(packed.gsplit)), stream)
+            int(dtype == torch.bfloat16), int(any(packed.gsplit)), lanes,
+            stream)
     build.check(lib, "msmv_sample", rc)
     msmv_sampling.launches += 1
     return out

@@ -1,0 +1,160 @@
+"""What the H100 redesigns of the sampling forward and the mixing core keep
+in Python, where the CPU reaches it: how many lanes of a warp share a
+sampling point (and which channel counts the 16-byte-lane kernel refuses),
+how the mixing wrapper pads the in-points to the tensor-core tile and which
+of its two kernels it picks, and the padding scheme the tensor-core kernel
+relies on, replayed with plain PyTorch: operands padded from P to the next
+multiple of 16 give the unpadded result when the first LN's statistics run
+over the P real rows only and the padded rows of h1 are zero.
+
+Tolerance of the padded replay: the padded products sum the same fp32
+terms plus exact zeros, in whatever order the matmul picks for the longer
+depth, so fp32 agrees within 1e-5 of the output scale."""
+
+import numpy as np
+import pytest
+import torch
+
+from sparsebev_tpu_torch.ops import mixing
+from sparsebev_tpu_torch.ops.mixing import (mixing_core_plain, mixing_route,
+                                            padded_points)
+from sparsebev_tpu_torch.ops.msmv_sampling import sample_lanes_per_point
+
+torch.set_num_threads(1)
+
+
+@pytest.mark.parametrize("channels,dtype,lanes", [
+    (64, torch.bfloat16, 8),      # every config: 4 points a warp
+    (64, torch.float32, 16),      # 2 points a warp
+    (256, torch.bfloat16, 32),    # one point a warp
+    (128, torch.float32, 32),
+    (24, torch.bfloat16, 4),      # 3 runs of 16 bytes: 4 lanes, one idle
+    (8, torch.bfloat16, 1),
+])
+def test_sampling_lanes_per_point(channels, dtype, lanes):
+    assert sample_lanes_per_point(channels, dtype) == lanes
+    assert lanes * 16 >= channels * dtype.itemsize and 32 % lanes == 0
+
+
+@pytest.mark.parametrize("channels,dtype,match", [
+    (63, torch.bfloat16, "multiple of 16"),
+    (6, torch.float32, "multiple of 16"),
+    (0, torch.float32, "multiple of 16"),
+    (256, torch.float32, "more than the 32 lanes"),
+    (512, torch.bfloat16, "more than the 32 lanes"),
+    (64, torch.float16, "no kernel for torch.float16"),
+])
+def test_sampling_kernel_refuses(channels, dtype, match):
+    with pytest.raises(ValueError, match=match):
+        sample_lanes_per_point(channels, dtype)
+
+
+@pytest.mark.parametrize("p,padded", [(32, 32), (60, 64), (7, 16), (16, 16),
+                                      (1, 16), (65, 80)])
+def test_mixing_padded_points(p, padded):
+    assert padded_points(p) == padded
+    assert padded % 16 == 0 and 0 <= padded - p < 16
+
+
+def test_mixing_padded_points_refuses_no_points():
+    with pytest.raises(ValueError, match="in-points"):
+        padded_points(0)
+
+
+@pytest.mark.parametrize("dtype,p,c,o,route", [
+    (torch.bfloat16, 32, 64, 128, "mma"),     # r50
+    (torch.bfloat16, 60, 64, 128, "mma"),     # vov99: padded to 64
+    (torch.bfloat16, 2, 64, 128, "mma"),
+    (torch.bfloat16, 7, 64, 128, "fma"),      # odd P: 14-byte rows of s
+    (torch.bfloat16, 66, 64, 128, "fma"),     # more than 64 padded points
+    (torch.bfloat16, 32, 16, 32, "fma"),      # not the decoder's widths
+    (torch.float32, 32, 64, 128, "fma"),      # fp32 keeps full fp32
+    (torch.float32, 60, 64, 128, "fma"),
+])
+def test_mixing_route(dtype, p, c, o, route):
+    assert mixing_route(dtype, p, c, o) == route
+
+
+def test_mixing_route_refuses_other_dtypes():
+    with pytest.raises(ValueError, match="no kernel for torch.float16"):
+        mixing_route(torch.float16, 32, 64, 128)
+
+
+def _masked_ln(t, rows, stats):
+    """``mixing._ln2d`` with the statistics over the first ``rows`` rows of
+    ``t [.., R, C]`` only."""
+    n = rows * t.shape[-1]
+    live = t[..., :rows, :]
+    mu = live.sum(dim=(-2, -1), keepdim=True) / n
+    if stats == "twopass":
+        d = live - mu
+        var = (d * d).sum(dim=(-2, -1), keepdim=True) / n
+    else:
+        sq = (live * live).sum(dim=(-2, -1), keepdim=True) / n
+        var = (sq - mu * mu).clamp(min=0.0)
+    return (t - mu) * torch.rsqrt(var + mixing.EPS)
+
+
+def _padded_chain(x, m, s, stats, mask=True):
+    """The tensor-core kernel's scheme in plain PyTorch: x gets padding rows
+    (arbitrary values: their products are never used), s gets zero columns,
+    LN1 runs over the P real rows and h1's padding rows are zeroed. With
+    ``mask=False`` the padding rows are zeros and LN1 runs over all PP."""
+    p = x.shape[-2]
+    pp = padded_points(p)
+    fill = 3.0 if mask else 0.0
+    xp = torch.full(x.shape[:-2] + (pp, x.shape[-1]), fill, dtype=x.dtype)
+    xp[..., :p, :] = x
+    sp = torch.zeros(s.shape[:-1] + (pp,), dtype=s.dtype)
+    sp[..., :p] = s
+    h1 = torch.matmul(xp.float(), m.float())
+    h1 = torch.relu(_masked_ln(h1, p if mask else pp, stats))
+    h1[..., p:, :] = 0.0
+    h1 = h1.to(x.dtype)
+    h2 = torch.matmul(sp.float(), h1.float())
+    return torch.relu(_masked_ln(h2, h2.shape[-2], stats)).to(x.dtype)
+
+
+def _operands(seed, p, c=16, o=32, items=5):
+    rng = np.random.RandomState(seed)
+    x = torch.from_numpy(rng.randn(items, 2, p, c).astype(np.float32))
+    m = torch.from_numpy((rng.randn(items, 2, c, c) / np.sqrt(c))
+                         .astype(np.float32))
+    s = torch.from_numpy((rng.randn(items, 2, o, p) / np.sqrt(p))
+                         .astype(np.float32))
+    return x, m, s
+
+
+@pytest.mark.parametrize("p", [32, 60, 7])
+@pytest.mark.parametrize("stats", ["twopass", "onepass"])
+def test_padded_chain_equals_plain(p, stats):
+    x, m, s = _operands(p, p)
+    want = mixing_core_plain(x, m, s, stats=stats)
+    got = _padded_chain(x, m, s, stats)
+    assert got.shape == want.shape
+    scale = max(1.0, float(want.abs().max()))
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-5 * scale)
+
+
+@pytest.mark.parametrize("stats", ["twopass", "onepass"])
+def test_padding_inside_the_ln_would_change_the_result(stats):
+    """Why the mask is there: with the padded rows inside LN1's statistics
+    (n = PP * C, and in the two-pass variance a term mu^2 per padded zero)
+    the output moves far beyond the tolerance."""
+    x, m, s = _operands(11, 60)
+    want = mixing_core_plain(x, m, s, stats=stats)
+    got = _padded_chain(x, m, s, stats, mask=False)
+    scale = max(1.0, float(want.abs().max()))
+    assert float((got - want).abs().max()) > 1e-3 * scale
+
+
+def test_padded_chain_bf16_within_the_card_tolerance():
+    """bf16 operands: the padded replay against the plain version within the
+    tolerance the smoke run holds the kernel to (2^-7 of each value plus
+    2^-8 of the output scale)."""
+    x, m, s = (t.to(torch.bfloat16) for t in _operands(5, 60))
+    want = mixing_core_plain(x, m, s).float()
+    got = _padded_chain(x, m, s, "twopass").float()
+    scale = max(1.0, float(want.abs().max()))
+    assert bool(((got - want).abs()
+                 <= 2.0 ** -7 * want.abs() + 2.0 ** -8 * scale).all())
