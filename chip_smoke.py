@@ -9,10 +9,11 @@ prints its wall time):
      triton;
   2. build every CUDA kernel of the port from ``sparsebev_tpu_torch/csrc``
      (one nvcc per source, all started together): the y-fold pack, the
-     pair-mode pack, the sampling forward, the one-hot level sampler, the
-     mixing core (two entries) and the tap-fold epilogue; for the sampling
-     forward and the mixing core, what ``ptxas -v`` reports per kernel
-     (registers, shared memory, stack frame, spills);
+     pair-mode pack, the sampling forward, the one-hot level sampler (two
+     entries: all levels in one launch, and one level), the mixing core (two
+     entries) and the tap-fold epilogue; for the sampling forward, the
+     one-hot sampler and the mixing core, what ``ptxas -v`` reports per
+     kernel (registers, shared memory, stack frame, spills);
   3. the first three kernels at the shapes of each streaming path that runs
      them against their plain PyTorch versions on the same inputs (bit for
      bit; the sampling op in fp32 within 1e-5 of the output scale), timed
@@ -35,8 +36,13 @@ prints its wall time):
      ``pack_mlvl_feats`` and slice-major ``msmv_sampling``) at r50 full
      width on those maps and points, with bf16 and fp32 features: bit for
      bit against the same call through the plain versions and within a
-     stated tolerance of the "xla" y-fold path; the one-hot kernel per
-     level against its plain version; the sampling forward once more on
+     stated tolerance of the "xla" y-fold path, timed beside it and beside
+     the same call with the one-hot levels taken one at a time (as the path
+     ran before the fused kernel), each with its count of device launches;
+     the fused one-hot kernel against its plain version with a bf16 and an
+     fp32 accumulator, with and without a y-fold prefix, and the per-level
+     kernel at each level, all bit for bit and timed beside their bounds;
+     the sampling forward once more on
      the recorded r50 points and ring (bit for bit against its plain
      version, timed beside the bound of those inputs and the share of
      windows that the points of one (query, slice) have in common); then
@@ -80,7 +86,7 @@ PATHS = (
          gsplit=(False, False, False, True, False), t=15, q=1600),
 )
 # sources whose ptxas report is printed per kernel
-PTXAS_REPORTS = ("msmv_sample", "mixing")
+PTXAS_REPORTS = ("msmv_sample", "msmv_onehot", "mixing")
 # the plain versions issue up to ~100 small launches per call: keep the
 # card busy long enough (~20 ms) that all of them are queued before it idles
 PLAIN_BUSY_CYCLES = 40_000_000
@@ -151,8 +157,9 @@ def ptxas_report(text: str):
             name = m.group(1)
             # _ZN..<len>kernel_nameI<template args>EEv<parameters>
             k = re.search(r"\d+([a-z_]+kernel)I(.+?)EEv", name)
+            plain = re.search(r"\d+([a-z_]+kernel)E", name)  # no template
             entry = dict(kernel=f"{k.group(1)}<{_template_args(k.group(2))}>"
-                         if k else name,
+                         if k else plain.group(1) if plain else name,
                          regs=0, smem=0, stack=0, spill_stores=0,
                          spill_loads=0)
             rows.append(entry)
@@ -507,6 +514,27 @@ def run_stream(torch, det, samples, prefetch=True):
     return times, preds
 
 
+def _dev_us(e):
+    """Device time of a profiler row, under either name torch gives it."""
+    v = getattr(e, "self_device_time_total", None)
+    return v if v is not None else e.self_cuda_time_total
+
+
+def device_ops(torch, fn):
+    """Device operations (kernels, copies, memsets) that one call of ``fn``
+    puts on the card, counted from a torch.profiler trace of a second
+    call."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(e.count for e in prof.key_averages()
+               if _dev_us(e) > 0 and str(e.device_type).endswith("CUDA"))
+
+
 def breakdown(torch, det, samples, frame_label):
     """Where a streaming sample's time goes: the frame pass and the head
     timed apart (host clock, synchronized), and a torch.profiler trace of
@@ -553,11 +581,7 @@ def breakdown(torch, det, samples, frame_label):
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3 / len(samples)
 
-    def dev_us(e):
-        v = getattr(e, "self_device_time_total", None)
-        return v if v is not None else e.self_cuda_time_total
-
-    events = [e for e in prof.key_averages() if dev_us(e) > 0]
+    events = [e for e in prof.key_averages() if _dev_us(e) > 0]
     # device-side rows are the kernels and copies themselves; host-side rows
     # are the aten ops that launched them (the ctypes kernels have none)
     device = [e for e in events if str(e.device_type).endswith("CUDA")]
@@ -565,17 +589,17 @@ def breakdown(torch, det, samples, frame_label):
         log("breakdown: the profiler recorded no device time")
         return
     n = len(samples)
-    busy = sum(dev_us(e) for e in device) / 1e3 / n
+    busy = sum(_dev_us(e) for e in device) / 1e3 / n
     launches = sum(e.count for e in device) / n
     log(f"breakdown: {n} new-frame samples under torch.profiler: wall "
         f"{wall:.3f} ms/sample, device busy {busy:.3f} ms/sample "
         f"({100 * busy / wall:.1f}%; idle {100 * (1 - busy / wall):.1f}%), "
         f"{launches:.0f} device ops/sample")
     host = [e for e in events if e not in device]
-    top = sorted(host, key=dev_us, reverse=True)[:10] + \
+    top = sorted(host, key=_dev_us, reverse=True)[:10] + \
         [e for e in device if "msmv" in e.key]
     for e in top:
-        log(f"breakdown: {dev_us(e) / 1e3 / n:8.4f} ms/sample "
+        log(f"breakdown: {_dev_us(e) / 1e3 / n:8.4f} ms/sample "
             f"{e.count / n:6.1f} calls/sample  {e.key[:70]}")
 
 
@@ -585,16 +609,19 @@ def plain_versions():
     their plain PyTorch versions (on the card) for the duration."""
     from sparsebev_tpu_torch.ops import msmv_onehot, msmv_pack, msmv_sampling
     saved = (msmv_pack._pack_level_cuda, msmv_pack._pack_level_pair_cuda,
-             msmv_sampling._msmv_sampling_cuda, msmv_onehot._onehot_cuda)
+             msmv_sampling._msmv_sampling_cuda, msmv_onehot._onehot_cuda,
+             msmv_onehot._onehot_levels_cuda)
     msmv_pack._pack_level_cuda = msmv_pack.pack_level_plain
     msmv_pack._pack_level_pair_cuda = msmv_pack.pack_level_pair_plain
     msmv_sampling._msmv_sampling_cuda = msmv_sampling.msmv_sampling_plain
     msmv_onehot._onehot_cuda = msmv_onehot.onehot_sample_level_plain
+    msmv_onehot._onehot_levels_cuda = msmv_onehot.onehot_sample_levels_plain
     try:
         yield
     finally:
         (msmv_pack._pack_level_cuda, msmv_pack._pack_level_pair_cuda,
-         msmv_sampling._msmv_sampling_cuda, msmv_onehot._onehot_cuda) = saved
+         msmv_sampling._msmv_sampling_cuda, msmv_onehot._onehot_cuda,
+         msmv_onehot._onehot_levels_cuda) = saved
 
 
 def capture_inputs(torch, det, model, stream, path):
@@ -814,12 +841,42 @@ def _slice_feats(fpn, groups):
     return out
 
 
+def _hybrid_sampling_per_level(packed, loc, sw):
+    """The hybrid sampling call with the one-hot levels taken one at a time,
+    as the path ran before the fused kernel: per level the point arguments,
+    the casts and the add as eager PyTorch ops around one launch of the
+    per-level kernel. Same bits as the path; the yardstick for the fused
+    kernel's time and launch count."""
+    from sparsebev_tpu_torch.ops import msmv_onehot as oh
+    from sparsebev_tpu_torch.ops import msmv_sampling as ms
+    s, q, p, _ = loc.shape
+    k, c = s * q * p, packed.channels
+    n_yf = sum(1 for t in packed.tables if t is not None)
+    prefix = ms.PackedFeatures(packed.tables[:n_yf], s, packed.num_views,
+                               packed.level_shapes[:n_yf], c)
+    out = ms.msmv_sampling(prefix, loc.transpose(0, 1).contiguous(),
+                           sw[..., :n_yf].transpose(0, 1).contiguous())
+    out = out.transpose(0, 1).reshape(k, c)
+    x, y = loc[..., 0].reshape(k), loc[..., 1].reshape(k)
+    view = oh._view_index(loc[..., 2].reshape(k), packed.num_views)
+    for lvl in range(n_yf, len(packed.level_shapes)):
+        h, w = packed.level_shapes[lvl]
+        args = oh._onehot_level_weights(
+            x, y, view, sw[..., lvl].reshape(k).float(), h, w)
+        res = oh.onehot_sample_level(
+            packed.mxu_tables[lvl],
+            *[a.reshape(s, q * p).contiguous() for a in args], w=w, c=c)
+        out = out + res.reshape(k, c).to(out.dtype)
+    return out.reshape(s, q, p, c)
+
+
 def hybrid_phase(torch, flush, bw, cap):
-    """This slice's path at r50 full width: ``set_sampling_impl("hybrid")``,
+    """The hybrid path at r50 full width: ``set_sampling_impl("hybrid")``,
     ``pack_mlvl_feats`` and slice-major ``msmv_sampling`` on the recorded
     FPN maps (split into G groups) and one decoder layer's points, with bf16
-    and fp32 features. Returns the launch counts of the path's runs and the
-    one-hot kernel's numbers (each MXU level against its plain version)."""
+    and fp32 features. Returns the launch counts of the path's runs and of
+    the per-level kernel's own run, and the numbers of the fused and the
+    per-level one-hot kernels."""
     from sparsebev_tpu_torch.ops import msmv_onehot, msmv_pack
     from sparsebev_tpu_torch.ops import msmv_sampling as ms
     _, loc_q, sw_q = cap["sampling"]
@@ -829,7 +886,7 @@ def hybrid_phase(torch, flush, bw, cap):
     t = cap["fpn"][0].shape[0]
     feats = _slice_feats(cap["fpn"], s // t)
     counters = dict(pack=msmv_pack.pack_level, sampling=ms.msmv_sampling,
-                    onehot=msmv_onehot.onehot_sample_level)
+                    onehot_fused=msmv_onehot.onehot_sample_levels)
     launches = dict.fromkeys(counters, 0)
 
     def run(fs, impl):
@@ -859,16 +916,21 @@ def hybrid_phase(torch, flush, bw, cap):
             with plain_versions():
                 plain = run(fs, "hybrid")
             xla = run(fs, "xla")
+            per_level = _hybrid_sampling_per_level(packed, loc, sw)
             torch.cuda.synchronize()
             if not _bit_equal(torch, got, plain):
                 d = (got.float() - plain.float()).abs().max().item()
                 fail(f"hybrid path ({dname}) differs from its plain run "
                      f"(max {d:.4g})")
+            if not _bit_equal(torch, got, per_level):
+                fail(f"hybrid path ({dname}) differs from the same call "
+                     "with the one-hot levels taken one at a time")
             d = (got.float() - xla.float()).abs().max().item()
             scale = xla.float().abs().max().item()
             log(f"hybrid [r50] {dname} features: one-hot levels {mxu}, "
                 f"y-fold levels {[lvl for lvl in range(len(packed.tables)) if lvl not in mxu]}; "
-                f"bit-equal to the plain run; max|hybrid - xla| = {d:.4g} "
+                f"bit-equal to the plain run and to the per-level route; "
+                f"max|hybrid - xla| = {d:.4g} "
                 f"(output scale {scale:.4g}, tolerance "
                 f"{HYBRID_VS_XLA_TOL * scale:.4g}); mean "
                 f"{(got.float() - xla.float()).abs().mean().item():.3g}")
@@ -876,21 +938,42 @@ def hybrid_phase(torch, flush, bw, cap):
                 fail(f"hybrid path ({dname}) is too far from the xla path")
             ms.set_sampling_impl("xla")
             packed_x = ms.pack_mlvl_feats(fs)
+
+            def hybrid_sampling():
+                return ms.msmv_sampling(packed, loc, sw, qmajor=False)
+
+            def xla_sampling():
+                return ms.msmv_sampling(packed_x, loc, sw, qmajor=False)
+
+            def per_level_sampling():
+                return _hybrid_sampling_per_level(packed, loc, sw)
+
             busy = PLAIN_BUSY_CYCLES      # each of these makes many launches
             times = dict(
                 hybrid=time_ms(torch, lambda: run(fs, "hybrid"), 20, flush,
                                busy),
                 xla=time_ms(torch, lambda: run(fs, "xla"), 20, flush, busy),
-                hybrid_sampling=time_ms(torch, lambda: ms.msmv_sampling(
-                    packed, loc, sw, qmajor=False), 20, flush, busy),
-                xla_sampling=time_ms(torch, lambda: ms.msmv_sampling(
-                    packed_x, loc, sw, qmajor=False), 20, flush, busy))
+                hybrid_sampling=time_ms(torch, hybrid_sampling, 20, flush,
+                                        busy),
+                per_level_sampling=time_ms(torch, per_level_sampling, 20,
+                                           flush, busy),
+                xla_sampling=time_ms(torch, xla_sampling, 20, flush, busy))
+            ops = dict(hybrid=device_ops(torch, hybrid_sampling),
+                       per_level=device_ops(torch, per_level_sampling),
+                       xla=device_ops(torch, xla_sampling))
             log(f"hybrid [r50] {dname} features: pack + sampling "
                 f"{times['hybrid']:.4f} ms (xla path {times['xla']:.4f} ms); "
-                f"sampling alone {times['hybrid_sampling']:.4f} ms (xla "
-                f"{times['xla_sampling']:.4f} ms)")
-            del got, plain, xla, packed_x
-        onehot = check_onehot(torch, flush, bw, packed, loc, sw)
+                f"sampling alone {times['hybrid_sampling']:.4f} ms in "
+                f"{ops['hybrid']} device launches (one-hot levels one at a "
+                f"time, as before the fused kernel: "
+                f"{times['per_level_sampling']:.4f} ms in {ops['per_level']} "
+                f"launches; xla {times['xla_sampling']:.4f} ms in "
+                f"{ops['xla']})")
+            if not ops["hybrid"] < ops["per_level"]:
+                fail("the fused one-hot kernel saved no device launch")
+            del got, plain, xla, per_level, packed_x
+        onehot_launches, onehot, fused = check_onehot(torch, flush, bw,
+                                                      packed, loc, sw)
     finally:
         ms.set_sampling_impl("xla")
     log("hybrid [r50]: kernel launches "
@@ -898,62 +981,138 @@ def hybrid_phase(torch, flush, bw, cap):
     for k, v in launches.items():
         if v <= 0:
             fail(f"kernel {k} of the hybrid path was never launched")
-    return launches, onehot
+    return launches, onehot_launches, onehot, fused
+
+
+def _touched_bytes(torch, si, args, nh, w, c):
+    """Bytes of the table runs (C bf16 values) that these points' taps touch
+    with a nonzero weight, each run counted once."""
+    rows0, rows1, wy0, wy1, x0, wx0, wx1 = [a.reshape(-1) for a in args]
+    keys = []
+    for rows, wy in ((rows0, wy0), (rows1, wy1)):
+        for dx, wx in ((0, wx0), (1, wx1)):
+            live = (wy != 0) & (wx != 0)
+            keys.append(((si * nh + rows.long()) * w + x0.long() + dx)[live])
+    return torch.unique(torch.cat(keys)).numel() * c * 2
 
 
 def check_onehot(torch, flush, bw, packed, loc, sw):
-    """The one-hot kernel at each MXU level of the hybrid pack against its
-    plain version, bit for bit, timed. The bound counts the table runs
-    (C bf16 values) that these points touch with a nonzero weight, read
-    once, 28 bytes of per-point arguments and the fp32 output."""
+    """The two one-hot kernels on the hybrid pack's MXU levels and one
+    decoder layer's points, bit for bit against their plain versions, timed.
+
+    Per level: the per-level entry once (counted), then the kernel against
+    its plain version. Its bound counts the table runs these points touch
+    with a nonzero weight, read once, 28 bytes of per-point arguments and
+    the fp32 output. The fused kernel: every level in one launch onto a bf16
+    and an fp32 accumulator that holds the y-fold level's result, and onto
+    zeros (no prefix). Its bound counts the same table runs, the locations
+    and scale weights once, and the accumulator read once and written
+    once."""
+    from sparsebev_tpu_torch.ops import msmv_onehot as oh
     from sparsebev_tpu_torch.ops import msmv_sampling as ms
-    from sparsebev_tpu_torch.ops.msmv_onehot import (
-        onehot_sample_level, onehot_sample_level_plain)
     s, q, p, _ = loc.shape
-    k, c = s * q * p, packed.channels
+    k, c, n = s * q * p, packed.channels, packed.num_views
     x, y = loc[..., 0].reshape(k), loc[..., 1].reshape(k)
-    view = ms._view_index(loc[..., 2].reshape(k), packed.num_views)
+    view = oh._view_index(loc[..., 2].reshape(k), n)
     si = torch.arange(s, device=loc.device).repeat_interleave(q * p)
-    ms_total = plain_total = nbytes = 0.0
-    for lvl, table in enumerate(packed.mxu_tables):
-        if table is None:
-            continue
-        h, w = packed.level_shapes[lvl]
-        args = [a.reshape(s, q * p).contiguous()
-                for a in ms._onehot_level_weights(
-                    x, y, view, sw[..., lvl].reshape(k).float(), h, w)]
-        got = onehot_sample_level(table, *args, w=w, c=c)
-        want = onehot_sample_level_plain(table, *args, w=w, c=c)
+    mxu = [lvl for lvl, t in enumerate(packed.mxu_tables) if t is not None]
+    tables = [packed.mxu_tables[lvl] for lvl in mxu]
+    shapes = [packed.level_shapes[lvl] for lvl in mxu]
+    level = dict(ms=0.0, plain_ms=0.0, nbytes=0)
+    touched_all = 0
+    level_args = [[a.reshape(s, q * p).contiguous()
+                   for a in oh._onehot_level_weights(
+                       x, y, view, sw[..., lvl].reshape(k).float(), h, w)]
+                  for lvl, (h, w) in zip(mxu, shapes)]
+    oh.onehot_sample_level.launches = 0
+    gots = [oh.onehot_sample_level(table, *args, w=w, c=c)
+            for table, args, (_, w) in zip(tables, level_args, shapes)]
+    torch.cuda.synchronize()
+    launches = oh.onehot_sample_level.launches
+    for lvl, table, (h, w), args, got in zip(mxu, tables, shapes, level_args,
+                                             gots):
+        want = oh.onehot_sample_level_plain(table, *args, w=w, c=c)
         torch.cuda.synchronize()
         if not _bit_equal(torch, got, want):
             d = (got - want).abs().max().item()
             fail(f"one-hot kernel differs from its plain version at level "
                  f"{lvl} ({h}x{w}, max {d:.4g})")
-        kern = time_ms(torch, lambda: onehot_sample_level(table, *args, w=w,
-                                                          c=c), 30, flush)
-        plain = time_ms(torch, lambda: onehot_sample_level_plain(
+        kern = time_ms(torch, lambda: oh.onehot_sample_level(
+            table, *args, w=w, c=c), 30, flush)
+        plain = time_ms(torch, lambda: oh.onehot_sample_level_plain(
             table, *args, w=w, c=c), 20, flush, PLAIN_BUSY_CYCLES)
-        rows0, rows1, wy0, wy1, x0, wx0, wx1 = [a.reshape(k) for a in args]
-        nh = table.shape[1]
-        keys = []
-        for rows, wy in ((rows0, wy0), (rows1, wy1)):
-            for dx, wx in ((0, wx0), (1, wx1)):
-                live = (wy != 0) & (wx != 0)
-                keys.append(((si * nh + rows.long()) * w + x0.long()
-                             + dx)[live])
-        touched = torch.unique(torch.cat(keys)).numel() * c * 2
+        touched = _touched_bytes(torch, si, args, table.shape[1], w, c)
         lvl_bytes = touched + k * (28 + 4 * c)
-        log(f"onehot [hybrid] level {lvl} ({h}x{w}, {table.numel() * 2 / 1e6:.1f}"
-            f" MB table): bit-equal to plain; {kern:.4f} ms (plain "
-            f"{plain:.4f} ms), bound {lvl_bytes / bw * 1e3:.4f} ms "
-            f"({touched / 1e6:.1f} MB of the table touched, "
-            f"{lvl_bytes / 1e6:.1f} MB in all)")
-        ms_total += kern
-        plain_total += plain
-        nbytes += lvl_bytes
-    return dict(max_abs_err=0.0, ms=ms_total, plain_ms=plain_total,
-                bound_ms=nbytes / bw * 1e3, bound_by="bytes",
-                library_ms=None)
+        log(f"onehot [r50 levels] level {lvl} ({h}x{w}, "
+            f"{table.numel() * 2 / 1e6:.1f} MB table): bit-equal to plain; "
+            f"{kern:.4f} ms (plain {plain:.4f} ms), bound "
+            f"{lvl_bytes / bw * 1e3:.4f} ms ({touched / 1e6:.1f} MB of the "
+            f"table touched, {lvl_bytes / 1e6:.1f} MB in all)")
+        level["ms"] += kern
+        level["plain_ms"] += plain
+        level["nbytes"] += lvl_bytes
+        touched_all += touched
+    del gots, got, want, level_args, args
+    if launches != len(mxu):
+        fail(f"one-hot per-level kernel: {launches} launches for "
+             f"{len(mxu)} levels")
+    log(f"onehot [r50 levels]: {len(mxu)} levels {level['ms']:.4f} ms (plain "
+        f"{level['plain_ms']:.4f} ms), bound "
+        f"{level['nbytes'] / bw * 1e3:.4f} ms ({level['nbytes'] / 1e6:.1f} "
+        f"MB): {100 * level['nbytes'] / bw * 1e3 / level['ms']:.1f}% of the "
+        f"bound; launches in its run: {launches}")
+
+    # the fused kernel: accumulators that hold the y-fold level's result
+    n_yf = mxu[0]
+    prefix = ms.PackedFeatures(packed.tables[:n_yf], s, n,
+                               packed.level_shapes[:n_yf], c)
+    pre = ms.msmv_sampling(prefix, loc.transpose(0, 1).contiguous(),
+                           sw[..., :n_yf].transpose(0, 1).contiguous())
+    pre = pre.transpose(0, 1).reshape(k, c).float()
+    fused = {}
+    for acc_dtype in (torch.bfloat16, torch.float32):
+        aname = str(acc_dtype)[6:]
+        for label, base in (("y-fold prefix", pre.to(acc_dtype)),
+                            ("no prefix", torch.zeros_like(
+                                pre, dtype=acc_dtype))):
+            got = oh.onehot_sample_levels(tables, shapes, mxu, loc, sw,
+                                          base.clone(), n, c)
+            want = oh.onehot_sample_levels_plain(tables, shapes, mxu, loc, sw,
+                                                 base.clone(), n, c)
+            torch.cuda.synchronize()
+            if not _bit_equal(torch, got, want):
+                d = (got.float() - want.float()).abs().max().item()
+                fail(f"fused one-hot kernel differs from its plain version "
+                     f"({aname} accumulator, {label}, max {d:.4g})")
+            del got, want
+        base = pre.to(acc_dtype)
+        kern = time_ms(torch, lambda: oh.onehot_sample_levels(
+            tables, shapes, mxu, loc, sw, base, n, c), 30, flush)
+        base = pre.to(acc_dtype)
+        plain = time_ms(torch, lambda: oh.onehot_sample_levels_plain(
+            tables, shapes, mxu, loc, sw, base, n, c), 20, flush,
+            PLAIN_BUSY_CYCLES)
+        nbytes = touched_all + loc.numel() * 4 \
+            + sw.numel() * sw.element_size() + 2 * k * c * base.element_size()
+        bound_ms = nbytes / bw * 1e3
+        log(f"onehot_fused [hybrid] {aname} accumulator: bit-equal to plain "
+            f"with a y-fold prefix and without; {len(mxu)} levels in one "
+            f"launch {kern:.4f} ms (plain {plain:.4f} ms; the per-level "
+            f"kernel's {len(mxu)} launches {level['ms']:.4f} ms), bound "
+            f"{bound_ms:.4f} ms ({touched_all / 1e6:.1f} MB of the tables "
+            f"touched, {nbytes / 1e6:.1f} MB in all): "
+            f"{nbytes / kern / 1e6:.0f} GB/s, {100 * bound_ms / kern:.1f}% "
+            "of the bound")
+        if acc_dtype == torch.bfloat16:
+            fused = dict(max_abs_err=0.0, ms=kern, plain_ms=plain,
+                         bound_ms=bound_ms, bound_by="bytes",
+                         library_ms=None, per_level_ms=level["ms"])
+        else:
+            fused.update(fp32_acc_ms=kern, fp32_acc_bound_ms=bound_ms)
+    return ({"onehot": launches},
+            dict(max_abs_err=0.0, ms=level["ms"], plain_ms=level["plain_ms"],
+                 bound_ms=level["nbytes"] / bw * 1e3, bound_by="bytes",
+                 library_ms=None), fused)
 
 
 def _gather_windows(torch, packed, loc, sw):
@@ -1143,6 +1302,9 @@ KERNELS = dict(
     onehot=dict(name="msmv_onehot_sample_level", route="cuda",
                 source="sparsebev_tpu_torch/csrc/msmv_onehot.cu",
                 replaces="sparsebev_tpu/ops/msmv_pallas.py:89"),
+    onehot_fused=dict(name="msmv_onehot_sample_levels", route="cuda",
+                      source="sparsebev_tpu_torch/csrc/msmv_onehot.cu",
+                      replaces="sparsebev_tpu/ops/msmv_pallas.py:89"),
     mixing=dict(name="mixing_core_twopass", route="cuda",
                 source="sparsebev_tpu_torch/csrc/mixing.cu",
                 replaces="sparsebev_tpu/ops/mixing_pallas.py:74"),
@@ -1166,7 +1328,9 @@ def kernels_line(measured, launches):
     The mixing rows add ``chain_ms``, the decoder's own chain on the same
     inputs (a yardstick, not a library call), the achieved ``gbytes_per_s``
     and ``bound_share`` (bound over time), and the same for fp32 inputs
-    under ``fp32_*``."""
+    under ``fp32_*``. The fused one-hot row adds ``per_level_ms``, the
+    per-level kernel's launches for the same levels, and its time and bound
+    with an fp32 accumulator under ``fp32_acc_*``."""
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     rows = []
     for k, info in KERNELS.items():
@@ -1272,8 +1436,10 @@ def main() -> int:
     flush = torch.empty(64 * 2**20, dtype=torch.int32, device=dev)
     source = next(p["name"] for p in PATHS if p.get("hybrid_source"))
     with torch.inference_mode():
-        launches["hybrid"], measured["onehot"]["hybrid"] = hybrid_phase(
-            torch, flush, bw, captured[source])
+        (launches["hybrid"], launches[f"onehot {source} levels"],
+         measured["onehot"][f"{source} levels"],
+         measured["onehot_fused"]["hybrid"]) = hybrid_phase(
+             torch, flush, bw, captured[source])
     log(f"phase: hybrid path took {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     with torch.inference_mode():

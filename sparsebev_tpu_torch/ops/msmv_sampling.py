@@ -41,9 +41,9 @@ The hybrid entry point (``set_sampling_impl("hybrid")``, JAX :51-64):
 :func:`pack_mlvl_feats` then keeps every level of at most
 ``_MXU_LEVEL_MAX_ELEMS`` elements per sample as a bf16 ``[B, N*H, W*C]``
 table (``PackedFeatures.mxu_tables``), and :func:`msmv_sampling` given such
-tables takes slice-major points and samples those levels with
-``msmv_onehot.onehot_sample_level`` (``csrc/msmv_onehot.cu``), the others with
-the y-fold kernel. As in the JAX package, the model path never gets there:
+tables takes slice-major points and samples those levels with one launch of
+``msmv_onehot.onehot_sample_levels`` (``csrc/msmv_onehot.cu``), the others
+with the y-fold kernel. As in the JAX package, the model path never gets there:
 ``projection.sampling_4d`` warns and packs without MXU tables.
 
 Not in this slice: chunk-split rings (``table_split > 1``) and fp8 rings
@@ -59,7 +59,10 @@ from typing import Optional, Sequence
 import torch
 
 from ..kernels import build
-from .msmv_onehot import onehot_sample_level
+from .msmv_onehot import LANE_BYTES as _LANE_BYTES
+from .msmv_onehot import MAX_LEVELS as _MAX_LEVELS
+from .msmv_onehot import (_clamp_pixels, _view_index, lanes_per_point,
+                          onehot_sample_levels)
 from .msmv_pack import pack_level, pack_level_pair
 
 # sampling implementation: "xla" (y-fold tables for every level; the
@@ -281,12 +284,6 @@ def _bilinear_taps(x_pix, y_pix, h, w):
     return (ix0, iy0, ix1, iy1), (w00, w01, w10, w11)
 
 
-def _clamp_pixels(pix, size):
-    # pixels beyond [-2, size+1] have every tap masked; clamping them keeps
-    # the integer conversion in range and changes no weight
-    return pix.clamp(-2.0, float(size + 1))
-
-
 def _separable_slot_weights(x_pix, y_pix, h, w):
     """Slot indices + separable weights for the y-fold window read.
 
@@ -325,10 +322,6 @@ def _separable_slot_weights(x_pix, y_pix, h, w):
     wya = torch.where(sh_y, wy1, wy0)
     wyb = torch.where(sh_y, torch.zeros_like(wy1), wy1)
     return sx, ry, (wxa, wxb), (wya, wyb)
-
-
-def _view_index(v, n):
-    return torch.round(v * (n - 1)).clamp(0, n - 1).to(torch.int64)
 
 
 def msmv_sampling_reference(mlvl_feats: Sequence[torch.Tensor],
@@ -454,44 +447,12 @@ def msmv_sampling_plain(packed: PackedFeatures,
     return out.reshape(q, s, p, c)
 
 
-def _onehot_level_weights(x, y, view, lw, h, w):
-    """Per-point arguments of :func:`~.msmv_onehot.onehot_sample_level` for
-    one level (the JAX hybrid branch, :1096-1115): the rows of the two y
-    taps, their weights with ``lw`` folded in, the left column of a window
-    clipped to ``[0, W-2]`` and its two columns' weights, remapped at both
-    image edges."""
-    x_pix = _clamp_pixels(x * (w - 1), w)
-    y_pix = _clamp_pixels(y * (h - 1), h)
-    x0f = torch.floor(x_pix)
-    y0f = torch.floor(y_pix)
-    lx = x_pix - x0f
-    ly = y_pix - y0f
-    ix0 = x0f.to(torch.int64)
-    iy0 = y0f.to(torch.int64)
-    inx0 = (ix0 >= 0) & (ix0 <= w - 1)
-    inx1 = (ix0 + 1 >= 0) & (ix0 + 1 <= w - 1)
-    iny0 = (iy0 >= 0) & (iy0 <= h - 1)
-    iny1 = (iy0 + 1 >= 0) & (iy0 + 1 <= h - 1)
-    wy0 = (1.0 - ly) * iny0 * lw
-    wy1 = ly * iny1 * lw
-    zero = torch.zeros_like(lx)
-    s0 = ix0.clamp(0, w - 2)
-    wx0 = (torch.where(s0 == ix0, (1.0 - lx) * inx0, zero)
-           + torch.where(s0 == ix0 + 1, lx * inx1, zero))
-    wx1 = (torch.where(s0 + 1 == ix0, (1.0 - lx) * inx0, zero)
-           + torch.where(s0 + 1 == ix0 + 1, lx * inx1, zero))
-    rows0 = view * h + iy0.clamp(0, h - 1)
-    rows1 = view * h + (iy0 + 1).clamp(0, h - 1)
-    i32 = torch.int32
-    return (rows0.to(i32), rows1.to(i32), wy0, wy1, s0.to(i32), wx0, wx1)
-
-
 def _hybrid_forward(packed: PackedFeatures, loc: torch.Tensor,
                     sw: torch.Tensor) -> torch.Tensor:
     """Slice-major hybrid path (JAX ``_yfold_forward`` with MXU tables,
     :1085-1126): the y-fold levels, a prefix of the level list, through the
-    sampling op, then each one-hot level's result cast to the accumulator
-    dtype and added in level order."""
+    sampling op, then every one-hot level in one call that adds each level's
+    result, cast to the accumulator dtype, in level order."""
     s, q, p, three = loc.shape
     levels = packed.level_shapes
     if three != 3 or s != packed.batch \
@@ -515,20 +476,13 @@ def _hybrid_forward(packed: PackedFeatures, loc: torch.Tensor,
                                 levels[:n_yf], c)
         out = msmv_sampling(prefix, loc.transpose(0, 1).contiguous(),
                             sw[..., :n_yf].transpose(0, 1).contiguous())
-        out = out.transpose(0, 1).reshape(k, c)
+        out = out.transpose(0, 1).reshape(k, c)   # a copy: updated in place
     else:
         out = torch.zeros((k, c), dtype=acc_dtype, device=loc.device)
-    x = loc[..., 0].reshape(k)
-    y = loc[..., 1].reshape(k)
-    view = _view_index(loc[..., 2].reshape(k), packed.num_views)
-    for lvl in range(n_yf, len(levels)):
-        h, w = levels[lvl]
-        args = _onehot_level_weights(x, y, view, sw[..., lvl].reshape(k)
-                                     .float(), h, w)
-        res = onehot_sample_level(packed.mxu_tables[lvl],
-                                  *[a.reshape(s, q * p).contiguous()
-                                    for a in args], w=w, c=c)
-        out = out + res.reshape(k, c).to(acc_dtype)
+    onehot = range(n_yf, len(levels))
+    onehot_sample_levels([packed.mxu_tables[lvl] for lvl in onehot],
+                         levels[n_yf:], list(onehot), loc, sw, out,
+                         packed.num_views, c)
     return out.reshape(s, q, p, c)
 
 
@@ -576,31 +530,12 @@ def _lib():
     return lib
 
 
-_LANE_BYTES = 16     # each lane of the kernel loads and stores 16 bytes
-_MAX_LEVELS = 8      # the kernel is instantiated for 1..8 levels
-
-
 def sample_lanes_per_point(channels: int, dtype: torch.dtype) -> int:
-    """How many lanes of a warp share one sampling point in the kernel:
-    each lane owns one 16-byte run of the ``channels`` values, and a point
-    takes a power-of-two group of lanes (C=64: 8 lanes in bf16, 16 in fp32,
-    so a warp carries 4 or 2 points). Raises ``ValueError`` for what the
-    kernel does not take: another dtype, a channel run that is no multiple
-    of 16 bytes, or one longer than a warp's 512 bytes."""
-    if dtype not in (torch.bfloat16, torch.float32):
-        raise ValueError(f"msmv_sampling: no kernel for {dtype} tables")
-    nbytes = channels * dtype.itemsize
-    if channels < 1 or nbytes % _LANE_BYTES:
-        raise ValueError(
-            f"msmv_sampling: the kernel reads {_LANE_BYTES}-byte runs, so "
-            f"channels * itemsize must be a multiple of {_LANE_BYTES} (got "
-            f"{channels} channels of {dtype}: {nbytes} bytes)")
-    runs = nbytes // _LANE_BYTES
-    if runs > 32:
-        raise ValueError(
-            f"msmv_sampling: a point's {channels} channels of {dtype} take "
-            f"{runs} 16-byte runs, more than the 32 lanes of a warp")
-    return 1 << (runs - 1).bit_length()
+    """How many lanes of a warp share one sampling point in the kernel
+    (:func:`~.msmv_onehot.lanes_per_point`: 16 bytes a lane; C=64 takes 8
+    lanes in bf16 and 16 in fp32). Raises ``ValueError`` for what the kernel
+    does not take."""
+    return lanes_per_point(channels, dtype, "msmv_sampling")
 
 
 def _msmv_sampling_cuda(packed, loc, sw):

@@ -103,7 +103,13 @@ def test_cuda_sources_declare_their_tpu_kernel_and_bound(src):
     assert "Bound:" in text and "Design:" in text
     assert f"{src}_error_string" in text
     assert "return cudaGetLastError()" in text.replace("(int)", "")
-    if src in ("msmv_sample", "mixing"):
+    if src == "msmv_onehot":
+        # both entries: every level in one launch, and one level
+        for entry in ("msmv_onehot_sample_levels(",
+                      "msmv_onehot_sample_level("):
+            assert f"int {entry}" in text
+        assert text.count("__global__") == 2
+    if src in ("msmv_sample", "msmv_onehot", "mixing"):
         # the kernels redesigned for the H100 stay hand-written: no library
         # GEMM takes their place
         assert "cublas" not in text.lower()

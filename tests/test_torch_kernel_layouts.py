@@ -1,7 +1,8 @@
-"""What the H100 redesigns of the sampling forward and the mixing core keep
-in Python, where the CPU reaches it: how many lanes of a warp share a
-sampling point (and which channel counts the 16-byte-lane kernel refuses),
-how the mixing wrapper pads the in-points to the tensor-core tile and which
+"""What the H100 redesigns of the sampling forward, the one-hot sampler and
+the mixing core keep in Python, where the CPU reaches it: how many lanes of a
+warp share a sampling point (and which channel counts and tables the
+16-byte-lane kernels refuse), how many levels one launch of the fused
+one-hot kernel takes, how the mixing wrapper pads the in-points to the tensor-core tile and which
 of its two kernels it picks, and the padding scheme the tensor-core kernel
 relies on, replayed with plain PyTorch: operands padded from P to the next
 multiple of 16 give the unpadded result when the first LN's statistics run
@@ -18,6 +19,8 @@ import torch
 from sparsebev_tpu_torch.ops import mixing
 from sparsebev_tpu_torch.ops.mixing import (mixing_core_plain, mixing_route,
                                             padded_points)
+from sparsebev_tpu_torch.ops import msmv_onehot
+from sparsebev_tpu_torch.ops.msmv_onehot import onehot_lanes_per_point
 from sparsebev_tpu_torch.ops.msmv_sampling import sample_lanes_per_point
 
 torch.set_num_threads(1)
@@ -47,6 +50,52 @@ def test_sampling_lanes_per_point(channels, dtype, lanes):
 def test_sampling_kernel_refuses(channels, dtype, match):
     with pytest.raises(ValueError, match=match):
         sample_lanes_per_point(channels, dtype)
+
+
+@pytest.mark.parametrize("channels,lanes", [
+    (16, 2),       # 16 points a warp
+    (64, 8),       # every config: the P = 4 points of a (slice, query)
+    (128, 16),
+    (256, 32),     # one point a warp
+])
+def test_onehot_lanes_per_point(channels, lanes):
+    assert onehot_lanes_per_point(channels, torch.bfloat16) == lanes
+    assert onehot_lanes_per_point(channels, torch.bfloat16) \
+        == sample_lanes_per_point(channels, torch.bfloat16)
+
+
+@pytest.mark.parametrize("channels,dtype,match", [
+    (6, torch.bfloat16, "multiple of 16"),
+    (260, torch.bfloat16, "multiple of 16"),
+    (264, torch.bfloat16, "more than the 32 lanes"),
+    (64, torch.float32, "the table must be bf16"),
+    (64, torch.float16, "the table must be bf16"),
+])
+def test_onehot_kernels_refuse(channels, dtype, match):
+    with pytest.raises(ValueError, match=match):
+        onehot_lanes_per_point(channels, dtype)
+
+
+@pytest.mark.parametrize("levels,ok", [(1, True), (8, True), (9, False),
+                                       (0, False)])
+def test_onehot_fused_level_count(levels, ok):
+    """One launch takes 1 to 8 levels (the kernel's template parameter)."""
+    s, q, p, n, c, h, w = 2, 3, 4, 2, 8, 3, 3
+    rng = np.random.RandomState(levels)
+    tables = [torch.from_numpy(rng.randn(s, n * h, w * c).astype(np.float32))
+              .to(torch.bfloat16) for _ in range(levels)]
+    loc = torch.from_numpy(rng.rand(s, q, p, 3).astype(np.float32))
+    sw = torch.from_numpy(rng.rand(s, q, p, max(levels, 1))
+                          .astype(np.float32))
+    out = torch.zeros((s * q * p, c))
+    args = (tables, [(h, w)] * levels, list(range(levels)), loc, sw, out, n,
+            c)
+    if ok:
+        assert msmv_onehot.onehot_sample_levels(*args) is out
+        assert bool(out.any())
+    else:
+        with pytest.raises(ValueError, match="takes 1 to 8 levels"):
+            msmv_onehot.onehot_sample_levels(*args)
 
 
 @pytest.mark.parametrize("p,padded", [(32, 32), (60, 64), (7, 16), (16, 16),
