@@ -8,12 +8,13 @@ prints its wall time):
   1. environment: the card, its power limit, torch's CUDA version, nvcc,
      triton;
   2. build every CUDA kernel of the port from ``sparsebev_tpu_torch/csrc``
-     (one nvcc per source, all started together): the y-fold pack, the
-     pair-mode pack, the sampling forward, the one-hot level sampler (two
-     entries: all levels in one launch, and one level), the mixing core (two
-     entries) and the tap-fold epilogue; for the sampling forward, the
-     one-hot sampler and the mixing core, what ``ptxas -v`` reports per
-     kernel (registers, shared memory, stack frame, spills);
+     (one nvcc per source, all started together): the y-fold pack and the
+     pair-mode pack (each with its adjoint), the sampling forward, the
+     sampling backward, the one-hot level sampler (two entries: all levels
+     in one launch, and one level), the mixing core (two entries) and the
+     tap-fold epilogue; for the sampling forward and backward, the one-hot
+     sampler and the mixing core, what ``ptxas -v`` reports per kernel
+     (registers, shared memory, stack frame, spills);
   3. the first three kernels at the shapes of each streaming path that runs
      them against their plain PyTorch versions on the same inputs (bit for
      bit; the sampling op in fp32 within 1e-5 of the output scale), timed
@@ -52,7 +53,24 @@ prints its wall time):
      bound), ``tap_fold_epilogue`` on windows gathered from the r50 ring.
      Each phase's launch counts are reset just before its run and read
      just after;
-  6. a ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and last
+  6. the training step of ``configs/r50_nuimg_704x256.py`` at full width
+     (B=1, 900 + 640 denoising queries, T=8, bf16 compute / fp32 parameters,
+     the backbone checkpointed) through ``train/step.py``: seeded weights, a
+     seeded synthetic batch, 4 optimizer steps on that batch with the
+     step's generator re-seeded each time, so that only the updates move
+     the loss. The launch counts of the pack, the sampling forward, the
+     sampling backward and the pack adjoint are reset just before the steps
+     and read just after (4 / 6 / 6 / 4 a step); every loss must be finite
+     and step 4's lower than step 1's. One more step runs under
+     torch.profiler (device busy, device ops), the sampling backward is held
+     against its plain version on one layer's recorded operands and on
+     uniform points (fp32 and bf16 tables) and timed beside its bound with
+     the scratch's zeroing and cast apart, step 1 is run again from the same
+     weights with the plain versions (loss and six named gradients within
+     stated tolerances), and the two pack adjoints are held bit for bit to
+     their plain versions at the r50 training shapes and the vov99 level-0
+     frame shape;
+  7. a ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and last
      ``{"ok": true, "device": {...}}``.
 
 Needs one CUDA card (it uses ``cuda:0`` alone); imports nothing of JAX.
@@ -86,7 +104,7 @@ PATHS = (
          gsplit=(False, False, False, True, False), t=15, q=1600),
 )
 # sources whose ptxas report is printed per kernel
-PTXAS_REPORTS = ("msmv_sample", "msmv_onehot", "mixing")
+PTXAS_REPORTS = ("msmv_sample", "msmv_sample_bwd", "msmv_onehot", "mixing")
 # the plain versions issue up to ~100 small launches per call: keep the
 # card busy long enough (~20 ms) that all of them are queued before it idles
 PLAIN_BUSY_CYCLES = 40_000_000
@@ -277,24 +295,21 @@ def check_pack_pair(torch, dev, flush, bw, path):
                 bound_by="bytes", library_ms=library_ms)
 
 
-def _needed_bytes(torch, packed, loc, sw):
-    """Bytes the sampling forward must move for THESE inputs: every table
-    piece of C channels (a y-fold half-row or a pair row at one column) that
-    carries a nonzero tap weight, read once, plus the inputs and the output.
-    Also returns the fp32 operations of the fold."""
+def _touched_pieces(torch, packed, loc, sw):
+    """How many table pieces of C channels (a y-fold half-row or a pair row
+    at one column) these points touch with a nonzero tap weight, each piece
+    counted once."""
     from sparsebev_tpu_torch.ops.msmv_sampling import (
         _separable_slot_weights, _view_index)
     q, s, p, _ = loc.shape
     k = q * s * p
-    c = packed.channels
-    itemsize = packed.tables[0].element_size()
     x = loc[..., 0].reshape(k)
     y = loc[..., 1].reshape(k)
     view = _view_index(loc[..., 2].reshape(k), packed.num_views)
     slices = packed.slice_map.to(torch.int64)
     batch_row = slices.repeat_interleave(p).repeat(q)
     lw = sw.reshape(k, -1)
-    table_bytes = 0
+    pieces = 0
     for lvl, (h, w) in enumerate(packed.level_shapes):
         sx, ry, (wxa, wxb), (wya, wyb) = _separable_slot_weights(
             x * (w - 1), y * (h - 1), h, w)
@@ -313,8 +328,20 @@ def _needed_bytes(torch, packed, loc, sw):
             for base, wy in rows:
                 live = (wx != 0) & (wy * lw[:, lvl] != 0)
                 keys.append((base + slot * step)[live])
-        table_bytes += torch.unique(torch.cat(keys)).numel() * c * itemsize
-    io_bytes = (loc.numel() + sw.numel()) * 4 + slices.numel() * 4 \
+        pieces += torch.unique(torch.cat(keys)).numel()
+    return pieces
+
+
+def _needed_bytes(torch, packed, loc, sw):
+    """Bytes the sampling forward must move for THESE inputs: every table
+    piece of C channels that carries a nonzero tap weight, read once, plus
+    the inputs and the output. Also returns the fp32 operations of the
+    fold."""
+    k = loc[..., 0].numel()
+    c = packed.channels
+    itemsize = packed.tables[0].element_size()
+    table_bytes = _touched_pieces(torch, packed, loc, sw) * c * itemsize
+    io_bytes = (loc.numel() + sw.numel()) * 4 + packed.slice_map.numel() * 4 \
         + k * c * itemsize
     flops = k * len(packed.level_shapes) * c * 12
     return table_bytes + io_bytes, flops
@@ -605,23 +632,31 @@ def breakdown(torch, det, samples, frame_label):
 
 @contextlib.contextmanager
 def plain_versions():
-    """Route the CUDA branch of the pack, sampling and one-hot wrappers to
-    their plain PyTorch versions (on the card) for the duration."""
+    """Route the CUDA branch of the pack, sampling and one-hot wrappers
+    (forward and backward) to their plain PyTorch versions (on the card) for
+    the duration."""
     from sparsebev_tpu_torch.ops import msmv_onehot, msmv_pack, msmv_sampling
-    saved = (msmv_pack._pack_level_cuda, msmv_pack._pack_level_pair_cuda,
-             msmv_sampling._msmv_sampling_cuda, msmv_onehot._onehot_cuda,
-             msmv_onehot._onehot_levels_cuda)
-    msmv_pack._pack_level_cuda = msmv_pack.pack_level_plain
-    msmv_pack._pack_level_pair_cuda = msmv_pack.pack_level_pair_plain
-    msmv_sampling._msmv_sampling_cuda = msmv_sampling.msmv_sampling_plain
-    msmv_onehot._onehot_cuda = msmv_onehot.onehot_sample_level_plain
-    msmv_onehot._onehot_levels_cuda = msmv_onehot.onehot_sample_levels_plain
+    routes = (
+        (msmv_pack, "_pack_level_cuda", msmv_pack.pack_level_plain),
+        (msmv_pack, "_pack_level_pair_cuda", msmv_pack.pack_level_pair_plain),
+        (msmv_pack, "_pack_level_bwd_cuda", msmv_pack.pack_level_bwd_plain),
+        (msmv_pack, "_pack_level_pair_bwd_cuda",
+         msmv_pack.pack_level_pair_bwd_plain),
+        (msmv_sampling, "_msmv_sampling_cuda",
+         msmv_sampling.msmv_sampling_plain),
+        (msmv_sampling, "_msmv_sampling_backward_cuda",
+         msmv_sampling.msmv_sampling_backward_plain),
+        (msmv_onehot, "_onehot_cuda", msmv_onehot.onehot_sample_level_plain),
+        (msmv_onehot, "_onehot_levels_cuda",
+         msmv_onehot.onehot_sample_levels_plain))
+    saved = [getattr(mod, name) for mod, name, _ in routes]
+    for mod, name, plain in routes:
+        setattr(mod, name, plain)
     try:
         yield
     finally:
-        (msmv_pack._pack_level_cuda, msmv_pack._pack_level_pair_cuda,
-         msmv_sampling._msmv_sampling_cuda, msmv_onehot._onehot_cuda,
-         msmv_onehot._onehot_levels_cuda) = saved
+        for (mod, name, _), fn in zip(routes, saved):
+            setattr(mod, name, fn)
 
 
 def capture_inputs(torch, det, model, stream, path):
@@ -1289,6 +1324,462 @@ def check_mixing(torch, flush, bw, fp32_rate, bf16_rate, name, xms):
     return launches, result
 
 
+# ------------------------------------------------------------- phase 6 --
+
+# sampling backward kernel vs plain, d loc and d sw: fp32 sums of up to
+# 4 * C products per level in another order, scaled by up to (W - 1): 1e-4 of
+# each gradient's scale. Table gradient: fp32 atomic adds in an order that
+# changes from run to run against the plain version's fp32 index_put, both
+# rounded once to the table dtype: fp32 tables 1e-5 of the scale; bf16
+# tables one bf16 ulp of the entry (2^-7 of its value) plus 1e-5 of the
+# scale.
+SAMPLING_BWD_TOL = dict(point=1e-4,
+                        table={"float32": (1e-5, 1e-5),
+                               "bfloat16": (2.0 ** -7, 1e-5)})
+TRAIN_LEVELS = [(64, 176), (32, 88), (16, 44), (8, 22)]
+
+
+def synthetic_train_sampling(torch, dev, dtype, q=1540, t=8, seed=5):
+    """One decoder layer's sampling operands at r50 training shapes (900
+    queries + 640 denoising queries, T = 8 frames of 6 views, G = 4, P = 4,
+    C = 64 per group) on seeded random tables, uniform points and an output
+    gradient of the table dtype."""
+    from sparsebev_tpu_torch.ops.msmv_sampling import PackedFeatures
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    n, g, cg, p = 6, 4, 64, 4
+    s = t * g
+    tables = [torch.randn((t * n * h * g, w + 1, 2 * cg), generator=gen,
+                          device=dev, dtype=dtype) for h, w in TRAIN_LEVELS]
+    loc = torch.stack([
+        torch.rand((q, s, p), generator=gen, device=dev) * 1.04 - 0.02,
+        torch.rand((q, s, p), generator=gen, device=dev) * 1.04 - 0.02,
+        torch.randint(0, n, (q, s, p), generator=gen, device=dev) / (n - 1),
+    ], -1).contiguous()
+    sw = torch.softmax(torch.randn((q, s, p, len(TRAIN_LEVELS)),
+                                   generator=gen, device=dev), -1).contiguous()
+    gout = torch.randn((q, s, p, cg), generator=gen, device=dev).to(dtype)
+    # the decoder's (g, t) slice order over the (t, g)-ordered tables
+    slice_map = (torch.arange(t, device=dev)[None, :] * g
+                 + torch.arange(g, device=dev)[:, None]).reshape(s)
+    packed = PackedFeatures(tables, s, n, TRAIN_LEVELS, cg, num_groups=g,
+                            slice_map=slice_map,
+                            gsplit=(False, True, False, False))
+    return packed, loc, sw, gout
+
+
+def check_sampling_backward(torch, flush, bw, fp32_rate, packed, loc, sw,
+                            gout, label, timed=True):
+    """The sampling backward kernel on these operands against its plain
+    version (autograd of the half-row primal) within ``SAMPLING_BWD_TOL``;
+    then its time beside its bound, with the zeroing of the fp32 scratch
+    and its cast to the table dtype timed apart."""
+    from sparsebev_tpu_torch.ops import msmv_sampling as ms
+    dname = str(packed.tables[0].dtype)[6:]
+    got = ms._msmv_sampling_backward_cuda(packed, loc, sw, gout)
+    want = ms.msmv_sampling_backward_plain(packed, loc, sw, gout)
+    torch.cuda.synchronize()
+    err = {}
+    for name, a, b in (("d_loc", got[0], want[0]), ("d_sw", got[1], want[1])):
+        d = (a - b).abs().max().item()
+        scale = b.abs().max().item()
+        err[name] = d
+        if not bool(torch.isfinite(a).all()) \
+                or not d <= SAMPLING_BWD_TOL["point"] * scale:
+            fail(f"sampling backward [{label}] {name}: max|kernel - plain| = "
+                 f"{d:.4g} at scale {scale:.4g}")
+    if bool(got[0][..., 2].any()):
+        fail(f"sampling backward [{label}]: the view got a gradient")
+    rtol, atol = SAMPLING_BWD_TOL["table"][dname]
+    worst = 0.0
+    for lvl, (a, b) in enumerate(zip(got[2], want[2])):
+        if a.dtype != packed.tables[lvl].dtype or a.shape != b.shape:
+            fail(f"sampling backward [{label}]: level {lvl} table gradient "
+                 f"{a.dtype} {tuple(a.shape)}")
+        a32, b32 = a.float(), b.float()
+        d = (a32 - b32).abs()
+        scale = b32.abs().max().item()
+        worst = max(worst, d.max().item())
+        bad = d > rtol * b32.abs() + atol * scale
+        if not bool(torch.isfinite(a32).all()) or bool(bad.any()):
+            fail(f"sampling backward [{label}] level {lvl} table gradient: "
+                 f"{int(bad.sum())} entries beyond the tolerance (max "
+                 f"{d.max().item():.4g} at scale {scale:.4g})")
+        del a32, b32, d, bad
+    err["d_tables"] = worst
+    log(f"sampling_bwd [{label}] {dname}: max|kernel - plain| d_loc "
+        f"{err['d_loc']:.3g}, d_sw {err['d_sw']:.3g} (tolerance "
+        f"{SAMPLING_BWD_TOL['point']:g} of the scale), table gradient "
+        f"{worst:.3g} (tolerance {rtol:.3g} of the entry + {atol:g} of the "
+        "scale)")
+    del got, want
+    torch.cuda.empty_cache()
+    result = dict(max_abs_err=max(err.values()), library_ms=None)
+    if not timed:
+        return result
+    scratch = [torch.zeros(t.shape, dtype=torch.float32, device=t.device)
+               for t in packed.tables]
+    dtype = packed.tables[0].dtype
+    kern = time_ms(torch, lambda: ms._launch_sampling_backward(
+        packed, loc, sw, gout, scratch), 20, flush)
+    no_tables = time_ms(torch, lambda: ms._launch_sampling_backward(
+        packed, loc, sw, gout, None), 20, flush)
+    zero_ms = time_ms(torch, lambda: [t.zero_() for t in scratch], 10, flush)
+    cast_ms = time_ms(torch, lambda: [t.to(dtype) for t in scratch], 10,
+                      flush)
+    del scratch
+    torch.cuda.empty_cache()
+    plain_ms = time_ms(torch, lambda: ms.msmv_sampling_backward_plain(
+        packed, loc, sw, gout), 3, flush, PLAIN_BUSY_CYCLES)
+    pieces = _touched_pieces(torch, packed, loc, sw)
+    k, c = loc[..., 0].numel(), packed.channels
+    itemsize = packed.tables[0].element_size()
+    levels = len(packed.level_shapes)
+    # windows read once, g, loc / sw and their gradients, and each touched
+    # fp32 gradient piece read and written once
+    nbytes = pieces * c * itemsize + k * c * itemsize \
+        + 2 * (loc.numel() + sw.numel()) * 4 + packed.slice_map.numel() * 4 \
+        + 2 * pieces * c * 4
+    flops = k * levels * c * 16
+    bound_ms = max(nbytes / bw, flops / fp32_rate) * 1e3
+    bound_by = "bytes" if nbytes / bw >= flops / fp32_rate else "operations"
+    scratch_mb = sum(t.numel() for t in packed.tables) * 4 / 1e6
+    log(f"sampling_bwd [{label}] {dname}: K={k} points, {levels} levels: "
+        f"kernel {kern:.4f} ms ({no_tables:.4f} ms without the table "
+        f"gradient; plain {plain_ms:.2f} ms), bound {bound_ms:.4f} ms by "
+        f"{bound_by} ({nbytes / 1e6:.1f} MB: {pieces} touched pieces of "
+        f"{c} channels); beside the kernel, zeroing the {scratch_mb:.0f} MB "
+        f"fp32 scratch {zero_ms:.4f} ms and its cast to {dname} "
+        f"{cast_ms:.4f} ms")
+    result.update(ms=kern, plain_ms=plain_ms, bound_ms=bound_ms,
+                  bound_by=bound_by, no_table_grad_ms=no_tables,
+                  scratch_zero_ms=zero_ms, scratch_cast_ms=cast_ms)
+    return result
+
+
+def check_pack_bwd(torch, dev, flush, bw, levels=TRAIN_LEVELS, m=48):
+    """The y-fold pack's adjoint at the r50 training shapes (T * 6 = 48
+    images a level, C = 256, G = 4, bf16; fp32 once at the smallest level):
+    bit for bit against its plain version, timed beside its bound."""
+    from sparsebev_tpu_torch.ops.msmv_pack import (pack_level_bwd,
+                                                   pack_level_bwd_plain)
+    gen = torch.Generator(device=dev).manual_seed(7)
+    c, g = 256, 4
+    ms = plain_ms = 0.0
+    nbytes = 0
+    for i, (h, w) in enumerate(levels):
+        dt = torch.randn((m, h, g, w + 1, 2 * c // g), generator=gen,
+                         device=dev).bfloat16()
+        for d in ([dt, dt.float()] if i == len(levels) - 1 else [dt]):
+            got = pack_level_bwd(d, g)
+            want = pack_level_bwd_plain(d, g)
+            torch.cuda.synchronize()
+            if not _bit_equal(torch, got, want):
+                fail(f"pack adjoint differs from its plain version at "
+                     f"{h}x{w} ({d.dtype})")
+        ms += time_ms(torch, lambda: pack_level_bwd(dt, g), 20, flush)
+        plain_ms += time_ms(torch, lambda: pack_level_bwd_plain(dt, g), 10,
+                            flush, PLAIN_BUSY_CYCLES)
+        nbytes += (m * h * g * w * 2 * (c // g) + got.numel()) * 2
+        del dt, got, want
+    bound_ms = nbytes / bw * 1e3
+    log(f"pack_bwd [r50 train]: bit-equal to plain at all {len(levels)} "
+        f"levels (bf16; fp32 at the last); {m} images a level {ms:.4f} ms "
+        f"(plain {plain_ms:.4f} ms), bound {bound_ms:.4f} ms "
+        f"({nbytes / 1e6:.1f} MB moved)")
+    return dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by="bytes", library_ms=None)
+
+
+def check_pack_pair_bwd(torch, dev, flush, bw, shape=(6, 160, 400)):
+    """The pair pack's adjoint at the vov99 level-0 frame shape (bf16): bit
+    for bit against its plain version and against the one PyTorch call that
+    computes it (a slice, a permute and a copy), timed beside its bound."""
+    from sparsebev_tpu_torch.ops.msmv_pack import (pack_level_pair_bwd,
+                                                   pack_level_pair_bwd_plain)
+    gen = torch.Generator(device=dev).manual_seed(8)
+    (m, h, w), c, g = shape, 256, 4
+    dt = torch.randn((m, h, g, w + 1, c // g), generator=gen,
+                     device=dev).bfloat16()
+    pack_level_pair_bwd.launches = 0
+    got = pack_level_pair_bwd(dt, g)
+    launches = pack_level_pair_bwd.launches
+    want = pack_level_pair_bwd_plain(dt, g)
+
+    def library():
+        return dt[:, :, :, :w].permute(0, 1, 3, 2, 4).contiguous()
+
+    torch.cuda.synchronize()
+    if launches != 1 or not _bit_equal(torch, got, want) \
+            or not _bit_equal(torch, got, library().reshape(m, h, w, c)):
+        fail("pair pack adjoint differs from its plain version or the "
+             "permute-copy call")
+    ms = time_ms(torch, lambda: pack_level_pair_bwd(dt, g), 20, flush)
+    plain_ms = time_ms(torch, lambda: pack_level_pair_bwd_plain(dt, g), 10,
+                       flush)
+    library_ms = time_ms(torch, library, 10, flush)
+    nbytes = 2 * got.numel() * 2
+    bound_ms = nbytes / bw * 1e3
+    log(f"pack_pair_bwd [vov99 L0]: bit-equal to plain and to the "
+        f"permute-copy call at {shape}; {ms:.4f} ms (plain {plain_ms:.4f} "
+        f"ms, permute-copy {library_ms:.4f} ms), bound {bound_ms:.4f} ms "
+        f"({nbytes / 1e6:.1f} MB moved); launches in its run: {launches}")
+    return {"pack_pair_bwd": launches}, dict(
+        max_abs_err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+        bound_by="bytes", library_ms=library_ms)
+
+
+# the kernel step against the plain step (same weights, batch and draws):
+# the forward is bit-equal, the backward differs by the sampling backward's
+# sum order and one bf16 rounding of the table gradient, carried through the
+# bf16 backbone backward, whose cuDNN weight gradients are themselves not
+# run-to-run exact. Loss: 1e-3 relative. Gradients: 5% of each tensor's
+# largest entry, the streaming paths' tolerance.
+TRAIN_LOSS_RTOL = 1e-3
+TRAIN_GRAD_TOL = 5e-2
+TRAIN_STEPS = 4
+TRAIN_GRAD_PROBES = (
+    "img_backbone.layer3.2.conv2.weight", "img_backbone.layer2.1.bn1.weight",
+    "img_neck.fpn_convs.0.conv.weight",
+    "pts_bbox_head.transformer.decoder.decoder_layer.sampling."
+    "sampling_offset.weight",
+    "pts_bbox_head.transformer.decoder.decoder_layer.ffn.layers.1.weight",
+    "pts_bbox_head.init_query_bbox.weight")
+
+
+def make_train_batch(torch, dev, cfg, seed=0):
+    """A seeded synthetic training batch at the config's full size: T * 6
+    uint8 images, six cameras repeated over the frames, 0.5 s between
+    frames, ``max_gt`` ground-truth slots of which 30 hold boxes inside the
+    point-cloud range."""
+    import numpy as np
+    head = cfg.model["pts_bbox_head"]
+    t = head["num_frames"]
+    image_h, image_w = cfg.ida_aug_conf["final_dim"]
+    pc = head["pc_range"]
+    max_gt, valid = cfg.max_gt, 30
+    rng = np.random.default_rng(seed)
+    cams = make_cameras(np.random.RandomState(seed), image_h, image_w)
+    img = rng.integers(0, 256, (1, t * 6, image_h, image_w, 3), dtype=np.uint8)
+    l2i = np.tile(cams[None], (1, t, 1, 1)).reshape(1, t * 6, 4, 4)
+    td = (np.arange(t, dtype=np.float32) * 0.5)[None]
+    boxes = np.concatenate([
+        rng.uniform(pc[0] * 0.9, pc[3] * 0.9, (1, max_gt, 1)),
+        rng.uniform(pc[1] * 0.9, pc[4] * 0.9, (1, max_gt, 1)),
+        rng.uniform(pc[2] * 0.6, pc[5] * 0.6, (1, max_gt, 1)),
+        rng.uniform(0.5, 5.0, (1, max_gt, 3)),
+        rng.uniform(-np.pi, np.pi, (1, max_gt, 1)),
+        rng.uniform(-3.0, 3.0, (1, max_gt, 2))], -1).astype(np.float32)
+    mask = np.zeros((1, max_gt), bool)
+    mask[:, :valid] = True
+    boxes[~mask] = 0.0
+    labels = rng.integers(0, head["num_classes"], (1, max_gt))
+    return {k: torch.from_numpy(v).to(dev) for k, v in dict(
+        img=img, lidar2img=l2i.astype(np.float32), time_diff=td,
+        gt_boxes=boxes, gt_labels=labels, gt_mask=mask).items()}
+
+
+def profile_call(torch, fn):
+    """One call of ``fn`` under torch.profiler: device ops, device busy ms
+    and the host wall ms of the profiled call."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    device = [e for e in prof.key_averages()
+              if _dev_us(e) > 0 and str(e.device_type).endswith("CUDA")]
+    top = sorted(device, key=_dev_us, reverse=True)[:8]
+    return (sum(e.count for e in device),
+            sum(_dev_us(e) for e in device) / 1e3, wall,
+            [(e.key[:60], _dev_us(e) / 1e3, e.count) for e in top])
+
+
+def training_phase(torch, dev, flush, bw, fp32_rate):
+    """The r50 training step at full width: seeded weights, a seeded
+    synthetic batch, ``TRAIN_STEPS`` optimizer steps on the same batch with
+    the same draws (so only the updates change the loss). Returns the launch
+    counts of the steps and the sampling backward's numbers on one layer's
+    recorded operands."""
+    from sparsebev_tpu_torch.config import Config
+    from sparsebev_tpu_torch.models.detector import build_detector
+    from sparsebev_tpu_torch.ops import msmv_pack
+    from sparsebev_tpu_torch.ops import msmv_sampling as ms
+    from sparsebev_tpu_torch.train import optim, step as tstep
+
+    config = os.path.join(HERE, "configs/r50_nuimg_704x256.py")
+    cfg = Config.fromfile(config)
+    head = cfg.model["pts_bbox_head"]
+    batch = make_train_batch(torch, dev, cfg)
+    train_step = tstep.train_step_from_config(cfg)
+    dn = head["query_denoising_groups"] * cfg.max_gt
+    log(f"training [r50]: {config} (B=1, Q={head['num_query']} + {dn} "
+        f"denoising queries, T={head['num_frames']}, "
+        f"{tuple(batch['img'].shape[2:4])} images, {head['num_layers']} "
+        f"layers, {cfg.model['compute_dtype']} compute / fp32 parameters, "
+        f"with_cp={cfg.model['img_backbone'].get('with_cp')}, "
+        f"{int(batch['gt_mask'].sum())} of {cfg.max_gt} ground-truth slots "
+        f"valid), {TRAIN_STEPS} steps on one batch")
+
+    def new_state():
+        model = build_detector(cfg, device=dev, seed=0)
+        opt, sched, _ = optim.optimizer_from_config(model, cfg,
+                                                    total_steps=1000)
+        return tstep.create_train_state(model, opt, sched)
+
+    def run_step(state, record=None):
+        """One step with the step's generator re-seeded; ``record`` collects
+        the probed gradients just before the clip."""
+        gen = torch.Generator(device=dev).manual_seed(11)
+        real_clip = tstep.clip_by_global_norm
+
+        def clip(params, max_norm):
+            named = dict(state.model.named_parameters())
+            record.update({k: named[k].grad.detach().float().clone()
+                           for k in TRAIN_GRAD_PROBES})
+            return real_clip(params, max_norm)
+
+        if record is not None:
+            tstep.clip_by_global_norm = clip
+        try:
+            _, metrics = train_step(state, batch, generator=gen)
+        finally:
+            tstep.clip_by_global_norm = real_clip
+        return metrics
+
+    counters = dict(pack=msmv_pack.pack_level, sampling=ms.msmv_sampling,
+                    sampling_bwd=ms.msmv_sampling_backward,
+                    pack_bwd=msmv_pack.pack_level_bwd)
+    held = torch.cuda.memory_allocated(dev)
+    state = new_state()
+    n_params = sum(p.numel() for p in state.model.parameters())
+    torch.cuda.reset_peak_memory_stats(dev)
+    recorded = {}
+    backward = ms._msmv_sampling_backward_cuda
+
+    def record_backward(packed, loc, sw, gout, want_tables=True):
+        if "operands" not in recorded:
+            tables = [t.detach() for t in packed.tables]
+            recorded["operands"] = (ms._with_tables(packed, tables),
+                                    loc.detach(), sw.detach(), gout.clone())
+        return backward(packed, loc, sw, gout, want_tables)
+
+    kernel_grads, times, losses, norms = {}, [], [], []
+    for c in counters.values():
+        c.launches = 0
+    for i in range(TRAIN_STEPS):
+        if i == TRAIN_STEPS - 1:      # one layer's operands of the last step
+            ms._msmv_sampling_backward_cuda = record_backward
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        try:
+            metrics = run_step(state, kernel_grads if i == 0 else None)
+        finally:
+            ms._msmv_sampling_backward_cuda = backward
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        if i == 0:
+            first = {k: float(v) for k, v in metrics.items()}
+        losses.append(float(metrics["loss"]))
+        norms.append(float(metrics["grad_norm"]))
+        if not all(bool(torch.isfinite(v)) for v in metrics.values()):
+            fail(f"training: non-finite loss or gradient norm at step {i}: "
+                 f"{ {k: float(v) for k, v in metrics.items()} }")
+    launches = {k: c.launches for k, c in counters.items()}
+    peak = torch.cuda.max_memory_allocated(dev) - held
+    log("training [r50]: kernel launches "
+        + " ".join(f"{k}={v}" for k, v in launches.items()))
+    layers, levels = head["num_layers"], head["num_levels"]
+    want = dict(pack=levels, sampling=layers, sampling_bwd=layers,
+                pack_bwd=levels)
+    for k, per_step in want.items():
+        if launches[k] != per_step * TRAIN_STEPS:
+            fail(f"training: kernel {k} launched {launches[k]} times in "
+                 f"{TRAIN_STEPS} steps, {per_step} a step expected")
+    log("training [r50]: loss per step " + " ".join(f"{x:.4f}" for x in losses)
+        + "; grad norm " + " ".join(f"{x:.3f}" for x in norms)
+        + "; step 1 losses " + " ".join(f"{k}={v:.4f}" for k, v in
+                                        first.items() if "loss_" in k))
+    if not losses[-1] < losses[0]:
+        fail(f"training: the loss did not fall on the repeated batch "
+             f"({losses[0]:.4f} -> {losses[-1]:.4f})")
+    steady = statistics.median(times[1:])
+    log(f"training [r50]: ms/step " + " ".join(f"{x:.1f}" for x in times)
+        + f" (median of steps 2..{TRAIN_STEPS}: {steady:.1f}, host clock, "
+        f"smoke timing); {n_params / 1e6:.1f}M parameters; peak memory "
+        f"{peak / 2**30:.2f} GiB above {held / 2**30:.2f} GiB held by "
+        "earlier phases")
+    ops, busy, wall, top = profile_call(torch, lambda: run_step(state))
+    log(f"training [r50]: one more step under torch.profiler: wall "
+        f"{wall:.1f} ms, device busy {busy:.1f} ms "
+        f"({100 * busy / wall:.1f}%), {ops} device ops")
+    for key, dev_ms, count in top:
+        log(f"training [r50]: {dev_ms:9.3f} ms {count:5d} calls  {key}")
+
+    # the sampling backward on one layer's recorded operands
+    packed, loc, sw, gout = recorded["operands"]
+    bwd = check_sampling_backward(torch, flush, bw, fp32_rate, packed, loc,
+                                  sw, gout, "r50 train, recorded layer")
+    del recorded, packed, loc, sw, gout, state
+    torch.cuda.empty_cache()
+
+    # step 1 again from the same weights with the plain versions on the card
+    plain_grads = {}
+    state = new_state()
+    with plain_versions():
+        plain = {k: float(v) for k, v in run_step(state, plain_grads).items()}
+    del state
+    torch.cuda.empty_cache()
+    rel = abs(first["loss"] - plain["loss"]) / abs(plain["loss"])
+    log(f"training [r50]: step 1 with kernels loss {first['loss']:.6f}, with "
+        f"the plain versions {plain['loss']:.6f} (relative difference "
+        f"{rel:.3g}, tolerance {TRAIN_LOSS_RTOL:g}); grad norm "
+        f"{first['grad_norm']:.4f} vs {plain['grad_norm']:.4f}")
+    if not rel <= TRAIN_LOSS_RTOL:
+        fail("training: the kernel step's loss differs from the plain step's")
+    for k in TRAIN_GRAD_PROBES:
+        a, b = kernel_grads[k], plain_grads[k]
+        scale = b.abs().max().item()
+        d = (a - b).abs().max().item()
+        log(f"training [r50]: grad {k}: max|kernel - plain| = {d:.3g} at "
+            f"scale {scale:.3g} (tolerance {TRAIN_GRAD_TOL * scale:.3g})")
+        if not scale > 0 or not d <= TRAIN_GRAD_TOL * scale:
+            fail(f"training: gradient of {k} differs between the kernel "
+                 "and the plain step")
+    return launches, bwd, dict(ms_per_step=steady, device_busy_ms=busy,
+                               device_ops=ops, peak_gib=peak / 2**30)
+
+
+def bringup_train_kernels():
+    """Build the three training kernels alone, print what ptxas reports for
+    the sampling backward, and hold each against its plain version at the
+    r50 / vov99 shapes on synthetic operands: the short first run of a new
+    or edited kernel (``python3 -c "import chip_smoke;
+    chip_smoke.bringup_train_kernels()"``)."""
+    import torch
+    sys.path.insert(0, HERE)
+    from sparsebev_tpu_torch.kernels import build
+    dev = torch.device("cuda", 0)
+    name = torch.cuda.get_device_name(0)
+    log(nvidia_smi_line())
+    logs = build.build_all(["msmv_pack", "msmv_pack_pair", "msmv_sample_bwd"])
+    for r in ptxas_report(logs["msmv_sample_bwd"]):
+        log(f"ptxas[msmv_sample_bwd]: {r}")
+    bw, fp32_rate, _ = peaks(name)
+    flush = torch.empty(64 * 2**20, dtype=torch.int32, device=dev)
+    check_pack_bwd(torch, dev, flush, bw)
+    check_pack_pair_bwd(torch, dev, flush, bw)
+    for dtype in (torch.float32, torch.bfloat16):
+        operands = synthetic_train_sampling(torch, dev, dtype)
+        check_sampling_backward(torch, flush, bw, fp32_rate, *operands,
+                                "r50 train, uniform points",
+                                timed=dtype == torch.bfloat16)
+        del operands
+        torch.cuda.empty_cache()
+
+
 KERNELS = dict(
     pack=dict(name="msmv_pack_level", route="cuda",
               source="sparsebev_tpu_torch/csrc/msmv_pack.cu",
@@ -1314,6 +1805,15 @@ KERNELS = dict(
     tap_fold=dict(name="tap_fold_epilogue", route="cuda",
                   source="sparsebev_tpu_torch/csrc/tap_fold.cu",
                   replaces="sparsebev_tpu/ops/msmv_epilogue_pallas.py:73"),
+    sampling_bwd=dict(name="msmv_sample_backward", route="cuda",
+                      source="sparsebev_tpu_torch/csrc/msmv_sample_bwd.cu",
+                      replaces="sparsebev_tpu/ops/msmv_sampling.py:857"),
+    pack_bwd=dict(name="msmv_pack_level_bwd", route="cuda",
+                  source="sparsebev_tpu_torch/csrc/msmv_pack.cu",
+                  replaces="sparsebev_tpu/ops/msmv_pack_pallas.py:125"),
+    pack_pair_bwd=dict(name="msmv_pack_pair_level_bwd", route="cuda",
+                       source="sparsebev_tpu_torch/csrc/msmv_pack_pair.cu",
+                       replaces="sparsebev_tpu/ops/msmv_pack_pallas.py:214"),
 )
 _CHECKS = dict(pack=check_pack, pack_pair=check_pack_pair,
                sampling=check_sampling)
@@ -1391,13 +1891,13 @@ def main() -> int:
         "TFLOP/s bf16 tensor cores")
 
     t0 = time.perf_counter()
-    sources = ["msmv_pack", "msmv_pack_pair", "msmv_sample", "msmv_onehot",
-               "mixing", "tap_fold"]
+    sources = ["msmv_pack", "msmv_pack_pair", "msmv_sample",
+               "msmv_sample_bwd", "msmv_onehot", "mixing", "tap_fold"]
     try:
         logs = build.build_all(sources)
     except RuntimeError as e:
         fail(str(e))
-    log(f"build: nvcc {' '.join(build.NVCC_FLAGS)}: {len(sources)} kernels "
+    log(f"build: nvcc {' '.join(build.NVCC_FLAGS)}: {len(sources)} sources "
         f"built in {time.perf_counter() - t0:.1f} s")
     for src, text in logs.items():
         if src in PTXAS_REPORTS:
@@ -1454,9 +1954,31 @@ def main() -> int:
                 measured[key][pname] = m
         launches[f"tap_fold {source}"], measured["tap_fold"][source] = \
             check_tap_fold(torch, flush, bw, fp32_rate, captured[source])
-    del flush, captured
+    del captured
     torch.cuda.empty_cache()
     log(f"phase: recorded-points sampling, mixing and tap fold checks took "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    (launches["r50 train"], measured["sampling_bwd"]["r50 train recorded"],
+     _) = training_phase(torch, dev, flush, bw, fp32_rate)
+    # (no inference_mode here: the plain backward is autograd)
+    measured["sampling_bwd"]["r50 train uniform"] = check_sampling_backward(
+        torch, flush, bw, fp32_rate,
+        *synthetic_train_sampling(torch, dev, torch.bfloat16),
+        "r50 train, uniform points")
+    check_sampling_backward(
+        torch, flush, bw, fp32_rate,
+        *synthetic_train_sampling(torch, dev, torch.float32),
+        "r50 train, uniform points", timed=False)
+    measured["pack_bwd"]["r50 train"] = check_pack_bwd(torch, dev, flush, bw)
+    launches["pack_pair_bwd vov99 L0"], \
+        measured["pack_pair_bwd"]["vov99 L0"] = check_pack_pair_bwd(
+            torch, dev, flush, bw)
+    del flush
+    torch.cuda.empty_cache()
+    log(f"phase: training (r50, {TRAIN_STEPS} steps, the plain step and the "
+        f"three training kernels' checks) took "
         f"{time.perf_counter() - t0:.1f} s")
 
     log(json.dumps(kernels_line(measured, launches)))

@@ -1,4 +1,4 @@
-"""SparseBEV transformer decoder at inference (counterpart of
+"""SparseBEV transformer decoder (counterpart of
 ``sparsebev_tpu/models/decoder.py``): ``num_layers`` iterations of ONE
 weight-shared decoder layer, each running scale-adaptive self-attention
 (SASA), adaptive spatio-temporal sampling, adaptive mixing, the FFN, the
@@ -8,6 +8,14 @@ Key names follow the reference state dict
 (``transformer.decoder.decoder_layer.*``). Geometry, softmaxes, LN2d
 statistics and the branch outputs are fp32; everything else computes in the
 query features' dtype (the config's compute dtype).
+
+Training (``deterministic=False``): dropout at the attention and FFN sites,
+the denoising mask on the self-attention, the classification branch in every
+layer, and gradients through the sampling op and the pack (autograd
+Functions over the CUDA kernels). As in the JAX package the query boxes
+carry no gradient into the attention's distance term nor into the velocity
+warp, and each layer refines a detached box. The JAX decoder's layer remat
+(a memory measure that changes no number) is not ported.
 """
 
 from __future__ import annotations
@@ -36,15 +44,22 @@ class SparseBEVSelfAttention(nn.Module):
         self.gen_tau = Linear(embed_dims, num_heads)
         self.attention = MultiheadAttention(embed_dims, num_heads)
 
-    def forward(self, query_bbox, query_feat):
+    def forward(self, query_bbox, query_feat, pre_attn_mask=None,
+                deterministic: bool = True):
         b, q, _ = query_bbox.shape
-        centers = decode_bbox(query_bbox, self.pc_range)[..., :2].float()
+        # pairwise BEV center distances; no gradient to the boxes
+        centers = decode_bbox(query_bbox.detach(),
+                              self.pc_range)[..., :2].float()
         diff = centers[:, :, None, :] - centers[:, None, :, :]
         dist = -torch.sqrt((diff * diff).sum(-1))                 # [B, Q, Q]
         tau = self.gen_tau(query_feat).float().permute(0, 2, 1)   # [B, H, Q]
         attn_mask = dist[:, None, :, :] * tau[..., None]          # [B,H,Q,Q]
+        if pre_attn_mask is not None:   # query denoising group isolation
+            attn_mask = attn_mask.masked_fill(pre_attn_mask[None, None],
+                                              float("-inf"))
         return self.attention(
-            query_feat, attn_mask=attn_mask.reshape(b * self.num_heads, q, q))
+            query_feat, attn_mask=attn_mask.reshape(b * self.num_heads, q, q),
+            deterministic=deterministic)
 
 
 class SparseBEVSampling(nn.Module):
@@ -77,7 +92,7 @@ class SparseBEVSampling(nn.Module):
         base_q = pts.reshape(b, q, g, p, 3).permute(1, 0, 2, 3, 4)
         base_q = base_q[:, :, :, None]                        # [Q,B,G,1,P,3]
         # velocity warp: move past-frame samples back along -v * dt
-        vel = query_bbox[..., 8:10]
+        vel = query_bbox[..., 8:10].detach()
         dist = vel[:, :, None, :] * time_diff[:, None, :, None]   # [B,Q,T,2]
         dist_q = dist.permute(1, 0, 2, 3)[:, :, None, :, None, :]
         pts_q = torch.cat([base_q[..., 0:2] - dist_q,
@@ -182,18 +197,20 @@ class SparseBEVTransformerDecoderLayer(nn.Module):
         return torch.cat([xyz_new, bbox_delta[..., 3:]], dim=-1)
 
     def forward(self, query_bbox, query_feat, packed, lidar2img, time_diff,
-                image_h, image_w, with_cls: bool = True):
+                image_h, image_w, with_cls: bool = True, attn_mask=None,
+                deterministic: bool = True):
         cdt = query_feat.dtype
         query_feat = query_feat + self.position_encoder(
             query_bbox[..., :3].to(cdt))
-        query_feat = self.norm1(self.self_attn(query_bbox, query_feat))
+        query_feat = self.norm1(self.self_attn(
+            query_bbox, query_feat, attn_mask, deterministic))
         sampled = self.sampling(query_bbox, query_feat, packed, lidar2img,
                                 time_diff, image_h, image_w)
         query_feat = self.norm2(self.mixing(sampled, query_feat))
-        query_feat = self.norm3(self.ffn(query_feat))
+        query_feat = self.norm3(self.ffn(query_feat, deterministic))
 
-        # the cls branch is skipped on all but the last layer at inference:
-        # only the last layer's classification is ever decoded
+        # at inference the decoder skips the cls branch on all but the last
+        # layer: only the last layer's classification is ever decoded
         cls_score = self.cls_branch(query_feat).float() if with_cls else None
         bbox_pred = self.reg_branch(query_feat).float()
         bbox_pred = self.refine_bbox(query_bbox, bbox_pred)
@@ -215,20 +232,27 @@ class SparseBEVTransformerDecoder(nn.Module):
         self.decoder_layer = SparseBEVTransformerDecoderLayer(**layer_kwargs)
 
     def forward(self, query_bbox, query_feat, packed, lidar2img, time_diff,
-                image_h, image_w):
+                image_h, image_w, attn_mask=None, deterministic: bool = True):
         """Returns (cls_scores [L, B, Q, classes], bbox_preds [L, B, Q, 10]).
-        The first L-1 cls slots hold -1e4 ("no object": sigmoid ~ 0)."""
-        bbox_preds = []
-        cls_score = None
+        At inference (``deterministic``) the first L-1 cls slots hold -1e4
+        ("no object": sigmoid ~ 0); in training every layer classifies."""
+        bbox_preds, cls_scores = [], []
+        last = self.num_layers - 1
         for i in range(self.num_layers):
             query_feat, cls_score, bbox_pred = self.decoder_layer(
                 query_bbox, query_feat, packed, lidar2img, time_diff,
-                image_h, image_w, with_cls=(i == self.num_layers - 1))
+                image_h, image_w, with_cls=(not deterministic or i == last),
+                attn_mask=attn_mask, deterministic=deterministic)
             query_bbox = bbox_pred.detach()
             bbox_preds.append(bbox_pred)
-        skipped = torch.full((self.num_layers - 1,) + cls_score.shape, -1e4,
-                             dtype=cls_score.dtype, device=cls_score.device)
-        cls_scores = torch.cat([skipped, cls_score[None]], dim=0)
+            cls_scores.append(cls_score)
+        if deterministic:
+            skipped = torch.full((last,) + cls_score.shape, -1e4,
+                                 dtype=cls_score.dtype,
+                                 device=cls_score.device)
+            cls_scores = torch.cat([skipped, cls_score[None]], dim=0)
+        else:
+            cls_scores = torch.stack(cls_scores)
         return (torch.nan_to_num(cls_scores),
                 torch.nan_to_num(torch.stack(bbox_preds)))
 
@@ -239,5 +263,5 @@ class SparseBEVTransformer(nn.Module):
         self.decoder = SparseBEVTransformerDecoder(
             num_layers, embed_dims=embed_dims, **layer_kwargs)
 
-    def forward(self, *args):
-        return self.decoder(*args)
+    def forward(self, *args, **kwargs):
+        return self.decoder(*args, **kwargs)

@@ -1,8 +1,10 @@
-"""SparseBEV detector at inference (counterpart of
-``sparsebev_tpu/models/detector.py``): normalize -> pad -> ResNet or VoVNet
--> FPN -> grouped pack of one frame (y-fold or pair rows per level, the
-head's ``table_yfold``; the streaming unit of work) and the head over packed
-tables.
+"""SparseBEV detector (counterpart of ``sparsebev_tpu/models/detector.py``):
+on-device augmentation (training) -> normalize -> pad -> ResNet or VoVNet ->
+FPN -> head. Two ways in: the full forward over all T frames
+(:meth:`SparseBEV.forward`, training and offline evaluation; the head packs
+the pyramids once for its decoder layers), and the streaming unit of work,
+the grouped pack of one frame (y-fold or pair rows per level, the head's
+``table_yfold``) with the head over the packed ring.
 
 Images keep the JAX package's channel-last layout ``[B, T*N, H, W, 3]`` (raw
 BGR) at the public functions; the backbone runs in channels_last memory, so
@@ -19,6 +21,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.msmv_sampling import pack_mlvl_feats_grouped
+from .augment import (draw_grid_mask, draw_photometric, grid_mask,
+                      photometric_distortion)
 from ..utils.device import resolve_device
 from .fpn import FPN
 from .head import SparseBEVHead
@@ -76,11 +80,28 @@ class SparseBEV(nn.Module):
         self.pts_bbox_head = SparseBEVHead(compute_dtype=compute_dtype, **hd)
         self.data_aug = dict(data_aug or {})
         self.compute_dtype = compute_dtype
+        self.stop_prev_grad = stop_prev_grad
+        self.use_grid_mask = use_grid_mask
+        # the training augmentations draw from this generator (on the
+        # images' device) unless the caller passes the draws; None: the
+        # device's global generator
+        self.aug_generator: Optional[torch.Generator] = None
 
-    def preprocess(self, img: torch.Tensor) -> torch.Tensor:
-        """BGR -> RGB, normalize, pad to the size divisor.
-        img: ``[B, TN, H, W, 3]`` uint8 or float, raw BGR in [0, 255]."""
+    def preprocess(self, img: torch.Tensor, train: bool = False,
+                   aug_draws: Optional[dict] = None) -> torch.Tensor:
+        """Colour augmentation (``train`` with ``img_color_aug``), BGR ->
+        RGB, normalize, pad to the size divisor. img: ``[B, TN, H, W, 3]``
+        uint8 or float, raw BGR in [0, 255]. ``aug_draws["photometric"]``
+        replaces the generator's draws."""
         img = img.float()
+        if train and self.data_aug.get("img_color_aug", False):
+            b, tn, h, w, _ = img.shape
+            draws = (aug_draws or {}).get("photometric")
+            if draws is None:
+                draws = draw_photometric(self.aug_generator, b * tn,
+                                         img.device)
+            img = photometric_distortion(img.reshape(b * tn, h, w, 3),
+                                         draws).reshape(b, tn, h, w, 3)
         norm = self.data_aug.get("img_norm_cfg")
         if norm is not None:
             mean = torch.tensor(norm["mean"], dtype=img.dtype,
@@ -95,18 +116,60 @@ class SparseBEV(nn.Module):
             img = pad_multiple(img, pad["size_divisor"])
         return img
 
-    def extract_feat(self, img: torch.Tensor):
-        """img: ``[B, TN, H, W, 3]`` preprocessed -> list of
-        ``[B, TN, H', W', C]`` pyramids in the compute dtype."""
-        b, tn, h, w, _ = img.shape
-        x = img.reshape(b * tn, h, w, 3).to(self.compute_dtype)
-        x = x.permute(0, 3, 1, 2)          # NCHW view of NHWC memory
+    def extract_img_feat(self, img: torch.Tensor, train: bool = False,
+                         aug_draws: Optional[dict] = None):
+        """GridMask (training) -> backbone -> neck on folded images
+        ``[M, H, W, 3]``; returns NHWC pyramids ``[M, H', W', C]`` in the
+        compute dtype."""
+        if self.use_grid_mask and train:
+            draws = (aug_draws or {}).get("grid_mask")
+            if draws is None:
+                draws = draw_grid_mask(self.aug_generator, img.shape[1],
+                                       img.device)
+            img = grid_mask(img, draws)
+        x = img.to(self.compute_dtype).permute(0, 3, 1, 2)  # NCHW view
         feats = self.img_backbone(x)
         if self.img_neck is not None:
             feats = self.img_neck(feats)
-        return [f.permute(0, 2, 3, 1).contiguous().reshape(
-                    b, tn, f.shape[2], f.shape[3], f.shape[1])
-                for f in feats]
+        return [f.permute(0, 2, 3, 1).contiguous() for f in feats]
+
+    def extract_feat(self, img: torch.Tensor, train: bool = False,
+                     aug_draws: Optional[dict] = None):
+        """img: ``[B, TN, H, W, 3]`` preprocessed -> list of
+        ``[B, TN, H', W', C]`` pyramids in the compute dtype. In training
+        with ``stop_prev_grad = k > 0`` only the first k frames' features
+        carry gradients (the rest run in a second, detached pass; each pass
+        draws its own GridMask, as in the JAX package, unless the draws are
+        passed in)."""
+        b, tn, h, w, _ = img.shape
+        if train and self.stop_prev_grad > 0:
+            k = self.stop_prev_grad * 6
+            feats_grad = self.extract_img_feat(
+                img[:, :k].reshape(-1, h, w, 3), train, aug_draws)
+            with torch.no_grad():
+                feats_nograd = self.extract_img_feat(
+                    img[:, k:].reshape(-1, h, w, 3), train, aug_draws)
+            return [torch.cat([fg.reshape(b, k, *fg.shape[1:]),
+                               fn.reshape(b, tn - k, *fn.shape[1:])], dim=1)
+                    for fg, fn in zip(feats_grad, feats_nograd)]
+        feats = self.extract_img_feat(img.reshape(b * tn, h, w, 3), train,
+                                      aug_draws)
+        return [f.reshape(b, tn, *f.shape[1:]) for f in feats]
+
+    def forward(self, img: torch.Tensor, lidar2img: torch.Tensor,
+                time_diff: torch.Tensor, dn_inputs: Optional[dict] = None,
+                train: bool = False, aug_draws: Optional[dict] = None):
+        """Full forward. img: ``[B, T*6, H, W, 3]`` raw BGR; lidar2img
+        ``[B, T*6, 4, 4]``; time_diff ``[B, T]``. ``train`` turns on the
+        augmentations, dropout and the per-layer classification;
+        ``aug_draws`` (``photometric``, ``grid_mask``) replaces the draws of
+        ``aug_generator``. Returns the head's prediction dict."""
+        img = self.preprocess(img, train, aug_draws)
+        image_h, image_w = img.shape[2], img.shape[3]
+        feats = self.extract_feat(img, train, aug_draws)
+        return self.pts_bbox_head(feats, lidar2img, time_diff, image_h,
+                                  image_w, dn_inputs=dn_inputs,
+                                  deterministic=not train)
 
     def forward_frame_packed(self, img: torch.Tensor):
         """Extract ONE frame's pyramid and pack it into grouped sampling
@@ -147,7 +210,9 @@ def _model_kwargs(cfg) -> Dict[str, Any]:
 def build_detector(cfg, device=None, seed: Optional[int] = None) -> SparseBEV:
     """Build the detector from a config on ``device`` (CUDA unless the
     caller passes ``device="cpu"``), in eval mode. ``seed`` fills every
-    weight with seeded random values (see :func:`random_init_`)."""
+    weight with seeded random values (see :func:`random_init_`). (Training
+    does not switch modes: dropout and augmentation follow the forward's
+    ``train`` argument, the batch norms are frozen.)"""
     dev = resolve_device(device)
     model = SparseBEV(**_model_kwargs(cfg))
     if seed is not None:

@@ -1,6 +1,9 @@
-"""SparseBEV head at inference (counterpart of ``sparsebev_tpu/models/head.py``):
-grid-initialized query boxes, the "no object" query feature, the decoder,
-and the reorder of the predicted boxes into the normalized world layout.
+"""SparseBEV head (counterpart of ``sparsebev_tpu/models/head.py``):
+grid-initialized query boxes, the "no object" query feature, the DN-DETR
+denoising queries (static shapes: ground truth padded to ``max_gt`` a sample,
+``dn_groups * max_gt`` denoising slots, invalid slots zeroed and masked in
+the loss; the noising itself is ``losses/denoising.py``), the decoder, and
+the reorder of the predicted boxes into the normalized world layout.
 """
 
 from __future__ import annotations
@@ -11,6 +14,7 @@ from typing import Optional, Sequence
 import torch
 from torch import nn
 
+from ..ops.msmv_sampling import PackedFeatures, pack_mlvl_feats_grouped
 from .decoder import SparseBEVTransformer
 
 
@@ -67,11 +71,15 @@ class SparseBEVHead(nn.Module):
         self.pc_range = list(pc_range)
         self.compute_dtype = compute_dtype
         # per-level table mode of the pack and the group-split flags of the
-        # streaming ring (which pick the pair levels' accumulation order)
+        # streaming ring and of the train / offline pack (which pick the
+        # pair levels' accumulation order)
         self.table_yfold = tuple(bool(v) for v in
                                  _per_level(table_yfold, num_levels))
         self.table_gsplit = tuple(bool(v) for v in
                                   _per_level(table_gsplit, num_levels))
+        self.table_gsplit_pack = tuple(bool(v) for v in
+                                       _per_level(table_gsplit_pack,
+                                                  num_levels))
         self.init_query_bbox = nn.Embedding(num_query, 10)
         # DAB-DETR style label embedding; row num_classes = "no object"
         self.label_enc = nn.Embedding(num_classes + 1, in_channels - 1)
@@ -99,12 +107,27 @@ class SparseBEVHead(nn.Module):
         w[:, 8:10] = 0.0
         self.init_query_bbox.weight.copy_(w)
 
-    def forward(self, packed, lidar2img, time_diff, image_h: int,
-                image_w: int):
-        """packed: ring or frame tables (B' = B*T*G slices);
-        lidar2img [B, T*N, 4, 4]; time_diff [B, T]. Returns the dict
-        ``all_cls_scores [L, B, Q, classes]``, ``all_bbox_preds [L, B, Q, 10]``."""
-        b = packed.batch // (self.num_frames * self.num_groups)
+    def forward(self, mlvl_feats, lidar2img, time_diff, image_h: int,
+                image_w: int, dn_inputs: Optional[dict] = None,
+                deterministic: bool = True):
+        """mlvl_feats: ring or frame tables (``PackedFeatures``, B' = B*T*G
+        slices) or the raw pyramids, a list of ``[B, T*N, H, W, C]``, packed
+        here once for all decoder layers; lidar2img [B, T*N, 4, 4];
+        time_diff [B, T]. dn_inputs (training only): ``dn_query_bbox``
+        [B, DN, 10] noised encoded boxes, ``dn_labels`` [B, DN] noised
+        labels (``num_classes`` = padding), ``attn_mask`` [DN+Q, DN+Q] bool
+        (True = blocked), optionally ``dn_mask`` [B, DN]. Returns the dict
+        ``all_cls_scores [L, B, Q, classes]``, ``all_bbox_preds
+        [L, B, Q, 10]`` and, when denoising, ``dn_cls_scores`` /
+        ``dn_bbox_preds [L, B, DN, ...]``."""
+        if isinstance(mlvl_feats, PackedFeatures):
+            packed = mlvl_feats
+            b = packed.batch // (self.num_frames * self.num_groups)
+        else:
+            b = mlvl_feats[0].shape[0]
+            packed = pack_mlvl_feats_grouped(
+                list(mlvl_feats), self.num_views, self.num_groups,
+                yfold=self.table_yfold, gsplit=self.table_gsplit_pack)
         c = self.in_channels
         query_bbox = self.init_query_bbox.weight[None].expand(
             b, self.num_query, 10)
@@ -114,9 +137,27 @@ class SparseBEVHead(nn.Module):
         if self.compute_dtype is not None:
             query_feat = query_feat.to(self.compute_dtype)
 
+        attn_mask = None
+        dn_pad = 0
+        if dn_inputs is not None:
+            dn_bbox = dn_inputs["dn_query_bbox"]
+            attn_mask = dn_inputs["attn_mask"]
+            dn_pad = dn_bbox.shape[1]
+            dn_feat = self.label_enc(dn_inputs["dn_labels"].long())
+            dn_feat = torch.cat([dn_feat, torch.ones_like(dn_feat[..., :1])],
+                                dim=-1)
+            if "dn_mask" in dn_inputs:  # zero features on padded slots
+                dn_feat = torch.where(dn_inputs["dn_mask"][..., None],
+                                      dn_feat, torch.zeros_like(dn_feat))
+            query_bbox = torch.cat([dn_bbox.to(query_bbox.dtype),
+                                    query_bbox], dim=1)
+            query_feat = torch.cat([dn_feat.to(query_feat.dtype), query_feat],
+                                   dim=1)
+
         cls_scores, bbox_preds = self.transformer(
             query_bbox, query_feat, packed, lidar2img.float(),
-            time_diff.float(), image_h, image_w)
+            time_diff.float(), image_h, image_w, attn_mask=attn_mask,
+            deterministic=deterministic)
 
         # query layout -> normalized layout: xyz to world, reorder
         pc = torch.tensor(self.pc_range, dtype=bbox_preds.dtype,
@@ -128,4 +169,9 @@ class SparseBEVHead(nn.Module):
             xyz[..., 2:3],            # cz
             bbox_preds[..., 5:10],    # log h, sin, cos, vx, vy
         ], dim=-1)
+        if dn_pad > 0:
+            return {"all_cls_scores": cls_scores[:, :, dn_pad:],
+                    "all_bbox_preds": bbox_preds[:, :, dn_pad:],
+                    "dn_cls_scores": cls_scores[:, :, :dn_pad],
+                    "dn_bbox_preds": bbox_preds[:, :, :dn_pad]}
         return {"all_cls_scores": cls_scores, "all_bbox_preds": bbox_preds}

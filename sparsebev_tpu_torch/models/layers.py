@@ -6,7 +6,20 @@ semantics). LayerNorm statistics and affine stay fp32 and the result is
 cast back to the input dtype. Attention logits and softmax are fp32.
 
 Casts of parameters are cached per module and rebuilt when a parameter
-changes (its storage or its in-place version counter).
+changes (its storage or its in-place version counter). The cache serves
+inference only: while autograd records and the parameter requires grad, the
+cast is computed inside the graph, uncached, so that the gradient reaches
+the fp32 parameter.
+
+Dropout (the four sites of the JAX layers: attention weights, attention
+output, and after each FFN linear, all p = 0.1) is decided per call by an
+explicit ``deterministic`` argument, as in the JAX package, and not by the
+module's ``training`` flag: the same module objects serve the streaming
+path and the training step, and ``.train()`` / ``.eval()`` must not be able
+to change inference bits behind the caller's back. Draws come from an
+explicit ``torch.Generator`` (``Dropout.generator``, set for a whole model by
+:func:`set_dropout_generator`) so that a step is reproducible from its
+seed; without one they come from the device's global generator.
 """
 
 from __future__ import annotations
@@ -28,6 +41,8 @@ class CastCache:
     def get(self, name: str, t: Optional[torch.Tensor], dtype: torch.dtype):
         if t is None or t.dtype == dtype:
             return t
+        if t.requires_grad and torch.is_grad_enabled():
+            return t.to(dtype)          # in the graph: the parameter trains
         key = (dtype, t.device, t.data_ptr(), t._version)
         hit = self._cache.get(name)
         if hit is None or hit[0] != key:
@@ -61,6 +76,34 @@ class LayerNorm(nn.LayerNorm):
                             self.bias, self.eps).to(x.dtype)
 
 
+class Dropout(nn.Module):
+    """Inverted dropout with an explicit switch and an explicit generator
+    (see the module docstring): ``x * mask / (1 - p)`` with ``mask`` ~
+    Bernoulli(1 - p), the identity when ``deterministic``."""
+
+    def __init__(self, p: float = 0.1):
+        super().__init__()
+        self.p = p
+        self.generator: Optional[torch.Generator] = None
+
+    def forward(self, x, deterministic: bool = True):
+        if deterministic or self.p == 0.0:
+            return x
+        keep = 1.0 - self.p
+        mask = torch.rand(x.shape, generator=self.generator,
+                          device=x.device) < keep
+        return x * mask.to(x.dtype) / keep
+
+
+def set_dropout_generator(module: nn.Module,
+                          generator: Optional[torch.Generator]) -> None:
+    """Point every :class:`Dropout` under ``module`` at ``generator`` (on the
+    tensors' device; ``None`` returns them to the global generator)."""
+    for m in module.modules():
+        if isinstance(m, Dropout):
+            m.generator = generator
+
+
 class _AttentionCore(nn.Module):
     """torch nn.MultiheadAttention's parameters (packed ``in_proj``, ``out_proj``)."""
 
@@ -75,17 +118,20 @@ class _AttentionCore(nn.Module):
 
 
 class MultiheadAttention(nn.Module):
-    """mmcv MultiheadAttention (batch-first) at inference: packed qkv
-    projection, an additive float mask ``[B*H, Q, K]`` on the fp32 logits,
-    fp32 softmax, and the residual ``query + attn_out``."""
+    """mmcv MultiheadAttention (batch-first): packed qkv projection, a mask
+    ``[B*H, Q, K]`` on the fp32 logits (additive float, or bool with True =
+    blocked -> ``-inf``), fp32 softmax, dropout on the attention weights and
+    on the projected output, and the residual ``query + attn_out``."""
 
-    def __init__(self, embed_dims: int, num_heads: int):
+    def __init__(self, embed_dims: int, num_heads: int, dropout: float = 0.1):
         super().__init__()
         self.embed_dims = embed_dims
         self.num_heads = num_heads
         self.attn = _AttentionCore(embed_dims)
+        self.attn_drop = Dropout(dropout)
+        self.proj_drop = Dropout(dropout)
 
-    def forward(self, query, attn_mask=None):
+    def forward(self, query, attn_mask=None, deterministic: bool = True):
         c, h = self.embed_dims, self.num_heads
         hd = c // h
         b, q_len, _ = query.shape
@@ -98,22 +144,33 @@ class MultiheadAttention(nn.Module):
         logits = torch.matmul(qh.float(), kh.float().transpose(-1, -2))
         logits = logits / math.sqrt(hd)
         if attn_mask is not None:
-            logits = logits + attn_mask.float().reshape(b, h, q_len, q_len)
-        attn = torch.softmax(logits, dim=-1)
+            if attn_mask.dtype == torch.bool:
+                bias = torch.zeros(attn_mask.shape, dtype=logits.dtype,
+                                   device=logits.device).masked_fill(
+                                       attn_mask, float("-inf"))
+            else:
+                bias = attn_mask.float()
+            logits = logits + bias.reshape(b, h, q_len, q_len)
+        attn = self.attn_drop(torch.softmax(logits, dim=-1), deterministic)
         out = torch.matmul(attn.to(query.dtype), vh)          # [B, H, Q, hd]
         out = out.transpose(1, 2).reshape(b, q_len, c)
-        return query + core.out_proj(out)
+        return query + self.proj_drop(core.out_proj(out), deterministic)
 
 
 class FFN(nn.Module):
-    """mmcv FFN at inference: Linear -> ReLU -> Linear, plus the residual
+    """mmcv FFN: Linear -> ReLU -> drop -> Linear -> drop, plus the residual
     (keys ``layers.0.0`` and ``layers.1``)."""
 
-    def __init__(self, embed_dims: int, feedforward_channels: int = 512):
+    def __init__(self, embed_dims: int, feedforward_channels: int = 512,
+                 ffn_drop: float = 0.1):
         super().__init__()
         self.layers = nn.Sequential(
             nn.Sequential(Linear(embed_dims, feedforward_channels), nn.ReLU()),
             Linear(feedforward_channels, embed_dims))
+        self.drop1 = Dropout(ffn_drop)
+        self.drop2 = Dropout(ffn_drop)
 
-    def forward(self, x):
-        return x + self.layers(x)
+    def forward(self, x, deterministic: bool = True):
+        y = self.drop1(self.layers[0](x), deterministic)
+        y = self.drop2(self.layers[1](y), deterministic)
+        return x + y

@@ -5,12 +5,20 @@ mmdet key names (``conv1``, ``bn1``, ``layer{s}.{i}.conv{j}``,
 3x3), frozen batch norm. Each conv + FrozenBN runs as ONE conv: the BN's
 affine map ``y = x*s + t`` (``s = weight/sqrt(var+eps)``, ``t = bias -
 mean*s``) folds into the conv weights in fp32, then the folded weights are
-cast to the compute dtype (``_folded_conv_bn`` :45 in the JAX package). The
-folded weights are cached until a parameter or running statistic changes.
+cast to the compute dtype (``_folded_conv_bn`` :45 in the JAX package). At
+inference the folded weights are cached until a parameter or running
+statistic changes. While autograd records and a source parameter requires
+grad, the fold is computed inside the graph instead, uncached, so the
+gradient reaches the conv weight and the BN ``weight`` / ``bias`` (the
+running statistics stay fixed: ``norm_eval``).
 
 Convolutions run through ``F.conv2d`` in channels_last memory format (the JAX
-package likewise leaves convolutions to XLA). ``with_cp``, ``frozen_stages``,
-``norm_eval`` and ``style`` are training options, accepted for config parity.
+package likewise leaves convolutions to XLA). ``with_cp`` checkpoints each
+bottleneck in training (``torch.utils.checkpoint``; ``nn.remat`` per block in
+the JAX package): its activations are recomputed in the backward pass.
+``frozen_stages`` is enforced by the optimizer's multipliers
+(``train/optim.py``), as in the JAX package; ``norm_eval`` and ``style`` are
+accepted for config parity.
 """
 
 from __future__ import annotations
@@ -20,6 +28,7 @@ from typing import Sequence
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 
 class FrozenBatchNorm2d(nn.Module):
@@ -47,21 +56,27 @@ class ConvBN:
         self._key = None
         self._w = self._t = None
 
+    def _fold(self, dtype):
+        conv, bn = self._conv, self._bn
+        rs = torch.rsqrt(bn.running_var.float() + bn.eps)
+        inv = rs * bn.weight.float()
+        w = conv.weight.float() * inv[:, None, None, None]
+        t = bn.bias.float() - bn.running_mean.float() * rs * bn.weight.float()
+        return (w.to(dtype).contiguous(memory_format=torch.channels_last),
+                t.to(dtype))
+
     def _folded(self, dtype, device):
         conv, bn = self._conv, self._bn
+        if torch.is_grad_enabled() and (conv.weight.requires_grad
+                                        or bn.weight.requires_grad
+                                        or bn.bias.requires_grad):
+            return self._fold(dtype)    # in the graph: the parameters train
         srcs = (conv.weight, bn.weight, bn.bias, bn.running_mean,
                 bn.running_var)
         key = (dtype, device) + tuple((t.data_ptr(), t._version) for t in srcs)
         if key != self._key:
             with torch.no_grad():
-                rs = torch.rsqrt(bn.running_var.float() + bn.eps)
-                inv = rs * bn.weight.float()
-                w = conv.weight.float() * inv[:, None, None, None]
-                t = bn.bias.float() - bn.running_mean.float() * rs \
-                    * bn.weight.float()
-                self._w = w.to(dtype).contiguous(
-                    memory_format=torch.channels_last)
-                self._t = t.to(dtype)
+                self._w, self._t = self._fold(dtype)
             self._key = key
         return self._w, self._t
 
@@ -118,6 +133,8 @@ class ResNet(nn.Module):
                  style: str = "pytorch", with_cp: bool = False):
         super().__init__()
         self.out_indices = tuple(out_indices)
+        self.with_cp = with_cp
+        self.frozen_stages = frozen_stages
         self.conv1 = nn.Conv2d(3, 64, 7, stride=2, padding=3, bias=False)
         self.bn1 = FrozenBatchNorm2d(64)
         self._stem = ConvBN(self.conv1, self.bn1)
@@ -138,7 +155,13 @@ class ResNet(nn.Module):
         x = F.max_pool2d(x, 3, stride=2, padding=1)
         outs = []
         for s in range(self.num_stages):
-            x = getattr(self, f"layer{s + 1}")(x)
+            for block in getattr(self, f"layer{s + 1}"):
+                if self.with_cp and torch.is_grad_enabled() \
+                        and x.requires_grad:
+                    x = checkpoint(block, x, use_reentrant=False,
+                                   preserve_rng_state=False)
+                else:
+                    x = block(x)
             if s in self.out_indices:
                 outs.append(x)
         return outs

@@ -77,16 +77,23 @@ class _ConvNormReLU:
         the compute dtype (the JAX ``FrozenBatchNorm``), and cached until a
         parameter or running statistic changes."""
         bn = self.norm
+
+        def affine():
+            rs = torch.rsqrt(bn.running_var.float() + bn.eps)
+            inv = rs * bn.weight.float()
+            shift = bn.bias.float() - bn.running_mean.float() * rs \
+                * bn.weight.float()
+            return (inv.to(dtype)[:, None, None],
+                    shift.to(dtype)[:, None, None])
+
+        if torch.is_grad_enabled() and (bn.weight.requires_grad
+                                        or bn.bias.requires_grad):
+            return affine()     # in the graph: the BN affine trains
         srcs = (bn.weight, bn.bias, bn.running_mean, bn.running_var)
         key = (dtype, device) + tuple((t.data_ptr(), t._version) for t in srcs)
         if key != self._key:
             with torch.no_grad():
-                rs = torch.rsqrt(bn.running_var.float() + bn.eps)
-                inv = rs * bn.weight.float()
-                shift = bn.bias.float() - bn.running_mean.float() * rs \
-                    * bn.weight.float()
-                self._affine = (inv.to(dtype)[:, None, None],
-                                shift.to(dtype)[:, None, None])
+                self._affine = affine()
             self._key = key
         return self._affine
 

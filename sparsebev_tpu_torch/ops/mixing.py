@@ -25,6 +25,7 @@ import ctypes
 import torch
 
 from ..kernels import build
+from .autograd_guard import refuse_backward
 
 EPS = 1e-5
 
@@ -153,6 +154,9 @@ def _mixing_cuda(x, m, s, two_pass: bool) -> torch.Tensor:
     dev = x.device
     if not x.is_cuda:
         raise ValueError(f"mixing_core: no kernel for device {dev}")
+    # mixing_core launches from inside its autograd Function (grad mode off
+    # there); the batched entry has no backward and must not cut a gradient
+    refuse_backward("mixing_core_batched", [x, m, s])
     if x.dim() != 4 or m.dim() != 4 or s.dim() != 4:
         raise ValueError("mixing_core: x, m, s must be [BQ, G, P, C], "
                          "[BQ, G, C, C], [BQ, G, O, P]")

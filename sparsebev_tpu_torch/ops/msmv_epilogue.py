@@ -28,6 +28,7 @@ from typing import Sequence
 import torch
 
 from ..kernels import build
+from .autograd_guard import refuse_backward
 
 
 def _check(gathered, weights, c):
@@ -91,6 +92,7 @@ def _tap_fold_cuda(gathered, weights, c, out_dtype):
     dev = gathered[0].device
     if not gathered[0].is_cuda:
         raise ValueError(f"tap_fold_epilogue: no kernel for device {dev}")
+    refuse_backward("tap_fold_epilogue", [list(gathered), list(weights)])
     k = _check(gathered, weights, c)
     num_levels = len(gathered)
     if num_levels > _MAX_LEVELS:

@@ -42,6 +42,7 @@ from typing import Sequence
 import torch
 
 from ..kernels import build
+from .autograd_guard import refuse_backward
 
 _INT_ARGS = ("rows0", "rows1", "x0")  # int32; the other point arrays fp32
 LANE_BYTES = 16      # each lane of a sampling kernel loads 16 bytes of a run
@@ -293,6 +294,8 @@ def _onehot_cuda(feat_table, rows0, rows1, wy0, wy1, x0, wx0, wx1, w, c):
     dev = feat_table.device
     if not feat_table.is_cuda:
         raise ValueError(f"onehot_sample_level: no kernel for device {dev}")
+    refuse_backward("onehot_sample_level",
+                    [feat_table, wy0, wy1, wx0, wx1])
     args = dict(rows0=rows0, rows1=rows1, wy0=wy0, wy1=wy1, x0=x0, wx0=wx0,
                 wx1=wx1)
     _check(feat_table, w, c, args)
@@ -328,6 +331,7 @@ def _onehot_levels_cuda(tables, level_shapes, level_index, loc, sw, out,
     dev = loc.device
     if not loc.is_cuda:
         raise ValueError(f"{op}: no kernel for device {dev}")
+    refuse_backward(op, [list(tables), loc, sw, out])
     _check_levels(tables, level_shapes, level_index, loc, sw, out, num_views,
                   c)
     lanes = onehot_lanes_per_point(c, tables[0].dtype)

@@ -1,7 +1,9 @@
 """The packs: one pyramid level -> grouped y-fold or pair-mode tables.
 
 Counterpart of ``sparsebev_tpu/ops/msmv_pack_pallas.py::pack_level`` and
-``pack_level_pair``. Two CUDA kernels:
+``pack_level_pair``, and of their adjoints ``_pack_level_bwd`` (:125) and
+``_pack_pair_bwd`` (:214). Two CUDA sources, each with a forward and a
+backward kernel:
 
 - ``csrc/msmv_pack.cu`` replaces the Pallas kernel ``pack_level_tpu`` (:63,
   body ``_pack_kernel`` :32); :func:`pack_level_plain` is the plain PyTorch
@@ -9,6 +11,14 @@ Counterpart of ``sparsebev_tpu/ops/msmv_pack_pallas.py::pack_level`` and
 - ``csrc/msmv_pack_pair.cu`` replaces ``pack_level_pair_tpu`` (:154, body
   ``_pack_pair_kernel`` :142); :func:`pack_level_pair_plain` is the plain
   version of ``_pack_pair_xla`` (:192).
+- the backward entries of the same two sources replace the XLA chains of
+  the JAX adjoints; :func:`pack_level_bwd_plain` and
+  :func:`pack_level_pair_bwd_plain` are their plain versions (the slicing
+  formulas of the adjoints).
+
+Both packs are ``torch.autograd.Function``s: the gradient of a table goes
+back to the pyramid through the adjoint kernel (CUDA) or its plain version
+(CPU), as the JAX ``custom_vjp`` does.
 
 Layout: ``feat [M, H, W, C] -> [M, H, G, W+1, 2Cg]``. Row h of group g holds
 ``feat[h, :, g] ‖ feat[h+1, :, g]`` on the channel axis (row H-1's second
@@ -49,15 +59,55 @@ def pack_level_plain(feat: torch.Tensor, num_groups: int) -> torch.Tensor:
     return t2.reshape(m, h, g, w + 1, 2 * cg)
 
 
+def pack_level_bwd_plain(dt: torch.Tensor, num_groups: int) -> torch.Tensor:
+    """Plain PyTorch adjoint of the y-fold pack (``_pack_level_bwd``):
+    ``dfeat[m,h,w,(g,cg)] = dT[m,h,g,w,cg] + dT[m,h-1,g,w,Cg+cg]`` (zero for
+    h = 0), the guard column dropped. ``dT [M, H, G, W+1, 2Cg]`` ->
+    ``[M, H, W, C]``; the one add is taken in dT's dtype, as JAX takes it."""
+    m, h, g, w1, c2 = dt.shape
+    if g != num_groups:
+        raise ValueError(f"pack_level_bwd: {g} groups in the table gradient, "
+                         f"{num_groups} expected")
+    w, cg = w1 - 1, c2 // 2
+    dt = dt[:, :, :, :w]
+    d0 = dt[..., :cg]
+    d1 = dt[..., cg:]
+    d1 = torch.cat([torch.zeros_like(d1[:, :1]), d1[:, :h - 1]], dim=1)
+    return (d0 + d1).permute(0, 1, 3, 2, 4).reshape(m, h, w, g * cg)
+
+
+class _PackLevel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, feat, num_groups):
+        ctx.num_groups = num_groups
+        if feat.device.type == "cpu":
+            return pack_level_plain(feat, num_groups)
+        return _pack_level_cuda(feat, num_groups)
+
+    @staticmethod
+    def backward(ctx, dt):
+        return pack_level_bwd(dt, ctx.num_groups), None
+
+
 def pack_level(feat: torch.Tensor, num_groups: int) -> torch.Tensor:
-    """``[M, H, W, C] -> [M, H, G, W+1, 2Cg]``. A CPU tensor takes the plain
-    version; a CUDA tensor launches the kernel (or raises)."""
-    if feat.device.type == "cpu":
-        return pack_level_plain(feat, num_groups)
-    return _pack_level_cuda(feat, num_groups)
+    """``[M, H, W, C] -> [M, H, G, W+1, 2Cg]``, differentiable. A CPU tensor
+    takes the plain versions; a CUDA tensor launches the kernels (or
+    raises)."""
+    return _PackLevel.apply(feat, num_groups)
 
 
-pack_level.launches = 0  # kernel launches (counted in _pack_level_cuda)
+pack_level.launches = 0  # forward launches (counted in _pack_level_cuda)
+
+
+def pack_level_bwd(dt: torch.Tensor, num_groups: int) -> torch.Tensor:
+    """The y-fold pack's adjoint on its own (what ``pack_level``'s backward
+    runs): CPU -> plain version, CUDA -> kernel (or raises)."""
+    if dt.device.type == "cpu":
+        return pack_level_bwd_plain(dt, num_groups)
+    return _pack_level_bwd_cuda(dt, num_groups)
+
+
+pack_level_bwd.launches = 0  # counted in _pack_level_bwd_cuda
 
 
 def pack_level_pair_plain(feat: torch.Tensor,
@@ -69,15 +119,51 @@ def pack_level_pair_plain(feat: torch.Tensor,
     return F.pad(f, (0, 0, 0, 1))                      # zero guard column
 
 
+def pack_level_pair_bwd_plain(dt: torch.Tensor,
+                              num_groups: int) -> torch.Tensor:
+    """Plain PyTorch adjoint of the pair pack (``_pack_pair_bwd``): the guard
+    column dropped and ``(G, W)`` permuted back; each feature element has one
+    table copy. ``dT [M, H, G, W+1, Cg]`` -> ``[M, H, W, C]``."""
+    m, h, g, w1, cg = dt.shape
+    if g != num_groups:
+        raise ValueError(f"pack_level_pair_bwd: {g} groups in the table "
+                         f"gradient, {num_groups} expected")
+    return dt[:, :, :, :w1 - 1].permute(0, 1, 3, 2, 4).reshape(
+        m, h, w1 - 1, g * cg)
+
+
+class _PackLevelPair(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, feat, num_groups):
+        ctx.num_groups = num_groups
+        if feat.device.type == "cpu":
+            return pack_level_pair_plain(feat, num_groups)
+        return _pack_level_pair_cuda(feat, num_groups)
+
+    @staticmethod
+    def backward(ctx, dt):
+        return pack_level_pair_bwd(dt, ctx.num_groups), None
+
+
 def pack_level_pair(feat: torch.Tensor, num_groups: int) -> torch.Tensor:
-    """``[M, H, W, C] -> [M, H, G, W+1, Cg]``. A CPU tensor takes the plain
-    version; a CUDA tensor launches the kernel (or raises)."""
-    if feat.device.type == "cpu":
-        return pack_level_pair_plain(feat, num_groups)
-    return _pack_level_pair_cuda(feat, num_groups)
+    """``[M, H, W, C] -> [M, H, G, W+1, Cg]``, differentiable. A CPU tensor
+    takes the plain versions; a CUDA tensor launches the kernels (or
+    raises)."""
+    return _PackLevelPair.apply(feat, num_groups)
 
 
-pack_level_pair.launches = 0  # kernel launches (in _pack_level_pair_cuda)
+pack_level_pair.launches = 0  # forward launches (_pack_level_pair_cuda)
+
+
+def pack_level_pair_bwd(dt: torch.Tensor, num_groups: int) -> torch.Tensor:
+    """The pair pack's adjoint on its own: CPU -> plain version, CUDA ->
+    kernel (or raises)."""
+    if dt.device.type == "cpu":
+        return pack_level_pair_bwd_plain(dt, num_groups)
+    return _pack_level_pair_bwd_cuda(dt, num_groups)
+
+
+pack_level_pair_bwd.launches = 0  # counted in _pack_level_pair_bwd_cuda
 
 _BOUND = set()
 
@@ -86,11 +172,37 @@ def _lib(name: str):
     lib = build.load(name)
     if name not in _BOUND:
         vp, ci = ctypes.c_void_p, ctypes.c_int
-        fn = getattr(lib, name + "_level")
-        fn.argtypes = [vp, vp, ci, ci, ci, ci, ci, ci, vp]
-        fn.restype = ci
+        for entry, extra in (("_level", []), ("_level_bwd", [ci])):
+            fn = getattr(lib, name + entry)
+            fn.argtypes = [vp, vp, ci, ci, ci, ci, ci, ci, *extra, vp]
+            fn.restype = ci
         _BOUND.add(name)
     return lib
+
+
+def _vector_bytes(name: str, half_row: int, *tensors) -> int:
+    vec = next((v for v in (16, 8, 4, 2)
+                if half_row % v == 0
+                and all(t.data_ptr() % v == 0 for t in tensors)), None)
+    if vec is None:
+        raise ValueError(f"{name}: a {half_row}-byte half-row has no "
+                         "2/4/8/16-byte vector width")
+    return vec
+
+
+def _call(name: str, entry: str, src: torch.Tensor, dst: torch.Tensor,
+          m: int, h: int, w: int, g: int, half_row: int) -> None:
+    """Launch ``csrc/<name>.cu``'s ``<name><entry>`` on the current stream."""
+    vec = _vector_bytes(name, half_row, src, dst)
+    # the adjoints also take the element type (the y-fold one adds)
+    extra = [int(src.dtype == torch.bfloat16)] if entry == "_level_bwd" else []
+    lib = _lib(name)
+    with torch.cuda.device(src.device):
+        stream = torch.cuda.current_stream(src.device).cuda_stream
+        rc = getattr(lib, name + entry)(
+            src.data_ptr(), dst.data_ptr(), m, h, w, g, half_row, vec,
+            *extra, stream)
+    build.check(lib, name, rc)
 
 
 def _launch(name: str, feat: torch.Tensor, num_groups: int,
@@ -111,20 +223,31 @@ def _launch(name: str, feat: torch.Tensor, num_groups: int,
     cg = c // g
     out = torch.empty((m, h, g, w + 1, row_groups * cg), dtype=feat.dtype,
                       device=feat.device)
-    half_row = cg * feat.element_size()
-    vec = next((v for v in (16, 8, 4, 2)
-                if half_row % v == 0 and feat.data_ptr() % v == 0
-                and out.data_ptr() % v == 0), None)
-    if vec is None:
-        raise ValueError(f"{name}: a {half_row}-byte half-row has no "
-                         "2/4/8/16-byte vector width")
-    lib = _lib(name)
-    with torch.cuda.device(feat.device):
-        stream = torch.cuda.current_stream(feat.device).cuda_stream
-        rc = getattr(lib, name + "_level")(
-            feat.data_ptr(), out.data_ptr(), m, h, w, g, half_row, vec,
-            stream)
-    build.check(lib, name, rc)
+    _call(name, "_level", feat, out, m, h, w, g, cg * feat.element_size())
+    return out
+
+
+def _launch_bwd(name: str, dt: torch.Tensor, num_groups: int,
+                row_groups: int) -> torch.Tensor:
+    """Check the table gradient ``[M, H, G, W+1, row_groups*Cg]``, allocate
+    ``[M, H, W, C]`` and launch ``<name>_level_bwd`` on the current stream."""
+    if not dt.is_cuda:
+        raise ValueError(f"{name}: no kernel for device {dt.device}")
+    if dt.dim() != 5 or dt.shape[2] != num_groups \
+            or dt.shape[4] % row_groups or dt.shape[3] < 2:
+        raise ValueError(f"{name}: the table gradient must be [M, H, "
+                         f"{num_groups}, W+1, {row_groups}*Cg], got "
+                         f"{tuple(dt.shape)}")
+    if row_groups == 2 and dt.dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"{name}: the adjoint adds in bf16 or fp32, not "
+                         f"{dt.dtype}")
+    dt = dt.contiguous()
+    m, h, g, w1, row = dt.shape
+    cg = row // row_groups
+    out = torch.empty((m, h, w1 - 1, g * cg), dtype=dt.dtype,
+                      device=dt.device)
+    _call(name, "_level_bwd", dt, out, m, h, w1 - 1, g,
+          cg * dt.element_size())
     return out
 
 
@@ -138,4 +261,17 @@ def _pack_level_pair_cuda(feat: torch.Tensor,
                           num_groups: int) -> torch.Tensor:
     out = _launch("msmv_pack_pair", feat, num_groups, 1)
     pack_level_pair.launches += 1
+    return out
+
+
+def _pack_level_bwd_cuda(dt: torch.Tensor, num_groups: int) -> torch.Tensor:
+    out = _launch_bwd("msmv_pack", dt, num_groups, 2)
+    pack_level_bwd.launches += 1
+    return out
+
+
+def _pack_level_pair_bwd_cuda(dt: torch.Tensor,
+                              num_groups: int) -> torch.Tensor:
+    out = _launch_bwd("msmv_pack_pair", dt, num_groups, 1)
+    pack_level_pair_bwd.launches += 1
     return out

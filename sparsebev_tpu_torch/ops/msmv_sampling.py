@@ -46,6 +46,20 @@ tables takes slice-major points and samples those levels with one launch of
 with the y-fold kernel. As in the JAX package, the model path never gets there:
 ``projection.sampling_4d`` warns and packs without MXU tables.
 
+Gradients (training): :func:`msmv_sampling` is differentiable in the tables,
+the x / y of the locations and the scale weights (the view coordinate goes
+through ``round`` and gets zero). As the JAX ``custom_vjp``
+(``_msmv_yfold_bwd`` :857) the backward is NOT the derivative of the window
+forward's rounded arithmetic but the VJP of the all-fp32 half-row primal
+``_msmv_halfrow`` (:775), ported as :func:`msmv_halfrow_plain`. On CUDA
+tensors it is one launch of ``csrc/msmv_sample_bwd.cu``
+(:func:`msmv_sampling_backward`); :func:`msmv_sampling_backward_plain`
+(autograd of the half-row primal) is its plain version. Both accumulate the
+table gradient in fp32 and round it once to the table dtype; JAX with bf16
+tables rounds every contribution to bf16 before its scatter-add, so bf16
+table gradients agree with JAX only to a few bf16 ulps of the largest
+accumulated entry (see ``tests/test_torch_train_ops.py``).
+
 Not in this slice: chunk-split rings (``table_split > 1``) and fp8 rings
 (``table_fp8``); configs that ask for them are refused by
 ``models/head.py::check_table_options``.
@@ -184,12 +198,16 @@ def pack_mlvl_feats(mlvl_feats: Sequence[torch.Tensor]) -> PackedFeatures:
 
 def pack_mlvl_feats_grouped(mlvl_feats: Sequence[torch.Tensor],
                             num_views: int, num_groups: int,
-                            yfold=True) -> PackedFeatures:
+                            yfold=True, gsplit=False) -> PackedFeatures:
     """Pack per-frame pyramids ``[B, T*N, H, W, C]`` into grouped tables,
     row order (b, t, n, h, g): y-fold levels as ``[B*T*N*H*G, W+1, 2Cg]``
     (one :func:`~.msmv_pack.pack_level` call each), pair levels
     (``yfold`` False for the level) as ``[B*T*N*H*G, W+1, Cg]`` (one
-    :func:`~.msmv_pack.pack_level_pair` call each)."""
+    :func:`~.msmv_pack.pack_level_pair` call each). ``gsplit`` (the JAX
+    pack's per-group chunk buffers, the training configs'
+    ``table_gsplit_pack``) keeps one table a level here and only selects the
+    accumulation order, as the ring's flags do. Differentiable: the packs
+    are autograd Functions."""
     n, g = num_views, num_groups
     b, tn = mlvl_feats[0].shape[0], mlvl_feats[0].shape[1]
     t = tn // n
@@ -204,7 +222,7 @@ def pack_mlvl_feats_grouped(mlvl_feats: Sequence[torch.Tensor],
         tables.append(t2.reshape(b * t * n * h * g, w + 1, t2.shape[-1]))
         shapes.append((h, w))
     return PackedFeatures(tables, b * t * g, n, shapes, cg, num_groups=g,
-                          yfold=yfold)
+                          yfold=yfold, gsplit=gsplit)
 
 
 def ring_init(frame_packed: PackedFeatures, num_slots: int):
@@ -447,6 +465,135 @@ def msmv_sampling_plain(packed: PackedFeatures,
     return out.reshape(q, s, p, c)
 
 
+def msmv_halfrow_plain(packed: PackedFeatures,
+                       sampling_locations: torch.Tensor,
+                       scale_weights: torch.Tensor) -> torch.Tensor:
+    """The all-fp32 half-row primal (query-major), JAX ``_msmv_halfrow``
+    (:775; with group-split levels ``_halfrow_runmajor`` :701, which changes
+    nothing but the order in which the same sums are written): every tap is
+    a single table row read ``[row + sx + slot]`` cast to fp32, weighted by
+    ``wx_slot * lw`` (x) and ``wy`` (the y half), all products and sums in
+    fp32 (fp64 for fp64 locations, for ``gradcheck``), the result cast to
+    ``table_acc_dtype`` once. Its autograd graph is what the sampling op's
+    backward computes: a scatter-add of ``g * wy * wx * lw`` into the half
+    rows, ``g`` dot each level's unweighted bilinear value for the scale
+    weights, and the derivatives of the piecewise-linear slot weights for x
+    and y."""
+    _check_geometry(packed, sampling_locations, scale_weights)
+    q, s, p, _ = sampling_locations.shape
+    n, c = packed.num_views, packed.channels
+    num_levels = len(packed.level_shapes)
+    k = q * s * p
+    dev = sampling_locations.device
+    ct = (torch.float64 if sampling_locations.dtype == torch.float64
+          else torch.float32)
+    x = sampling_locations[..., 0].reshape(k)
+    y = sampling_locations[..., 1].reshape(k)
+    view = _view_index(sampling_locations[..., 2].reshape(k), n)
+    slices = (torch.arange(s, device=dev) if packed.slice_map is None
+              else packed.slice_map.to(device=dev, dtype=torch.int64))
+    batch_row = slices.repeat_interleave(p).repeat(q)          # (q, s, p)
+    lw_levels = scale_weights.reshape(k, num_levels).t().to(ct)
+    out = torch.zeros((k, c), dtype=ct, device=dev)
+    for lvl, (h, w) in enumerate(packed.level_shapes):
+        sx, ry, (wxa, wxb), (wya, wyb) = _separable_slot_weights(
+            x * (w - 1), y * (h - 1), h, w)
+        lw = lw_levels[lvl]
+        flat = packed.tables[lvl].reshape(-1, packed.row_width(lvl))
+        if packed.yfold[lvl]:
+            row = packed.row_index(batch_row, view, ry, h) * (w + 1)
+            wy = torch.stack([wya, wyb], -1).to(ct)               # [K, 2]
+            for slot, wx in ((0, wxa), (1, wxb)):
+                g2 = flat[row + sx + slot].to(ct).reshape(k, 2, c)
+                out = out + (g2 * wy[..., None]).sum(1) * (wx * lw)[:, None]
+            continue
+        for row_y, wy in ((ry, wya), (torch.clamp(ry + 1, max=h - 1), wyb)):
+            row = packed.row_index(batch_row, view, row_y, h) * (w + 1)
+            for slot, wx in ((0, wxa), (1, wxb)):
+                g1 = flat[row + sx + slot].to(ct)
+                out = out + g1 * (wx * wy * lw)[:, None]
+    acc = table_acc_dtype(packed)
+    if ct == torch.float64 and packed.tables[0].dtype == torch.float64:
+        acc = torch.float64
+    return out.reshape(q, s, p, c).to(acc)
+
+
+def _with_tables(packed: PackedFeatures, tables) -> PackedFeatures:
+    return PackedFeatures(tables, packed.batch, packed.num_views,
+                          packed.level_shapes, packed.channels,
+                          num_groups=packed.num_groups,
+                          slice_map=packed.slice_map, yfold=packed.yfold,
+                          gsplit=packed.gsplit)
+
+
+def msmv_sampling_backward_plain(packed: PackedFeatures,
+                                 sampling_locations: torch.Tensor,
+                                 scale_weights: torch.Tensor,
+                                 grad_out: torch.Tensor,
+                                 want_tables: bool = True):
+    """Plain PyTorch version of the sampling backward: autograd of
+    :func:`msmv_halfrow_plain` over fp32 copies of the tables, so the table
+    gradient accumulates in fp32 and is rounded once to the table dtype (as
+    the kernel does). Returns ``(d_locations [Q, S, P, 3], d_scale_weights
+    [Q, S, P, L], per-level table gradients or None)``."""
+    tables = [t.detach().float().requires_grad_(want_tables)
+              for t in packed.tables]
+    loc = sampling_locations.detach().requires_grad_()
+    sw = scale_weights.detach().requires_grad_()
+    with torch.enable_grad():
+        out = msmv_halfrow_plain(_with_tables(packed, tables), loc, sw)
+        leaves = [loc, sw] + (tables if want_tables else [])
+        grads = torch.autograd.grad(out, leaves, grad_out.to(out.dtype))
+    d_tables = None
+    if want_tables:
+        d_tables = [gt.to(t.dtype) for gt, t in zip(grads[2:], packed.tables)]
+    return grads[0], grads[1], d_tables
+
+
+def msmv_sampling_backward(packed: PackedFeatures,
+                           sampling_locations: torch.Tensor,
+                           scale_weights: torch.Tensor,
+                           grad_out: torch.Tensor, want_tables: bool = True):
+    """The sampling op's backward on its own (what ``msmv_sampling``'s
+    autograd Function runs): CPU tensors take the plain version, CUDA
+    tensors launch ``csrc/msmv_sample_bwd.cu`` (or raise). Returns
+    ``(d_locations, d_scale_weights, table gradients or None)``."""
+    if sampling_locations.device.type == "cpu":
+        return msmv_sampling_backward_plain(
+            packed, sampling_locations, scale_weights, grad_out, want_tables)
+    return _msmv_sampling_backward_cuda(
+        packed, sampling_locations, scale_weights, grad_out, want_tables)
+
+
+msmv_sampling_backward.launches = 0  # in _msmv_sampling_backward_cuda
+
+
+class _MsmvSampling(torch.autograd.Function):
+    """Forward: the window forward (kernel or plain). Backward: the VJP of
+    the half-row primal (kernel or plain), the JAX ``custom_vjp`` pairing.
+    The level tables travel as tensor arguments so that autograd sees them;
+    their gradients come back in the tables' dtype."""
+
+    @staticmethod
+    def forward(ctx, packed, loc, sw, *tables):
+        ctx.geometry = _with_tables(packed, (None,) * len(tables))
+        ctx.save_for_backward(loc, sw, *tables)
+        if loc.device.type == "cpu":
+            return msmv_sampling_plain(packed, loc, sw)
+        return _msmv_sampling_cuda(packed, loc, sw)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        loc, sw, *tables = ctx.saved_tensors
+        want_tables = any(ctx.needs_input_grad[3:])
+        d_loc, d_sw, d_tables = msmv_sampling_backward(
+            _with_tables(ctx.geometry, tables), loc, sw,
+            grad_out.contiguous(), want_tables)
+        if d_tables is None:
+            d_tables = [None] * len(tables)
+        return (None, d_loc, d_sw, *d_tables)
+
+
 def _hybrid_forward(packed: PackedFeatures, loc: torch.Tensor,
                     sw: torch.Tensor) -> torch.Tensor:
     """Slice-major hybrid path (JAX ``_yfold_forward`` with MXU tables,
@@ -496,7 +643,9 @@ def msmv_sampling(packed: PackedFeatures,
     ``table_acc_dtype``; with ``qmajor=False`` all three are slice-major
     ``[S, Q, P, ...]``. Tables with one-hot levels (``mxu_tables``, the
     hybrid impl) take the slice-major layout only, as in JAX. CPU tensors
-    take the plain versions; CUDA tensors launch the kernels (or raise)."""
+    take the plain versions; CUDA tensors launch the kernels (or raise).
+    Differentiable on the y-fold / pair path (see the module docstring); the
+    hybrid one-hot path is forward only, as in JAX."""
     if any(t is not None for t in packed.mxu_tables):
         if qmajor:
             raise ValueError("the hybrid one-hot path takes slice-major "
@@ -507,6 +656,11 @@ def msmv_sampling(packed: PackedFeatures,
                             sampling_locations.transpose(0, 1).contiguous(),
                             scale_weights.transpose(0, 1).contiguous())
         return out.transpose(0, 1).contiguous()
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (sampling_locations, scale_weights,
+                                      *packed.tables)):
+        return _MsmvSampling.apply(packed, sampling_locations, scale_weights,
+                                   *packed.tables)
     if sampling_locations.device.type == "cpu":
         return msmv_sampling_plain(packed, sampling_locations, scale_weights)
     return _msmv_sampling_cuda(packed, sampling_locations, scale_weights)
@@ -538,7 +692,9 @@ def sample_lanes_per_point(channels: int, dtype: torch.dtype) -> int:
     return lanes_per_point(channels, dtype, "msmv_sampling")
 
 
-def _msmv_sampling_cuda(packed, loc, sw):
+def _check_cuda_operands(packed, loc, sw):
+    """What both sampling kernels ask of their operands; returns the table
+    dtype, the lanes a point takes and the int32 slice map."""
     _check_geometry(packed, loc, sw)
     dev = loc.device
     if not loc.is_cuda:
@@ -570,17 +726,30 @@ def _msmv_sampling_cuda(packed, loc, sw):
     if q * s * p * lanes >= 2 ** 31:
         raise ValueError(f"msmv_sampling: {q * s * p} points are more than "
                          "one launch takes")
-    c = packed.channels
     slice_map = (torch.arange(s, device=dev) if packed.slice_map is None
                  else packed.slice_map)
     slice_map = slice_map.to(device=dev, dtype=torch.int32).contiguous()
+    return dtype, lanes, slice_map
+
+
+def _level_arrays(packed, tables):
+    """ctypes arrays of the per-level table pointers, heights, widths and
+    modes that the C entries take."""
+    num_levels = len(packed.level_shapes)
+    return ((ctypes.c_void_p * num_levels)(*[t.data_ptr() for t in tables]),
+            (ctypes.c_int * num_levels)(*[h for h, _ in packed.level_shapes]),
+            (ctypes.c_int * num_levels)(*[w for _, w in packed.level_shapes]),
+            (ctypes.c_int * num_levels)(*[int(v) for v in packed.yfold]))
+
+
+def _msmv_sampling_cuda(packed, loc, sw):
+    dtype, lanes, slice_map = _check_cuda_operands(packed, loc, sw)
+    dev = loc.device
+    q, s, p, _ = loc.shape
+    c = packed.channels
     out = torch.empty((q, s, p, c), dtype=dtype, device=dev)
     num_levels = len(packed.level_shapes)
-    tables = (ctypes.c_void_p * num_levels)(
-        *[t.data_ptr() for t in packed.tables])
-    heights = (ctypes.c_int * num_levels)(*[h for h, _ in packed.level_shapes])
-    widths = (ctypes.c_int * num_levels)(*[w for _, w in packed.level_shapes])
-    yfold = (ctypes.c_int * num_levels)(*[int(v) for v in packed.yfold])
+    tables, heights, widths, yfold = _level_arrays(packed, packed.tables)
     lib = _lib()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -593,3 +762,81 @@ def _msmv_sampling_cuda(packed, loc, sw):
     build.check(lib, "msmv_sample", rc)
     msmv_sampling.launches += 1
     return out
+
+
+def _msmv_sampling_backward_cuda(packed, loc, sw, grad_out, want_tables=True):
+    """One launch of ``msmv_sample_backward``: ``d loc`` and ``d sw`` written
+    once per point, the table gradient scattered with fp32 atomic adds into a
+    zeroed fp32 scratch of the tables' shapes, which is then cast to the
+    table dtype (fp32 tables: the scratch is the gradient)."""
+    scratch = None
+    if want_tables:
+        scratch = [torch.zeros(t.shape, dtype=torch.float32, device=t.device)
+                   for t in packed.tables]
+    d_loc, d_sw = _launch_sampling_backward(packed, loc, sw, grad_out,
+                                            scratch)
+    if scratch is None:
+        return d_loc, d_sw, None
+    dtype = packed.tables[0].dtype
+    return d_loc, d_sw, [t.to(dtype) for t in scratch]
+
+
+def _launch_sampling_backward(packed, loc, sw, grad_out, scratch):
+    """Check the operands and launch the backward kernel on the current
+    stream. ``scratch``: per level an fp32 buffer of the table's shape that
+    the table gradient is ADDED to (the caller zeroes it), or None for no
+    table gradient. Returns ``(d_loc, d_sw)``."""
+    dtype, lanes, slice_map = _check_cuda_operands(packed, loc, sw)
+    dev = loc.device
+    q, s, p, _ = loc.shape
+    c = packed.channels
+    if tuple(grad_out.shape) != (q, s, p, c) or grad_out.dtype != dtype \
+            or grad_out.device != dev or not grad_out.is_contiguous() \
+            or grad_out.data_ptr() % _LANE_BYTES:
+        raise ValueError(
+            f"msmv_sampling backward: the output gradient must be a "
+            f"contiguous, {_LANE_BYTES}-byte aligned {dtype} "
+            f"{(q, s, p, c)} tensor on {dev}, got {grad_out.dtype} "
+            f"{tuple(grad_out.shape)}")
+    num_levels = len(packed.level_shapes)
+    if scratch is not None:
+        for t, buf in zip(packed.tables, scratch):
+            if buf.shape != t.shape or buf.dtype != torch.float32 \
+                    or buf.device != dev or not buf.is_contiguous():
+                raise ValueError("msmv_sampling backward: the scratch must "
+                                 "be contiguous fp32 of each table's shape")
+    d_loc = torch.empty_like(loc)
+    d_sw = torch.empty_like(sw)
+    tables, heights, widths, yfold = _level_arrays(packed, packed.tables)
+    grads = (ctypes.c_void_p * num_levels)(
+        *([None] * num_levels if scratch is None
+          else [t.data_ptr() for t in scratch]))
+    lib = _bwd_lib()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.msmv_sample_backward(
+            tables, grads, heights, widths, yfold, num_levels,
+            loc.data_ptr(), sw.data_ptr(), slice_map.data_ptr(),
+            grad_out.data_ptr(), d_loc.data_ptr(), d_sw.data_ptr(),
+            q * s * p, s, p, packed.num_views, packed.num_groups, c,
+            int(dtype == torch.bfloat16), int(scratch is not None), lanes,
+            stream)
+    build.check(lib, "msmv_sample_bwd", rc)
+    msmv_sampling_backward.launches += 1
+    return d_loc, d_sw
+
+
+_BWD_SIGNATURE_SET = False
+
+
+def _bwd_lib():
+    global _BWD_SIGNATURE_SET
+    lib = build.load("msmv_sample_bwd")
+    if not _BWD_SIGNATURE_SET:
+        vp, ci = ctypes.c_void_p, ctypes.c_int
+        lib.msmv_sample_backward.argtypes = [
+            vp, vp, vp, vp, vp, ci, vp, vp, vp, vp, vp, vp,
+            ctypes.c_longlong, ci, ci, ci, ci, ci, ci, ci, ci, vp]
+        lib.msmv_sample_backward.restype = ci
+        _BWD_SIGNATURE_SET = True
+    return lib

@@ -7,7 +7,9 @@ inverse of the JAX package's torch-checkpoint porting
 ``_port_sparsebev_head``): Linear kernels ``[in, out]`` are transposed, conv
 kernels go from HWIO to OIHW, ``in_proj_weight`` is transposed, and the BN
 ``scale/bias`` params and ``mean/var`` statistics become
-``weight/bias/running_mean/running_var``.
+``weight/bias/running_mean/running_var``. :func:`jax_trees_from_state_dict`
+goes back: parameters or gradients under the port's names into the JAX tree
+layout.
 """
 
 from __future__ import annotations
@@ -161,3 +163,71 @@ def state_dict_from_jax(params: Dict[str, Any],
     if "head" in params:
         _head(sd, params["head"])
     return sd
+
+
+_LEAF_STRIDE = 1 << 40      # index trees: value = leaf number * stride + element
+
+
+def _index_tree(tree, leaves):
+    """A copy of the nested dict ``tree`` whose leaves are int64 arrays that
+    number their own elements (``leaf * _LEAF_STRIDE + flat index``);
+    ``leaves`` collects each leaf's (path, shape)."""
+    out = {}
+    for key, val in tree.items():
+        if hasattr(val, "items"):
+            out[key] = _index_tree(val, leaves)
+            continue
+        shape = tuple(np.shape(val))
+        base = len(leaves) * _LEAF_STRIDE
+        out[key] = (np.arange(int(np.prod(shape)), dtype=np.int64)
+                    .reshape(shape) + base)
+        leaves.append(shape)
+    return out
+
+
+def _fill_tree(tree, leaves_flat, counter):
+    out = {}
+    for key, val in tree.items():
+        if hasattr(val, "items"):
+            out[key] = _fill_tree(val, leaves_flat, counter)
+        else:
+            out[key] = leaves_flat[counter[0]]
+            counter[0] += 1
+    return out
+
+
+def jax_trees_from_state_dict(tensors: Dict[str, torch.Tensor],
+                              params: Dict[str, Any],
+                              batch_stats: Dict[str, Any]):
+    """The inverse of :func:`state_dict_from_jax`, for any tensors under the
+    port's parameter / buffer names: parameters, or their gradients (to hold
+    ``param.grad`` against a JAX gradient tree leaf by leaf). ``params`` and
+    ``batch_stats`` give the layout (only their structure and shapes are
+    read). Returns ``(params_tree, batch_stats_tree)`` of fp32 numpy arrays;
+    a leaf whose tensor is missing from ``tensors`` (buffers, when only
+    gradients are given) comes back as ``None``.
+
+    The name and layout map is not written twice: the forward conversion
+    runs on index arrays, which tells for every element of every port tensor
+    which element of which JAX leaf it is."""
+    leaves = []
+    p_idx = _index_tree(params, leaves)
+    n_params = len(leaves)
+    s_idx = _index_tree(batch_stats, leaves)
+    index_sd = state_dict_from_jax(p_idx, s_idx)
+    flat = [None] * len(leaves)
+    for name, idx in index_sd.items():
+        if name not in tensors or tensors[name] is None:
+            continue
+        idx = idx.numpy().reshape(-1)
+        leaf = int(idx[0] // _LEAF_STRIDE)
+        if flat[leaf] is None:
+            flat[leaf] = np.zeros(int(np.prod(leaves[leaf])), np.float32)
+        flat[leaf][idx % _LEAF_STRIDE] = \
+            tensors[name].detach().float().cpu().numpy().reshape(-1)
+    flat = [None if a is None else a.reshape(shape)
+            for a, shape in zip(flat, leaves)]
+    counter = [0]
+    p_tree = _fill_tree(params, flat, counter)
+    assert counter[0] == n_params
+    return p_tree, _fill_tree(batch_stats, flat, counter)

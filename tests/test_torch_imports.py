@@ -40,8 +40,13 @@ def test_port_modules_import_without_jax():
     mods = _port_modules()
     assert "sparsebev_tpu_torch.ops.msmv_sampling" in mods
     assert "sparsebev_tpu_torch.inference" in mods
-    for op in ("msmv_onehot", "mixing", "msmv_epilogue"):
+    for op in ("msmv_onehot", "mixing", "msmv_epilogue", "autograd_guard"):
         assert f"sparsebev_tpu_torch.ops.{op}" in mods
+    # the training slice
+    for mod in ("models.augment", "bbox.match_costs", "losses.focal",
+                "losses.l1", "losses.matching", "losses.target",
+                "losses.denoising", "train.optim", "train.step"):
+        assert f"sparsebev_tpu_torch.{mod}" in mods
     code = (
         "import sys\n"
         f"sys.path.insert(0, {REPO!r})\n"
@@ -92,8 +97,8 @@ def test_chip_smoke_fails_alone(tmp_path):
 
 
 @pytest.mark.parametrize("src", ["msmv_pack", "msmv_pack_pair",
-                                 "msmv_sample", "msmv_onehot", "mixing",
-                                 "tap_fold"])
+                                 "msmv_sample", "msmv_sample_bwd",
+                                 "msmv_onehot", "mixing", "tap_fold"])
 def test_cuda_sources_declare_their_tpu_kernel_and_bound(src):
     """Each kernel source notes the TPU function it replaces, its bound and
     its design, and exports the C entry its wrapper binds."""
@@ -109,8 +114,31 @@ def test_cuda_sources_declare_their_tpu_kernel_and_bound(src):
                       "msmv_onehot_sample_level("):
             assert f"int {entry}" in text
         assert text.count("__global__") == 2
-    if src in ("msmv_sample", "msmv_onehot", "mixing"):
+    if src == "msmv_sample_bwd":
+        assert "int msmv_sample_backward(" in text
+        assert "_msmv_yfold_bwd" in text and "atomicAdd" in text
+    if src in ("msmv_pack", "msmv_pack_pair"):
+        # forward and adjoint entries, one kernel each
+        assert f"int {src}_level(" in text
+        assert f"int {src}_level_bwd(" in text
+        assert text.count("__global__") == 2
+        assert "_bwd (:" in text            # the JAX adjoint it replaces
+    if src in ("msmv_sample", "msmv_sample_bwd", "msmv_onehot", "mixing"):
         # the kernels redesigned for the H100 stay hand-written: no library
         # GEMM takes their place
         assert "cublas" not in text.lower()
         assert not re.search(r"#include\s*[<\"]cutlass/gemm/device/", text)
+
+
+def test_every_cuda_source_is_covered_and_built_by_the_smoke_run():
+    """The sources under ``csrc/`` are exactly those this file checks and
+    ``chip_smoke.py`` builds."""
+    sources = sorted(f[:-3] for f in os.listdir(os.path.join(PKG, "csrc"))
+                     if f.endswith(".cu"))
+    assert sources == sorted(["msmv_pack", "msmv_pack_pair", "msmv_sample",
+                              "msmv_sample_bwd", "msmv_onehot", "mixing",
+                              "tap_fold"])
+    with open(os.path.join(REPO, "chip_smoke.py")) as fh:
+        smoke = fh.read()
+    for src in sources:
+        assert f'"{src}"' in smoke, src
