@@ -62,14 +62,17 @@ prints its wall time):
      sampling backward and the pack adjoint are reset just before the steps
      and read just after (4 / 6 / 6 / 4 a step); every loss must be finite
      and step 4's lower than step 1's. One more step runs under
-     torch.profiler (device busy, device ops), the sampling backward is held
+     torch.profiler with operand shapes recorded (device busy, device ops,
+     and the table-gradient chain: the sampling backward kernel and every
+     operator with a table-sized operand), the sampling backward is held
      against its plain version on one layer's recorded operands and on
      uniform points (fp32 and bf16 tables) and timed beside its bound with
-     the scratch's zeroing and cast apart, step 1 is run again from the same
+     the zeroing of its gradient apart, step 1 is run again from the same
      weights with the plain versions (loss and six named gradients within
-     stated tolerances), and the two pack adjoints are held bit for bit to
-     their plain versions at the r50 training shapes and the vov99 level-0
-     frame shape;
+     stated tolerances), the reduction probe checks that the backward's
+     bf16 reductions round every add, and the two pack adjoints are held
+     bit for bit to their plain versions at the r50 training shapes and the
+     vov99 level-0 frame shape;
   7. a ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and last
      ``{"ok": true, "device": {...}}``.
 
@@ -295,21 +298,23 @@ def check_pack_pair(torch, dev, flush, bw, path):
                 bound_by="bytes", library_ms=library_ms)
 
 
-def _touched_pieces(torch, packed, loc, sw):
-    """How many table pieces of C channels (a y-fold half-row or a pair row
-    at one column) these points touch with a nonzero tap weight, each piece
-    counted once."""
+def _piece_counts(torch, packed, loc, sw):
+    """Per level, how many nonzero contributions each table piece of C
+    channels (a y-fold half-row or a pair row at one column) takes from
+    these points: one count a piece, in the order of the table viewed as
+    ``[-1, C]``."""
     from sparsebev_tpu_torch.ops.msmv_sampling import (
         _separable_slot_weights, _view_index)
     q, s, p, _ = loc.shape
     k = q * s * p
+    c = packed.channels
     x = loc[..., 0].reshape(k)
     y = loc[..., 1].reshape(k)
     view = _view_index(loc[..., 2].reshape(k), packed.num_views)
     slices = packed.slice_map.to(torch.int64)
     batch_row = slices.repeat_interleave(p).repeat(q)
     lw = sw.reshape(k, -1)
-    pieces = 0
+    counts = []
     for lvl, (h, w) in enumerate(packed.level_shapes):
         sx, ry, (wxa, wxb), (wya, wyb) = _separable_slot_weights(
             x * (w - 1), y * (h - 1), h, w)
@@ -328,8 +333,16 @@ def _touched_pieces(torch, packed, loc, sw):
             for base, wy in rows:
                 live = (wx != 0) & (wy * lw[:, lvl] != 0)
                 keys.append((base + slot * step)[live])
-        pieces += torch.unique(torch.cat(keys)).numel()
-    return pieces
+        counts.append(torch.bincount(
+            torch.cat(keys), minlength=packed.tables[lvl].numel() // c))
+    return counts
+
+
+def _touched_pieces(torch, packed, loc, sw):
+    """How many table pieces of C channels these points touch with a
+    nonzero tap weight, each piece counted once."""
+    return sum(int((n > 0).sum())
+               for n in _piece_counts(torch, packed, loc, sw))
 
 
 def _needed_bytes(torch, packed, loc, sw):
@@ -1328,14 +1341,22 @@ def check_mixing(torch, flush, bw, fp32_rate, bf16_rate, name, xms):
 
 # sampling backward kernel vs plain, d loc and d sw: fp32 sums of up to
 # 4 * C products per level in another order, scaled by up to (W - 1): 1e-4 of
-# each gradient's scale. Table gradient: fp32 atomic adds in an order that
-# changes from run to run against the plain version's fp32 index_put, both
-# rounded once to the table dtype: fp32 tables 1e-5 of the scale; bf16
-# tables one bf16 ulp of the entry (2^-7 of its value) plus 1e-5 of the
-# scale.
-SAMPLING_BWD_TOL = dict(point=1e-4,
-                        table={"float32": (1e-5, 1e-5),
-                               "bfloat16": (2.0 ** -7, 1e-5)})
+# each gradient's scale. Table gradient: both sides compute the same fp32
+# contributions (JAX's order of products) and add them in another order.
+# fp32 tables: 1e-5 of the entry plus 1e-5 of the scale. bf16 tables: every
+# add is rounded to bf16 on both sides (the kernel's vector reductions; the
+# plain version's index backward, which on the card adds one use's
+# contributions in fp32 and rounds once, and autograd's bf16 add of the
+# uses). An entry with at most two contributions gets the same bits (one
+# correctly rounded add, whatever the order). An entry with n contributions
+# differs by at most the n - 1 roundings of each side, each at most bf16's
+# unit roundoff 2^-8 times the entry's absolute sum A (the sum of
+# |contribution|, which bounds every partial sum): 2 * n * 2^-8 * A. That
+# bound reaches A itself at n = 128, where it could no longer tell a lost
+# add, so the factor is capped at 32: in sound runs on an H100 the largest
+# difference read 8.32 x 2^-8 * A, at up to 1,418 contributions an entry.
+SAMPLING_BWD_TOL = dict(point=1e-4, table=(1e-5, 1e-5), bf16_round=2.0 ** -8,
+                        bf16_cap=32.0)
 TRAIN_LEVELS = [(64, 176), (32, 88), (16, 44), (8, 22)]
 
 
@@ -1367,16 +1388,68 @@ def synthetic_train_sampling(torch, dev, dtype, q=1540, t=8, seed=5):
     return packed, loc, sw, gout
 
 
+def _check_table_grads(torch, packed, loc, sw, gout, got, want, label):
+    """The kernel's table gradients against the plain version's within
+    ``SAMPLING_BWD_TOL``; returns the largest difference."""
+    from sparsebev_tpu_torch.ops import msmv_sampling as ms
+    c = packed.channels
+    bf16 = packed.tables[0].dtype == torch.bfloat16
+    if bf16:
+        counts = _piece_counts(torch, packed, loc, sw)
+        fp32 = [t.float() for t in packed.tables]
+        abs_sum = [torch.zeros_like(t) for t in fp32]
+        ms.msmv_sampling_backward_plain(packed.replace(tables=fp32), loc,
+                                        sw.abs(), gout.abs().float(), abs_sum)
+        del fp32
+    worst, units, exact, entries = 0.0, 0.0, 0, 0
+    for lvl, (a, b) in enumerate(zip(got, want)):
+        if a.dtype != packed.tables[lvl].dtype or a.shape != b.shape:
+            fail(f"sampling backward [{label}]: level {lvl} table gradient "
+                 f"{a.dtype} {tuple(a.shape)}")
+        a32, b32 = a.float().view(-1, c), b.float().view(-1, c)
+        d = (a32 - b32).abs()
+        scale = b32.abs().max().item()
+        worst = max(worst, d.max().item())
+        if bf16:
+            n = counts[lvl][:, None].float()
+            room = SAMPLING_BWD_TOL["bf16_round"] * abs_sum[lvl].view(-1, c)
+            bad = ((n <= 2) & (d > 0)) \
+                | (d > (2 * n).clamp(max=SAMPLING_BWD_TOL["bf16_cap"]) * room)
+            units = max(units, (d / room).nan_to_num(0.0).max().item())
+            exact += int((d == 0).sum())
+            entries += d.numel()
+        else:
+            rtol, atol = SAMPLING_BWD_TOL["table"]
+            bad = d > rtol * b32.abs() + atol * scale
+        if not bool(torch.isfinite(a32).all()) or bool(bad.any()):
+            fail(f"sampling backward [{label}] level {lvl} table gradient: "
+                 f"{int(bad.sum())} entries beyond the tolerance (max "
+                 f"{d.max().item():.4g} at scale {scale:.4g})")
+        del a32, b32, d, bad
+    if bf16:
+        log(f"sampling_bwd [{label}] bf16 table gradient: {exact} of "
+            f"{entries} entries bit-equal to plain (all with at most two "
+            f"contributions are); largest difference {units:.3g} x 2^-8 of "
+            f"the entry's absolute sum (tolerance: twice its contribution "
+            f"count, up to {max(int(n.max()) for n in counts)}, times that, "
+            f"at most {SAMPLING_BWD_TOL['bf16_cap']:g} times)")
+    return worst
+
+
 def check_sampling_backward(torch, flush, bw, fp32_rate, packed, loc, sw,
                             gout, label, timed=True):
     """The sampling backward kernel on these operands against its plain
-    version (autograd of the half-row primal) within ``SAMPLING_BWD_TOL``;
-    then its time beside its bound, with the zeroing of the fp32 scratch
-    and its cast to the table dtype timed apart."""
+    version (autograd of the half-row primal over the tables in their
+    dtype) within ``SAMPLING_BWD_TOL``; then its time, adding into a
+    gradient in the table dtype, beside its bound, with the zeroing of that
+    gradient timed apart."""
     from sparsebev_tpu_torch.ops import msmv_sampling as ms
     dname = str(packed.tables[0].dtype)[6:]
-    got = ms._msmv_sampling_backward_cuda(packed, loc, sw, gout)
-    want = ms.msmv_sampling_backward_plain(packed, loc, sw, gout)
+    got, want = ([torch.zeros_like(t) for t in packed.tables]
+                 for _ in range(2))
+    got = (*ms._msmv_sampling_backward_cuda(packed, loc, sw, gout, got), got)
+    want = (*ms.msmv_sampling_backward_plain(packed, loc, sw, gout, want),
+            want)
     torch.cuda.synchronize()
     err = {}
     for name, a, b in (("d_loc", got[0], want[0]), ("d_sw", got[1], want[1])):
@@ -1389,71 +1462,98 @@ def check_sampling_backward(torch, flush, bw, fp32_rate, packed, loc, sw,
                  f"{d:.4g} at scale {scale:.4g}")
     if bool(got[0][..., 2].any()):
         fail(f"sampling backward [{label}]: the view got a gradient")
-    rtol, atol = SAMPLING_BWD_TOL["table"][dname]
-    worst = 0.0
-    for lvl, (a, b) in enumerate(zip(got[2], want[2])):
-        if a.dtype != packed.tables[lvl].dtype or a.shape != b.shape:
-            fail(f"sampling backward [{label}]: level {lvl} table gradient "
-                 f"{a.dtype} {tuple(a.shape)}")
-        a32, b32 = a.float(), b.float()
-        d = (a32 - b32).abs()
-        scale = b32.abs().max().item()
-        worst = max(worst, d.max().item())
-        bad = d > rtol * b32.abs() + atol * scale
-        if not bool(torch.isfinite(a32).all()) or bool(bad.any()):
-            fail(f"sampling backward [{label}] level {lvl} table gradient: "
-                 f"{int(bad.sum())} entries beyond the tolerance (max "
-                 f"{d.max().item():.4g} at scale {scale:.4g})")
-        del a32, b32, d, bad
-    err["d_tables"] = worst
+    err["d_tables"] = _check_table_grads(torch, packed, loc, sw, gout,
+                                         got[2], want[2], label)
+    rtol, atol = SAMPLING_BWD_TOL["table"]
     log(f"sampling_bwd [{label}] {dname}: max|kernel - plain| d_loc "
         f"{err['d_loc']:.3g}, d_sw {err['d_sw']:.3g} (tolerance "
         f"{SAMPLING_BWD_TOL['point']:g} of the scale), table gradient "
-        f"{worst:.3g} (tolerance {rtol:.3g} of the entry + {atol:g} of the "
-        "scale)")
+        f"{err['d_tables']:.3g}" + (
+            "" if dname == "bfloat16" else
+            f" (tolerance {rtol:.3g} of the entry + {atol:g} of the scale)"))
     del got, want
     torch.cuda.empty_cache()
     result = dict(max_abs_err=max(err.values()), library_ms=None)
     if not timed:
         return result
-    scratch = [torch.zeros(t.shape, dtype=torch.float32, device=t.device)
-               for t in packed.tables]
-    dtype = packed.tables[0].dtype
-    kern = time_ms(torch, lambda: ms._launch_sampling_backward(
-        packed, loc, sw, gout, scratch), 20, flush)
-    no_tables = time_ms(torch, lambda: ms._launch_sampling_backward(
-        packed, loc, sw, gout, None), 20, flush)
-    zero_ms = time_ms(torch, lambda: [t.zero_() for t in scratch], 10, flush)
-    cast_ms = time_ms(torch, lambda: [t.to(dtype) for t in scratch], 10,
-                      flush)
-    del scratch
-    torch.cuda.empty_cache()
+    grads = [torch.zeros_like(t) for t in packed.tables]
+    kern = time_ms(torch, lambda: ms._msmv_sampling_backward_cuda(
+        packed, loc, sw, gout, grads), 20, flush)
+    no_tables = time_ms(torch, lambda: ms._msmv_sampling_backward_cuda(
+        packed, loc, sw, gout), 20, flush)
+    zero_ms = time_ms(torch, lambda: [t.zero_() for t in grads], 10, flush)
     plain_ms = time_ms(torch, lambda: ms.msmv_sampling_backward_plain(
-        packed, loc, sw, gout), 3, flush, PLAIN_BUSY_CYCLES)
-    pieces = _touched_pieces(torch, packed, loc, sw)
+        packed, loc, sw, gout, grads), 3, flush, PLAIN_BUSY_CYCLES)
+    del grads
+    torch.cuda.empty_cache()
+    counts = _piece_counts(torch, packed, loc, sw)
+    pieces = sum(int((n > 0).sum()) for n in counts)
+    adds = sum(int(n.sum()) for n in counts)
+    busiest = max(int(n.max()) for n in counts)
     k, c = loc[..., 0].numel(), packed.channels
     itemsize = packed.tables[0].element_size()
     levels = len(packed.level_shapes)
-    # windows read once, g, loc / sw and their gradients, and each touched
-    # fp32 gradient piece read and written once
-    nbytes = pieces * c * itemsize + k * c * itemsize \
-        + 2 * (loc.numel() + sw.numel()) * 4 + packed.slice_map.numel() * 4 \
-        + 2 * pieces * c * 4
+    # an estimate from the inputs, not a count the kernel takes: one
+    # 16-byte reduction per lane and nonzero contribution
+    requests = adds * c * itemsize // 16
+    # each touched piece read once, and its gradient read and written once,
+    # in the table dtype; g, loc / sw and their gradients
+    nbytes = 3 * pieces * c * itemsize + k * c * itemsize \
+        + 2 * (loc.numel() + sw.numel()) * 4 + packed.slice_map.numel() * 4
     flops = k * levels * c * 16
     bound_ms = max(nbytes / bw, flops / fp32_rate) * 1e3
     bound_by = "bytes" if nbytes / bw >= flops / fp32_rate else "operations"
-    scratch_mb = sum(t.numel() for t in packed.tables) * 4 / 1e6
+    grad_mb = sum(t.numel() for t in packed.tables) * itemsize / 1e6
     log(f"sampling_bwd [{label}] {dname}: K={k} points, {levels} levels: "
         f"kernel {kern:.4f} ms ({no_tables:.4f} ms without the table "
         f"gradient; plain {plain_ms:.2f} ms), bound {bound_ms:.4f} ms by "
         f"{bound_by} ({nbytes / 1e6:.1f} MB: {pieces} touched pieces of "
-        f"{c} channels); beside the kernel, zeroing the {scratch_mb:.0f} MB "
-        f"fp32 scratch {zero_ms:.4f} ms and its cast to {dname} "
-        f"{cast_ms:.4f} ms")
+        f"{c} channels); beside the kernel, zeroing the {grad_mb:.0f} MB "
+        f"{dname} gradient {zero_ms:.4f} ms (once a step)")
+    log(f"sampling_bwd [{label}] {dname}: {adds} contributions into "
+        f"{pieces} pieces ({adds / pieces:.2f} a piece, at most {busiest}): "
+        f"about {requests / 1e6:.1f}M 16-byte reductions (estimated from "
+        f"the inputs), {requests / (kern - no_tables) / 1e6:.1f}G a second "
+        "over the time the table gradient adds")
     result.update(ms=kern, plain_ms=plain_ms, bound_ms=bound_ms,
                   bound_by=bound_by, no_table_grad_ms=no_tables,
-                  scratch_zero_ms=zero_ms, scratch_cast_ms=cast_ms)
+                  grad_zero_ms=zero_ms)
     return result
+
+
+def check_reduction_rounding(torch, dev):
+    """The sampling backward's reductions round every add as JAX's bf16
+    scatter-add does: eight points on one pixel of one view each add the
+    same value into one entry of a gradient pre-filled with 256, in whatever
+    order their reductions land. Adding 1.0: 256 + 1 is a tie that rounds
+    to even, so in bf16 every add leaves 256, where an fp32 sum rounded once
+    would give 264; with fp32 tables the entry reads 264. Adding 2.0: every
+    sum up to 272 is a bf16 number, so the entry reads 272 in bf16 (a
+    reduction that adds nothing would leave 256). Every other entry keeps
+    its 256 (zero weights add nothing)."""
+    from sparsebev_tpu_torch.ops import msmv_sampling as ms
+    h = w = 5                        # pixel = loc * 4: exact in fp32
+    n, c, k = 2, 64, 8
+    loc = torch.tensor([0.5, 0.25, 0.0], device=dev).repeat(k, 1, 1, 1)
+    sw = torch.ones((k, 1, 1, 1), device=dev)
+    for dtype, add, want in ((torch.bfloat16, 1.0, 256.0),
+                             (torch.bfloat16, 2.0, 272.0),
+                             (torch.float32, 1.0, 264.0)):
+        table = torch.ones((n * h, w + 1, 2 * c), device=dev, dtype=dtype)
+        packed = ms.PackedFeatures([table], 1, n, [(h, w)], c)
+        grad = torch.full_like(table, 256.0)
+        gout = torch.full((k, 1, 1, c), add, device=dev, dtype=dtype)
+        ms._msmv_sampling_backward_cuda(packed, loc, sw, gout, [grad])
+        torch.cuda.synchronize()
+        entry = grad.view(n, h, w + 1, 2 * c)[0, 1, 2, :c]
+        others = int((grad != 256.0).sum()) - int((entry != 256.0).sum())
+        if not bool((entry == want).all()) or others:
+            fail(f"reduction probe ({dtype}): 256 + 8 x {add} read "
+                 f"{entry.float().unique().tolist()} ({others} other "
+                 f"entries changed), {want} expected")
+    log("reduction probe: 256 + 8 x 1.0 into one entry reads 256 in bf16 "
+        "(each add rounded) and 264 in fp32, as JAX's scatter-add gives; "
+        "256 + 8 x 2.0 reads 272 in bf16")
 
 
 def check_pack_bwd(torch, dev, flush, bw, levels=TRAIN_LEVELS, m=48):
@@ -1578,13 +1678,14 @@ def make_train_batch(torch, dev, cfg, seed=0):
         gt_boxes=boxes, gt_labels=labels, gt_mask=mask).items()}
 
 
-def profile_call(torch, fn):
-    """One call of ``fn`` under torch.profiler: device ops, device busy ms
-    and the host wall ms of the profiled call."""
+def profile_call(torch, fn, record_shapes=False):
+    """One call of ``fn`` under torch.profiler: device ops, device busy ms,
+    the host wall ms of the profiled call, the top device rows and the
+    profile itself."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=record_shapes) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
@@ -1594,34 +1695,66 @@ def profile_call(torch, fn):
     top = sorted(device, key=_dev_us, reverse=True)[:8]
     return (sum(e.count for e in device),
             sum(_dev_us(e) for e in device) / 1e3, wall,
-            [(e.key[:60], _dev_us(e) / 1e3, e.count) for e in top])
+            [(e.key[:60], _dev_us(e) / 1e3, e.count) for e in top], prof)
 
 
-def training_phase(torch, dev, flush, bw, fp32_rate):
-    """The r50 training step at full width: seeded weights, a seeded
-    synthetic batch, ``TRAIN_STEPS`` optimizer steps on the same batch with
-    the same draws (so only the updates change the loss). Returns the launch
-    counts of the steps and the sampling backward's numbers on one layer's
-    recorded operands."""
+def table_gradient_chain(prof, table_numels):
+    """The rows of a profiled training step (``record_shapes``) that make
+    the packed tables' gradient: the sampling backward kernel and every
+    ``aten`` operator with an operand of a table's size (zeroing, adds,
+    casts, copies), as (name, device ms, calls); and apart, the pack
+    adjoint kernels, which read the finished gradient once a level."""
+    import math
+    chain, adjoint = [], []
+    for e in prof.key_averages(group_by_input_shape=True):
+        dev_ms = _dev_us(e) / 1e3
+        if dev_ms <= 0:
+            continue
+        if str(e.device_type).endswith("CUDA"):
+            if "msmv_sample_bwd_kernel" in e.key:
+                chain.append(("msmv_sample_bwd_kernel", dev_ms, e.count))
+            elif "pack" in e.key and "_bwd_kernel" in e.key:
+                adjoint.append((e.key[:48], dev_ms, e.count))
+            continue
+        shapes = [sh for sh in (e.input_shapes or [])
+                  if sh and all(isinstance(v, int) for v in sh)]
+        if e.key.startswith("aten::") and any(
+                math.prod(sh) in table_numels for sh in shapes):
+            chain.append((f"{e.key} {shapes}", dev_ms, e.count))
+    return chain, adjoint
+
+
+def log_table_gradient_chain(prof, table_numels, label):
+    chain, adjoint = table_gradient_chain(prof, table_numels)
+    total = sum(ms_ for _, ms_, _ in chain)
+    calls = sum(n for _, _, n in chain)
+    log(f"{label}: table-gradient chain of the profiled step: {total:.3f} ms "
+        f"in {calls} device calls (the sampling backward kernel and every "
+        "operator with a table-sized operand)")
+    for key, dev_ms, count in chain + adjoint:
+        log(f"{label}:   {dev_ms:9.3f} ms {count:4d} calls  {key}")
+    return total
+
+
+def _train_harness(torch, dev):
+    """The r50 training config at full width, a seeded batch and two
+    closures: ``new_state()`` (seeded weights, AdamW) and ``run_step(state,
+    record=None)``, one step with the step's generator re-seeded
+    (``record`` collects the probed gradients just before the clip). Also
+    the element counts of the step's packed tables: each level's images (T
+    frames of 6 views) of the FPN's C channels, y-fold
+    (``[M, H, G, W+1, 2Cg]``) or pair (``[M, H, G, W+1, Cg]``)."""
     from sparsebev_tpu_torch.config import Config
     from sparsebev_tpu_torch.models.detector import build_detector
-    from sparsebev_tpu_torch.ops import msmv_pack
-    from sparsebev_tpu_torch.ops import msmv_sampling as ms
     from sparsebev_tpu_torch.train import optim, step as tstep
 
     config = os.path.join(HERE, "configs/r50_nuimg_704x256.py")
     cfg = Config.fromfile(config)
-    head = cfg.model["pts_bbox_head"]
     batch = make_train_batch(torch, dev, cfg)
     train_step = tstep.train_step_from_config(cfg)
-    dn = head["query_denoising_groups"] * cfg.max_gt
-    log(f"training [r50]: {config} (B=1, Q={head['num_query']} + {dn} "
-        f"denoising queries, T={head['num_frames']}, "
-        f"{tuple(batch['img'].shape[2:4])} images, {head['num_layers']} "
-        f"layers, {cfg.model['compute_dtype']} compute / fp32 parameters, "
-        f"with_cp={cfg.model['img_backbone'].get('with_cp')}, "
-        f"{int(batch['gt_mask'].sum())} of {cfg.max_gt} ground-truth slots "
-        f"valid), {TRAIN_STEPS} steps on one batch")
+    m, c = batch["img"].shape[1], cfg.model["img_neck"]["out_channels"]
+    table_numels = {m * h * (w + 1) * c * k for h, w in TRAIN_LEVELS
+                    for k in (1, 2)}
 
     def new_state():
         model = build_detector(cfg, device=dev, seed=0)
@@ -1630,8 +1763,6 @@ def training_phase(torch, dev, flush, bw, fp32_rate):
         return tstep.create_train_state(model, opt, sched)
 
     def run_step(state, record=None):
-        """One step with the step's generator re-seeded; ``record`` collects
-        the probed gradients just before the clip."""
         gen = torch.Generator(device=dev).manual_seed(11)
         real_clip = tstep.clip_by_global_norm
 
@@ -1649,6 +1780,30 @@ def training_phase(torch, dev, flush, bw, fp32_rate):
             tstep.clip_by_global_norm = real_clip
         return metrics
 
+    return config, cfg, batch, new_state, run_step, table_numels
+
+
+def training_phase(torch, dev, flush, bw, fp32_rate):
+    """The r50 training step at full width: seeded weights, a seeded
+    synthetic batch, ``TRAIN_STEPS`` optimizer steps on the same batch with
+    the same draws (so only the updates change the loss). Returns the launch
+    counts of the steps and the sampling backward's numbers on one layer's
+    recorded operands."""
+    from sparsebev_tpu_torch.ops import msmv_pack
+    from sparsebev_tpu_torch.ops import msmv_sampling as ms
+
+    config, cfg, batch, new_state, run_step, table_numels = _train_harness(
+        torch, dev)
+    head = cfg.model["pts_bbox_head"]
+    dn = head["query_denoising_groups"] * cfg.max_gt
+    log(f"training [r50]: {config} (B=1, Q={head['num_query']} + {dn} "
+        f"denoising queries, T={head['num_frames']}, "
+        f"{tuple(batch['img'].shape[2:4])} images, {head['num_layers']} "
+        f"layers, {cfg.model['compute_dtype']} compute / fp32 parameters, "
+        f"with_cp={cfg.model['img_backbone'].get('with_cp')}, "
+        f"{int(batch['gt_mask'].sum())} of {cfg.max_gt} ground-truth slots "
+        f"valid), {TRAIN_STEPS} steps on one batch")
+
     counters = dict(pack=msmv_pack.pack_level, sampling=ms.msmv_sampling,
                     sampling_bwd=ms.msmv_sampling_backward,
                     pack_bwd=msmv_pack.pack_level_bwd)
@@ -1659,12 +1814,13 @@ def training_phase(torch, dev, flush, bw, fp32_rate):
     recorded = {}
     backward = ms._msmv_sampling_backward_cuda
 
-    def record_backward(packed, loc, sw, gout, want_tables=True):
+    def record_backward(packed, loc, sw, gout, grads=None):
         if "operands" not in recorded:
-            tables = [t.detach() for t in packed.tables]
-            recorded["operands"] = (ms._with_tables(packed, tables),
-                                    loc.detach(), sw.detach(), gout.clone())
-        return backward(packed, loc, sw, gout, want_tables)
+            recorded["operands"] = (
+                packed.replace(tables=[t.detach() for t in packed.tables],
+                               table_grads=None),
+                loc.detach(), sw.detach(), gout.clone())
+        return backward(packed, loc, sw, gout, grads)
 
     kernel_grads, times, losses, norms = {}, [], [], []
     for c in counters.values():
@@ -1711,12 +1867,15 @@ def training_phase(torch, dev, flush, bw, fp32_rate):
         f"smoke timing); {n_params / 1e6:.1f}M parameters; peak memory "
         f"{peak / 2**30:.2f} GiB above {held / 2**30:.2f} GiB held by "
         "earlier phases")
-    ops, busy, wall, top = profile_call(torch, lambda: run_step(state))
-    log(f"training [r50]: one more step under torch.profiler: wall "
-        f"{wall:.1f} ms, device busy {busy:.1f} ms "
+    ops, busy, wall, top, prof = profile_call(
+        torch, lambda: run_step(state), record_shapes=True)
+    log(f"training [r50]: one more step under torch.profiler (operand "
+        f"shapes recorded): wall {wall:.1f} ms, device busy {busy:.1f} ms "
         f"({100 * busy / wall:.1f}%), {ops} device ops")
     for key, dev_ms, count in top:
         log(f"training [r50]: {dev_ms:9.3f} ms {count:5d} calls  {key}")
+    chain_ms = log_table_gradient_chain(prof, table_numels, "training [r50]")
+    del prof
 
     # the sampling backward on one layer's recorded operands
     packed, loc, sw, gout = recorded["operands"]
@@ -1749,15 +1908,16 @@ def training_phase(torch, dev, flush, bw, fp32_rate):
             fail(f"training: gradient of {k} differs between the kernel "
                  "and the plain step")
     return launches, bwd, dict(ms_per_step=steady, device_busy_ms=busy,
-                               device_ops=ops, peak_gib=peak / 2**30)
+                               device_ops=ops, peak_gib=peak / 2**30,
+                               table_grad_chain_ms=chain_ms)
 
 
 def bringup_train_kernels():
     """Build the three training kernels alone, print what ptxas reports for
-    the sampling backward, and hold each against its plain version at the
-    r50 / vov99 shapes on synthetic operands: the short first run of a new
-    or edited kernel (``python3 -c "import chip_smoke;
-    chip_smoke.bringup_train_kernels()"``)."""
+    the sampling backward, run the reduction probe and hold each kernel
+    against its plain version at the r50 / vov99 shapes on synthetic
+    operands: the short first run of a new or edited kernel (``python3 -c
+    "import chip_smoke; chip_smoke.bringup_train_kernels()"``)."""
     import torch
     sys.path.insert(0, HERE)
     from sparsebev_tpu_torch.kernels import build
@@ -1769,6 +1929,7 @@ def bringup_train_kernels():
         log(f"ptxas[msmv_sample_bwd]: {r}")
     bw, fp32_rate, _ = peaks(name)
     flush = torch.empty(64 * 2**20, dtype=torch.int32, device=dev)
+    check_reduction_rounding(torch, dev)
     check_pack_bwd(torch, dev, flush, bw)
     check_pack_pair_bwd(torch, dev, flush, bw)
     for dtype in (torch.float32, torch.bfloat16):
@@ -1778,6 +1939,42 @@ def bringup_train_kernels():
                                 timed=dtype == torch.bfloat16)
         del operands
         torch.cuda.empty_cache()
+
+
+def step_profile(root=HERE):
+    """The r50 training step's device profile for the checkout at ``root``
+    (this one by default): builds the training kernels, runs two steps,
+    profiles a third with operand shapes recorded and prints the wall and
+    device time, device ops, peak memory and the table-gradient chain. To
+    compare two checkouts on one card, run it once for each, one process
+    each: ``python3 -c "import chip_smoke; chip_smoke.step_profile('DIR')"``.
+    """
+    import torch
+    sys.path.insert(0, os.path.abspath(root))
+    from sparsebev_tpu_torch.kernels import build
+    dev = torch.device("cuda", 0)
+    label = f"step_profile [{root}]"
+    log(f"{label}: {nvidia_smi_line()}")
+    build.build_all(["msmv_pack", "msmv_pack_pair", "msmv_sample",
+                     "msmv_sample_bwd"])
+    _, _, _, new_state, run_step, table_numels = _train_harness(torch, dev)
+    state = new_state()
+    torch.cuda.reset_peak_memory_stats(dev)
+    held = torch.cuda.memory_allocated(dev)
+    times = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = float(run_step(state)["loss"])
+        times.append((time.perf_counter() - t0) * 1e3)
+    peak = torch.cuda.max_memory_allocated(dev) - held
+    ops, busy, wall, _, prof = profile_call(
+        torch, lambda: run_step(state), record_shapes=True)
+    log(f"{label}: ms/step {times[0]:.1f}, {times[1]:.1f} (host clock); "
+        f"loss at step 2 {loss:.4f}; peak memory {peak / 2**30:.2f} GiB "
+        f"above the weights; one more step under torch.profiler: wall "
+        f"{wall:.1f} ms, device busy {busy:.1f} ms, {ops} device ops")
+    log_table_gradient_chain(prof, table_numels, label)
 
 
 KERNELS = dict(
@@ -1963,6 +2160,7 @@ def main() -> int:
     (launches["r50 train"], measured["sampling_bwd"]["r50 train recorded"],
      _) = training_phase(torch, dev, flush, bw, fp32_rate)
     # (no inference_mode here: the plain backward is autograd)
+    check_reduction_rounding(torch, dev)
     measured["sampling_bwd"]["r50 train uniform"] = check_sampling_backward(
         torch, flush, bw, fp32_rate,
         *synthetic_train_sampling(torch, dev, torch.bfloat16),

@@ -14,9 +14,11 @@
 //   columns of row ry+1 (y-fold: the second half of the same table row; pair:
 //   the next image row, clamped) that the primal reads as
 //   val = wxa * (wya*A0 + wyb*A1) + wxb * (wya*B0 + wyb*B1), out += lw * val:
-//   (a) table gradient: dA0 += g * (wxa*lw) * wya, dA1 += g * (wxa*lw) * wyb,
-//       dB0 += g * (wxb*lw) * wya, dB1 += g * (wxb*lw) * wyb (pair levels:
-//       g * ((wx*wy) * lw)), skipped where the weight is 0;
+//   (a) table gradient: dA0 += (g * (wxa*lw)) * wya, dA1 += (g * (wxa*lw)) *
+//       wyb, dB0 += (g * (wxb*lw)) * wya, dB1 += (g * (wxb*lw)) * wyb (pair
+//       levels: g * ((wx*wy) * lw)), the products in JAX's order, each
+//       contribution rounded to the table dtype and added in the table dtype,
+//       skipped where the weight is 0;
 //   (b) d sw[k, l] = g . val;
 //   (c) d loc[k, x] += (w-1) * d lx and d loc[k, y] += (h-1) * d ly, from the
 //       derivatives of the piecewise-linear slot weights: floor, clip and the
@@ -27,14 +29,29 @@
 // All arithmetic is fp32 (the primal is fp32 whatever the table dtype); g and
 // the tables are read in the table dtype (bf16 or fp32).
 //
+// The table gradient follows the JAX VJP's rounding. There the adjoint of
+// take(...).astype(float32) rounds every contribution to bf16 and the
+// scatter-add adds in bf16, one rounding per add. Here each lane rounds its
+// eight contributions to bf16 (round to nearest even), packs them into four
+// bf16x2 and issues one red.global.add.noftz.v4.bf16x2: one 16-byte request
+// that adds them into the gradient in the table dtype, each add rounded to
+// bf16. Only the order of the adds differs from JAX's, and from run to run.
+// fp32 tables take red.global.add.v4.f32 into the fp32 gradient. Either way
+// the caller's gradient buffer is added to, with no scratch and no cast: the
+// buffer may be shared by every sampling call of a training step.
+//
 // Bound: bytes. Per call at flagship r50 training (Q = 900 + 640, S = 32,
-// P = 4: K = 197,120 points, 4 levels, C = 64, bf16): the forward's windows
-// once more (404 MB if none is shared), g 25 MB, loc / sw and their
-// gradients 11 MB, and the table-gradient pieces that these points touch,
-// read and written once each in fp32 (at most 2 x 808 MB if none is shared).
-// chip_smoke.py computes the bound from the pieces its points really touch.
-// The zeroing of the fp32 scratch (1.48 GB at r50, T = 8) and its cast to the
-// table dtype happen outside the kernel and are timed apart.
+// P = 4: K = 197,120 points, 4 levels, C = 64, bf16): the table pieces that
+// these points touch with a nonzero weight, each read once in bf16 for the
+// point gradients and read and written once in bf16 for the table gradient
+// (6 bytes a channel), plus g 25 MB and loc / sw and their gradients 11 MB.
+// For one recorded r50 layer (876,507 touched pieces) that is 372 MB, 0.111
+// ms at 3.35 TB/s; chip_smoke.py computes it from the pieces its points
+// really touch. What sets the pace instead is the reductions: without the
+// table gradient the kernel reads at the forward's rate, and the 16-byte
+// reductions, several into each touched piece, take the rest of its time
+// (PERF.md). Binning points by table row, so that a block sums a piece's
+// contributions before one reduction, is the next lever.
 //
 // Design: the forward's lane layout. A group of lanes shares a point, 16
 // bytes of a table row per lane (C = 64: 8 lanes in bf16, 16 in fp32), so the
@@ -44,10 +61,9 @@
 // lanes with xor shuffles, after which every lane of the group holds the
 // point's d sw, d lx and d ly and the group's first lane stores them: d loc
 // and d sw belong to one point each and need no atomics. The table gradient
-// does: points share pieces, so each lane adds its run into an fp32 scratch
-// of the tables' shapes with vector atomics (red.global.add.v4.f32: one
-// request per 16 bytes). The sum order varies from run to run, so the result
-// is compared with the plain version within a tolerance, not bit for bit. The
+// does: points share pieces, so each lane adds its run with one vector
+// reduction a piece. The sum order varies from run to run, so the result is
+// compared with the plain version within a tolerance, not bit for bit. The
 // level count is a template parameter and the level loop is unrolled, so the
 // table pointers are read from the kernel parameters at fixed offsets (no
 // stack frame). Whole warps run to the end (no early return before the
@@ -65,7 +81,7 @@ constexpr int kThreads = 128;
 
 struct Levels {
   const void* table[kMaxLevels];
-  float* grad[kMaxLevels];  // fp32 scratch of the table's shape, or null
+  void* grad[kMaxLevels];  // gradient in the table dtype, or null
   int h[kMaxLevels];
   int w[kMaxLevels];
   int yfold[kMaxLevels];  // 1: rows [w+1, 2c] (y-fold), 0: [w+1, c] (pair)
@@ -106,25 +122,37 @@ __device__ __forceinline__ uint4 load16(const char* p) {
   return __ldg(reinterpret_cast<const uint4*>(p));
 }
 
-// dst[0:4] += v[0:4] * wgt, dst 16-byte aligned
-__device__ __forceinline__ void add4(float* dst, const float* v, float wgt) {
-#if CUDART_VERSION >= 12010
+// dst[0:4] += (v[0:4] * s) * t in fp32: one 16-byte vector reduction
+// (red.global.add.v4.f32), dst 16-byte aligned; skipped where s * t is 0
+__device__ __forceinline__ void add_run(float* dst, const float (&v)[4],
+                                        float s, float t) {
+  if (s == 0.f || t == 0.f) return;
   atomicAdd(reinterpret_cast<float4*>(dst),
-            make_float4(v[0] * wgt, v[1] * wgt, v[2] * wgt, v[3] * wgt));
-#else
-  atomicAdd(dst + 0, v[0] * wgt);
-  atomicAdd(dst + 1, v[1] * wgt);
-  atomicAdd(dst + 2, v[2] * wgt);
-  atomicAdd(dst + 3, v[3] * wgt);
-#endif
+            make_float4((v[0] * s) * t, (v[1] * s) * t, (v[2] * s) * t,
+                        (v[3] * s) * t));
 }
 
-template <int kVec>
-__device__ __forceinline__ void add_run(float* dst, const float (&v)[kVec],
-                                        float wgt) {
-  if (wgt == 0.f) return;
+// two fp32 values rounded to bf16 (nearest even) and packed, lo first
+__device__ __forceinline__ unsigned bf16x2(float lo, float hi) {
+  const __nv_bfloat162 r = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const unsigned*>(&r);
+}
+
+// dst[0:8] += bf16((v[0:8] * s) * t), each add rounded to bf16: one 16-byte
+// vector reduction (red.global.add.noftz.v4.bf16x2, sm_90), dst 16-byte
+// aligned; skipped where s * t is 0
+__device__ __forceinline__ void add_run(__nv_bfloat16* dst,
+                                        const float (&v)[8], float s,
+                                        float t) {
+  if (s == 0.f || t == 0.f) return;
+  unsigned r[4];
 #pragma unroll
-  for (int j = 0; j < kVec; j += 4) add4(dst + j, v + j, wgt);
+  for (int j = 0; j < 4; ++j)
+    r[j] = bf16x2((v[2 * j] * s) * t, (v[2 * j + 1] * s) * t);
+  asm volatile("red.global.add.noftz.v4.bf16x2 [%0], {%1, %2, %3, %4};"
+               ::"l"(__cvta_generic_to_global(dst)), "r"(r[0]), "r"(r[1]),
+               "r"(r[2]), "r"(r[3])
+               : "memory");
 }
 
 template <int kVec>
@@ -261,19 +289,19 @@ __global__ void __launch_bounds__(kThreads)
     if (has_point && lane == 0) dsw[(size_t)k * L + l] = d_lw;
 
     if (want_tables && live) {
-      float* gbase = lv.grad[l];
-      if (yf) {
+      T* gbase = static_cast<T*>(lv.grad[l]);
+      if (yf) {  // (g * (wx*lw)) * wy, the order of the JAX transpose
         const float ca = wxa * lw;
         const float cbw = wxb * lw;
-        add_run<kVec>(gbase + top, gr, ca * wya);
-        add_run<kVec>(gbase + top + stepx, gr, cbw * wya);
-        add_run<kVec>(gbase + bot, gr, ca * wyb);
-        add_run<kVec>(gbase + bot + stepx, gr, cbw * wyb);
-      } else {
-        add_run<kVec>(gbase + top, gr, wxa * wya * lw);
-        add_run<kVec>(gbase + top + stepx, gr, wxb * wya * lw);
-        add_run<kVec>(gbase + bot, gr, wxa * wyb * lw);
-        add_run<kVec>(gbase + bot + stepx, gr, wxb * wyb * lw);
+        add_run(gbase + top, gr, ca, wya);
+        add_run(gbase + top + stepx, gr, cbw, wya);
+        add_run(gbase + bot, gr, ca, wyb);
+        add_run(gbase + bot + stepx, gr, cbw, wyb);
+      } else {   // g * ((wx*wy) * lw)
+        add_run(gbase + top, gr, wxa * wya * lw, 1.f);
+        add_run(gbase + top + stepx, gr, wxb * wya * lw, 1.f);
+        add_run(gbase + bot, gr, wxa * wyb * lw, 1.f);
+        add_run(gbase + bot + stepx, gr, wxb * wyb * lw, 1.f);
       }
     }
   }
@@ -327,8 +355,8 @@ extern "C" {
 // tables/grads/heights/widths/yfold: host arrays of num_levels entries. Each
 // table is [rows, w+1, 2c] (yfold 1) or [rows, w+1, c] (yfold 0) contiguous
 // in the table dtype, 16-byte aligned, with rows * (w+1) below 2^31; each
-// grad is a zeroed fp32 buffer of its table's shape (read only when
-// want_tables is set). loc [K, 3] and sw [K, L] fp32, slice_map [s] int32,
+// grad is a buffer of its table's shape and dtype, 16-byte aligned, that the
+// table gradient is added to (read only when want_tables is set). loc [K, 3] and sw [K, L] fp32, slice_map [s] int32,
 // gout [K, c] in the table dtype, 16-byte aligned; dloc [K, 3] and dsw
 // [K, L] fp32 are written in full. K = num_points = Q * s * p. c, itemsize
 // and lanes_per_point as in msmv_sample_forward.
@@ -359,7 +387,7 @@ int msmv_sample_backward(const void* const* tables, void* const* grads,
                         (reinterpret_cast<uintptr_t>(grads[l]) & 15) != 0))
       return (int)cudaErrorInvalidValue;
     lv.table[l] = tables[l];
-    lv.grad[l] = want_tables ? static_cast<float*>(grads[l]) : nullptr;
+    lv.grad[l] = want_tables ? grads[l] : nullptr;
     lv.h[l] = heights[l];
     lv.w[l] = widths[l];
     lv.yfold[l] = yfold[l] != 0;

@@ -20,6 +20,36 @@ Both packs are ``torch.autograd.Function``s: the gradient of a table goes
 back to the pyramid through the adjoint kernel (CUDA) or its plain version
 (CPU), as the JAX ``custom_vjp`` does.
 
+One table gradient a step (:class:`TableGrad`). The decoder's layers all
+sample the same packed tables, so autograd would make one table-sized
+gradient per layer and add them up, each add reading two tables and writing
+one. Instead a pack given a :class:`TableGrad` (``pack_mlvl_feats_grouped``
+gives one to every level it packs in a graph) shares it with the sampling
+op through ``PackedFeatures.table_grads``: the first sampling backward of a
+backward pass allocates the buffer, zeroed, in the table dtype; every
+sampling backward of that pass adds its table gradient into it (the
+kernel's vector reductions, or the plain gradient with one add in the table
+dtype) and hands autograd no gradient for the table; the pack's backward,
+which autograd runs only after all consumers of the table, takes the
+buffer, adds any gradient that other consumers gave the table, runs the
+adjoint and releases it. In
+bf16 this is the sum JAX takes of the per-layer cotangents, each added in
+bf16; on the card the layers' reductions interleave, so only the order of
+the adds differs. The buffer is tagged with the backward pass that made it:
+a pass that stopped before the pack (``torch.autograd.grad`` for the points
+alone) leaves a stale buffer that the next pass does not read.
+
+Remat. A non-reentrant ``torch.utils.checkpoint`` (the backbone's
+``with_cp``) runs the original sampling node's backward in the outer pass:
+nothing changes. A reentrant one recomputes the forward inside the outer
+pass and runs its backward in a nested pass; a sampling call whose forward
+ran inside a backward pass therefore hands its table gradient to autograd
+(``_MsmvSampling``), and a pack backward in a nested pass adds that to its
+input's gradient and leaves the outer pass's buffer for the outer pass's
+pack backward. Both are summed into the pyramid's gradient, as autograd
+sums them without the buffer (``tests/test_torch_train_ops.py`` checks
+both kinds of checkpoint).
+
 Layout: ``feat [M, H, W, C] -> [M, H, G, W+1, 2Cg]``. Row h of group g holds
 ``feat[h, :, g] ‖ feat[h+1, :, g]`` on the channel axis (row H-1's second
 half is zeros) plus a zero guard column at x = W, so one (2 columns x 2Cg)
@@ -76,24 +106,74 @@ def pack_level_bwd_plain(dt: torch.Tensor, num_groups: int) -> torch.Tensor:
     return (d0 + d1).permute(0, 1, 3, 2, 4).reshape(m, h, w, g * cg)
 
 
+class TableGrad:
+    """The gradient of one packed table, summed over the sampling calls of
+    one backward pass (see the module docstring)."""
+
+    def __init__(self):
+        self._buf = None
+        self._task = None
+
+    def accumulator(self, table: torch.Tensor) -> torch.Tensor:
+        """The buffer the sampling backward adds ``table``'s gradient to:
+        zeros of the table's shape and dtype at the first call of a backward
+        pass, the same buffer at every later call of that pass."""
+        task = torch._C._current_graph_task_id()
+        if self._buf is None or self._task != task:
+            self._buf = torch.zeros(table.shape, dtype=table.dtype,
+                                    device=table.device)
+            self._task = task
+        return self._buf
+
+    def take(self, dt, shape):
+        """The summed gradient as ``shape``, with ``dt`` (autograd's own
+        gradient of the table, or None) added; None when neither exists.
+        Releases a buffer of this backward pass; one of another pass is
+        left alone (see the module docstring)."""
+        if self._buf is None \
+                or self._task != torch._C._current_graph_task_id():
+            return dt
+        buf = self._buf.view(shape)
+        self._buf = self._task = None
+        return buf if dt is None else buf.add_(dt)
+
+
+def _table_gradient(ctx, dt):
+    """A pack backward's table gradient: ``dt`` plus what its
+    :class:`TableGrad` holds, or None."""
+    if ctx.table_grad is None:
+        return dt
+    return ctx.table_grad.take(dt, ctx.out_shape)
+
+
 class _PackLevel(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, feat, num_groups):
+    def forward(ctx, feat, num_groups, table_grad):
         ctx.num_groups = num_groups
+        ctx.table_grad = table_grad
+        ctx.set_materialize_grads(False)
         if feat.device.type == "cpu":
-            return pack_level_plain(feat, num_groups)
-        return _pack_level_cuda(feat, num_groups)
+            out = pack_level_plain(feat, num_groups)
+        else:
+            out = _pack_level_cuda(feat, num_groups)
+        ctx.out_shape = out.shape
+        return out
 
     @staticmethod
     def backward(ctx, dt):
-        return pack_level_bwd(dt, ctx.num_groups), None
+        dt = _table_gradient(ctx, dt)
+        if dt is None:
+            return None, None, None
+        return pack_level_bwd(dt, ctx.num_groups), None, None
 
 
-def pack_level(feat: torch.Tensor, num_groups: int) -> torch.Tensor:
+def pack_level(feat: torch.Tensor, num_groups: int,
+               table_grad: TableGrad = None) -> torch.Tensor:
     """``[M, H, W, C] -> [M, H, G, W+1, 2Cg]``, differentiable. A CPU tensor
     takes the plain versions; a CUDA tensor launches the kernels (or
-    raises)."""
-    return _PackLevel.apply(feat, num_groups)
+    raises). ``table_grad``: where the sampling backward sums the table's
+    gradient (module docstring)."""
+    return _PackLevel.apply(feat, num_groups, table_grad)
 
 
 pack_level.launches = 0  # forward launches (counted in _pack_level_cuda)
@@ -134,22 +214,31 @@ def pack_level_pair_bwd_plain(dt: torch.Tensor,
 
 class _PackLevelPair(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, feat, num_groups):
+    def forward(ctx, feat, num_groups, table_grad):
         ctx.num_groups = num_groups
+        ctx.table_grad = table_grad
+        ctx.set_materialize_grads(False)
         if feat.device.type == "cpu":
-            return pack_level_pair_plain(feat, num_groups)
-        return _pack_level_pair_cuda(feat, num_groups)
+            out = pack_level_pair_plain(feat, num_groups)
+        else:
+            out = _pack_level_pair_cuda(feat, num_groups)
+        ctx.out_shape = out.shape
+        return out
 
     @staticmethod
     def backward(ctx, dt):
-        return pack_level_pair_bwd(dt, ctx.num_groups), None
+        dt = _table_gradient(ctx, dt)
+        if dt is None:
+            return None, None, None
+        return pack_level_pair_bwd(dt, ctx.num_groups), None, None
 
 
-def pack_level_pair(feat: torch.Tensor, num_groups: int) -> torch.Tensor:
+def pack_level_pair(feat: torch.Tensor, num_groups: int,
+                    table_grad: TableGrad = None) -> torch.Tensor:
     """``[M, H, W, C] -> [M, H, G, W+1, Cg]``, differentiable. A CPU tensor
     takes the plain versions; a CUDA tensor launches the kernels (or
-    raises)."""
-    return _PackLevelPair.apply(feat, num_groups)
+    raises). ``table_grad`` as for :func:`pack_level`."""
+    return _PackLevelPair.apply(feat, num_groups, table_grad)
 
 
 pack_level_pair.launches = 0  # forward launches (_pack_level_pair_cuda)

@@ -54,11 +54,15 @@ forward's rounded arithmetic but the VJP of the all-fp32 half-row primal
 ``_msmv_halfrow`` (:775), ported as :func:`msmv_halfrow_plain`. On CUDA
 tensors it is one launch of ``csrc/msmv_sample_bwd.cu``
 (:func:`msmv_sampling_backward`); :func:`msmv_sampling_backward_plain`
-(autograd of the half-row primal) is its plain version. Both accumulate the
-table gradient in fp32 and round it once to the table dtype; JAX with bf16
-tables rounds every contribution to bf16 before its scatter-add, so bf16
-table gradients agree with JAX only to a few bf16 ulps of the largest
-accumulated entry (see ``tests/test_torch_train_ops.py``).
+(autograd of the half-row primal over the tables in their own dtype) is its
+plain version. Both round the table gradient as the JAX VJP does: every
+contribution is rounded to the table dtype and added in it, one rounding per
+add (the plain version in index order, which gives JAX's bits on the CPU;
+the kernel in the order its reductions land). Tables packed by
+:func:`pack_mlvl_feats_grouped` carry a ``TableGrad`` per level
+(``PackedFeatures.table_grads``): every sampling backward of a backward pass
+adds into that one buffer and the pack's adjoint reads it
+(``ops/msmv_pack.py``).
 
 Not in this slice: chunk-split rings (``table_split > 1``) and fp8 rings
 (``table_fp8``); configs that ask for them are refused by
@@ -77,7 +81,7 @@ from .msmv_onehot import LANE_BYTES as _LANE_BYTES
 from .msmv_onehot import MAX_LEVELS as _MAX_LEVELS
 from .msmv_onehot import (_clamp_pixels, _view_index, lanes_per_point,
                           onehot_sample_levels)
-from .msmv_pack import pack_level, pack_level_pair
+from .msmv_pack import TableGrad, pack_level, pack_level_pair
 
 # sampling implementation: "xla" (y-fold tables for every level; the
 # default) or "hybrid" (pack_mlvl_feats keeps the small levels as bf16
@@ -129,15 +133,19 @@ class PackedFeatures:
     (see the module docstring). ``tables`` may hold ``None`` entries in a
     geometry-only copy (:meth:`meta`) and for the levels that
     ``mxu_tables`` (hybrid impl only, :func:`pack_mlvl_feats`) holds as bf16
-    ``[B, N*H, W*C]`` tables.
+    ``[B, N*H, W*C]`` tables. ``table_grads`` (optional, one
+    :class:`~.msmv_pack.TableGrad` a level) is where the sampling backward
+    sums the packed tables' gradients for the packs' adjoints.
     """
 
     def __init__(self, tables, batch: int, num_views: int, level_shapes,
                  channels: int, num_groups: int = 1,
                  slice_map: Optional[torch.Tensor] = None, yfold=True,
-                 gsplit=False, mxu_tables=()):
+                 gsplit=False, mxu_tables=(), table_grads=None):
         self.tables = tuple(tables)
         self.mxu_tables = tuple(mxu_tables)
+        self.table_grads = (None if table_grads is None
+                            else tuple(table_grads))
         self.batch = batch
         self.num_views = num_views
         self.level_shapes = tuple(tuple(s) for s in level_shapes)
@@ -162,6 +170,18 @@ class PackedFeatures:
     def row_width(self, level: int) -> int:
         """Channels of one table row of ``level``: 2C y-fold, C pair."""
         return (2 if self.yfold[level] else 1) * self.channels
+
+    def replace(self, **changes) -> "PackedFeatures":
+        """A copy with the constructor arguments in ``changes`` replaced and
+        every other one, ``table_grads`` included, carried over."""
+        args = dict(tables=self.tables, batch=self.batch,
+                    num_views=self.num_views, level_shapes=self.level_shapes,
+                    channels=self.channels, num_groups=self.num_groups,
+                    slice_map=self.slice_map, yfold=self.yfold,
+                    gsplit=self.gsplit, mxu_tables=self.mxu_tables,
+                    table_grads=self.table_grads)
+        args.update(changes)
+        return PackedFeatures(**args)
 
     def meta(self, gsplit=None) -> "PackedFeatures":
         """Geometry-only copy (no table buffers). ``gsplit`` replaces the
@@ -207,22 +227,26 @@ def pack_mlvl_feats_grouped(mlvl_feats: Sequence[torch.Tensor],
     pack's per-group chunk buffers, the training configs'
     ``table_gsplit_pack``) keeps one table a level here and only selects the
     accumulation order, as the ring's flags do. Differentiable: the packs
-    are autograd Functions."""
+    are autograd Functions; tables packed in a graph get a ``TableGrad``
+    a level that the sampling backward sums the table gradient into."""
     n, g = num_views, num_groups
     b, tn = mlvl_feats[0].shape[0], mlvl_feats[0].shape[1]
     t = tn // n
     c = mlvl_feats[0].shape[-1]
     cg = c // g
     yfold = _per_level(yfold, len(mlvl_feats), "yfold")
-    tables, shapes = [], []
+    tables, shapes, grads = [], [], []
     for feat, yf in zip(mlvl_feats, yfold):
         h, w = feat.shape[2], feat.shape[3]
         pack = pack_level if yf else pack_level_pair
-        t2 = pack(feat.reshape(b * t * n, h, w, c), g)
+        grads.append(TableGrad())
+        t2 = pack(feat.reshape(b * t * n, h, w, c), g, grads[-1])
         tables.append(t2.reshape(b * t * n * h * g, w + 1, t2.shape[-1]))
         shapes.append((h, w))
+    in_graph = all(t.requires_grad for t in tables)
     return PackedFeatures(tables, b * t * g, n, shapes, cg, num_groups=g,
-                          yfold=yfold, gsplit=gsplit)
+                          yfold=yfold, gsplit=gsplit,
+                          table_grads=grads if in_graph else None)
 
 
 def ring_init(frame_packed: PackedFeatures, num_slots: int):
@@ -518,51 +542,47 @@ def msmv_halfrow_plain(packed: PackedFeatures,
     return out.reshape(q, s, p, c).to(acc)
 
 
-def _with_tables(packed: PackedFeatures, tables) -> PackedFeatures:
-    return PackedFeatures(tables, packed.batch, packed.num_views,
-                          packed.level_shapes, packed.channels,
-                          num_groups=packed.num_groups,
-                          slice_map=packed.slice_map, yfold=packed.yfold,
-                          gsplit=packed.gsplit)
-
-
 def msmv_sampling_backward_plain(packed: PackedFeatures,
                                  sampling_locations: torch.Tensor,
                                  scale_weights: torch.Tensor,
-                                 grad_out: torch.Tensor,
-                                 want_tables: bool = True):
+                                 grad_out: torch.Tensor, table_grads=None):
     """Plain PyTorch version of the sampling backward: autograd of
-    :func:`msmv_halfrow_plain` over fp32 copies of the tables, so the table
-    gradient accumulates in fp32 and is rounded once to the table dtype (as
-    the kernel does). Returns ``(d_locations [Q, S, P, 3], d_scale_weights
-    [Q, S, P, L], per-level table gradients or None)``."""
-    tables = [t.detach().float().requires_grad_(want_tables)
-              for t in packed.tables]
+    :func:`msmv_halfrow_plain` over the tables in their own dtype, which is
+    JAX's transposed graph: each contribution is rounded to the table dtype
+    (the adjoint of ``flat[idx].to(ct)``) and the index backward adds them in
+    that dtype, one rounding per add, in index order. Returns
+    ``(d_locations [Q, S, P, 3], d_scale_weights [Q, S, P, L])``.
+    ``table_grads``: per level a buffer of the table's shape and dtype that
+    the table's gradient is added to (one add in the table dtype), or None
+    for no table gradient."""
+    want_tables = table_grads is not None
+    tables = [t.detach().requires_grad_(want_tables) for t in packed.tables]
     loc = sampling_locations.detach().requires_grad_()
     sw = scale_weights.detach().requires_grad_()
     with torch.enable_grad():
-        out = msmv_halfrow_plain(_with_tables(packed, tables), loc, sw)
+        out = msmv_halfrow_plain(packed.replace(tables=tables), loc, sw)
         leaves = [loc, sw] + (tables if want_tables else [])
         grads = torch.autograd.grad(out, leaves, grad_out.to(out.dtype))
-    d_tables = None
-    if want_tables:
-        d_tables = [gt.to(t.dtype) for gt, t in zip(grads[2:], packed.tables)]
-    return grads[0], grads[1], d_tables
+    for buf, d in zip(table_grads or (), grads[2:], strict=True):
+        buf.add_(d)
+    return grads[0], grads[1]
 
 
 def msmv_sampling_backward(packed: PackedFeatures,
                            sampling_locations: torch.Tensor,
                            scale_weights: torch.Tensor,
-                           grad_out: torch.Tensor, want_tables: bool = True):
+                           grad_out: torch.Tensor, table_grads=None):
     """The sampling op's backward on its own (what ``msmv_sampling``'s
     autograd Function runs): CPU tensors take the plain version, CUDA
     tensors launch ``csrc/msmv_sample_bwd.cu`` (or raise). Returns
-    ``(d_locations, d_scale_weights, table gradients or None)``."""
+    ``(d_locations, d_scale_weights)`` and adds the table gradients to
+    ``table_grads`` (per level a buffer of the table's shape and dtype;
+    None for no table gradient)."""
     if sampling_locations.device.type == "cpu":
         return msmv_sampling_backward_plain(
-            packed, sampling_locations, scale_weights, grad_out, want_tables)
+            packed, sampling_locations, scale_weights, grad_out, table_grads)
     return _msmv_sampling_backward_cuda(
-        packed, sampling_locations, scale_weights, grad_out, want_tables)
+        packed, sampling_locations, scale_weights, grad_out, table_grads)
 
 
 msmv_sampling_backward.launches = 0  # in _msmv_sampling_backward_cuda
@@ -571,12 +591,19 @@ msmv_sampling_backward.launches = 0  # in _msmv_sampling_backward_cuda
 class _MsmvSampling(torch.autograd.Function):
     """Forward: the window forward (kernel or plain). Backward: the VJP of
     the half-row primal (kernel or plain), the JAX ``custom_vjp`` pairing.
-    The level tables travel as tensor arguments so that autograd sees them;
-    their gradients come back in the tables' dtype."""
+    The level tables travel as tensor arguments so that autograd sees them.
+    A table with a ``TableGrad`` (a pack's output) gets its gradient added
+    to that buffer and none from autograd; any other table gets its
+    gradient back in its own dtype. So does every table of a call whose
+    forward ran inside a backward pass (the recompute of a reentrant
+    ``torch.utils.checkpoint``): its backward runs in a nested pass, and
+    the gradient it hands autograd reaches the pack through the outer one
+    (``ops/msmv_pack.py``)."""
 
     @staticmethod
     def forward(ctx, packed, loc, sw, *tables):
-        ctx.geometry = _with_tables(packed, (None,) * len(tables))
+        ctx.geometry = packed.replace(tables=(None,) * len(tables))
+        ctx.recomputed = torch._C._current_graph_task_id() != -1
         ctx.save_for_backward(loc, sw, *tables)
         if loc.device.type == "cpu":
             return msmv_sampling_plain(packed, loc, sw)
@@ -585,12 +612,16 @@ class _MsmvSampling(torch.autograd.Function):
     @staticmethod
     def backward(ctx, grad_out):
         loc, sw, *tables = ctx.saved_tensors
-        want_tables = any(ctx.needs_input_grad[3:])
-        d_loc, d_sw, d_tables = msmv_sampling_backward(
-            _with_tables(ctx.geometry, tables), loc, sw,
-            grad_out.contiguous(), want_tables)
-        if d_tables is None:
-            d_tables = [None] * len(tables)
+        holders = ctx.geometry.table_grads
+        shared = holders is not None and not ctx.recomputed
+        bufs = None
+        if any(ctx.needs_input_grad[3:]):
+            bufs = ([h.accumulator(t) for h, t in zip(holders, tables)]
+                    if shared else [torch.zeros_like(t) for t in tables])
+        d_loc, d_sw = msmv_sampling_backward(
+            ctx.geometry.replace(tables=tables), loc, sw,
+            grad_out.contiguous(), bufs)
+        d_tables = [None] * len(tables) if shared or bufs is None else bufs
         return (None, d_loc, d_sw, *d_tables)
 
 
@@ -764,28 +795,12 @@ def _msmv_sampling_cuda(packed, loc, sw):
     return out
 
 
-def _msmv_sampling_backward_cuda(packed, loc, sw, grad_out, want_tables=True):
-    """One launch of ``msmv_sample_backward``: ``d loc`` and ``d sw`` written
-    once per point, the table gradient scattered with fp32 atomic adds into a
-    zeroed fp32 scratch of the tables' shapes, which is then cast to the
-    table dtype (fp32 tables: the scratch is the gradient)."""
-    scratch = None
-    if want_tables:
-        scratch = [torch.zeros(t.shape, dtype=torch.float32, device=t.device)
-                   for t in packed.tables]
-    d_loc, d_sw = _launch_sampling_backward(packed, loc, sw, grad_out,
-                                            scratch)
-    if scratch is None:
-        return d_loc, d_sw, None
-    dtype = packed.tables[0].dtype
-    return d_loc, d_sw, [t.to(dtype) for t in scratch]
-
-
-def _launch_sampling_backward(packed, loc, sw, grad_out, scratch):
-    """Check the operands and launch the backward kernel on the current
-    stream. ``scratch``: per level an fp32 buffer of the table's shape that
-    the table gradient is ADDED to (the caller zeroes it), or None for no
-    table gradient. Returns ``(d_loc, d_sw)``."""
+def _msmv_sampling_backward_cuda(packed, loc, sw, grad_out, grads=None):
+    """One launch of ``msmv_sample_backward`` on the current stream: ``d loc``
+    and ``d sw`` written once per point, the table gradient added with
+    vector reductions in the table dtype to ``grads`` (per level a buffer of
+    the table's shape and dtype; None for no table gradient). Returns
+    ``(d_loc, d_sw)``."""
     dtype, lanes, slice_map = _check_cuda_operands(packed, loc, sw)
     dev = loc.device
     q, s, p, _ = loc.shape
@@ -799,27 +814,30 @@ def _launch_sampling_backward(packed, loc, sw, grad_out, scratch):
             f"{(q, s, p, c)} tensor on {dev}, got {grad_out.dtype} "
             f"{tuple(grad_out.shape)}")
     num_levels = len(packed.level_shapes)
-    if scratch is not None:
-        for t, buf in zip(packed.tables, scratch):
-            if buf.shape != t.shape or buf.dtype != torch.float32 \
-                    or buf.device != dev or not buf.is_contiguous():
-                raise ValueError("msmv_sampling backward: the scratch must "
-                                 "be contiguous fp32 of each table's shape")
+    if grads is not None:
+        for t, buf in zip(packed.tables, grads, strict=True):
+            if buf.shape != t.shape or buf.dtype != dtype \
+                    or buf.device != dev or not buf.is_contiguous() \
+                    or buf.data_ptr() % _LANE_BYTES:
+                raise ValueError("msmv_sampling backward: each table "
+                                 "gradient must be contiguous, "
+                                 f"{_LANE_BYTES}-byte aligned, of its "
+                                 "table's shape and dtype")
     d_loc = torch.empty_like(loc)
     d_sw = torch.empty_like(sw)
     tables, heights, widths, yfold = _level_arrays(packed, packed.tables)
-    grads = (ctypes.c_void_p * num_levels)(
-        *([None] * num_levels if scratch is None
-          else [t.data_ptr() for t in scratch]))
+    grad_ptrs = (ctypes.c_void_p * num_levels)(
+        *([None] * num_levels if grads is None
+          else [t.data_ptr() for t in grads]))
     lib = _bwd_lib()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.msmv_sample_backward(
-            tables, grads, heights, widths, yfold, num_levels,
+            tables, grad_ptrs, heights, widths, yfold, num_levels,
             loc.data_ptr(), sw.data_ptr(), slice_map.data_ptr(),
             grad_out.data_ptr(), d_loc.data_ptr(), d_sw.data_ptr(),
             q * s * p, s, p, packed.num_views, packed.num_groups, c,
-            int(dtype == torch.bfloat16), int(scratch is not None), lanes,
+            int(dtype == torch.bfloat16), int(grads is not None), lanes,
             stream)
     build.check(lib, "msmv_sample_bwd", rc)
     msmv_sampling_backward.launches += 1

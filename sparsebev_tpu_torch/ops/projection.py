@@ -131,11 +131,7 @@ def sampling_4d(sample_points_q: torch.Tensor,
                + torch.arange(g, device=dev)[None, :, None]).reshape(b * g * t)
     if packed.slice_map is not None:
         logical = packed.slice_map.to(dev)[logical]
-    view = PackedFeatures(packed.tables, b * g * t, packed.num_views,
-                          packed.level_shapes, packed.channels,
-                          num_groups=packed.num_groups, slice_map=logical,
-                          yfold=packed.yfold, gsplit=packed.gsplit,
-                          mxu_tables=packed.mxu_tables)
+    view = packed.replace(batch=b * g * t, slice_map=logical)
 
     final = msmv_sampling(view, loc.contiguous(),
                           sw.float().contiguous())            # [Q, BGT, P, C]
