@@ -6,7 +6,8 @@
 Phases (any failure exits non-zero and prints no result line; each phase
 prints its wall time):
   1. environment: the card, its power limit, torch's CUDA version, nvcc,
-     triton;
+     triton, and which JPEG decoders the host offers (``import PIL``,
+     ``jpeglib.h`` / ``libjpeg.so*``, ``nvjpeg.h`` / ``libnvjpeg.so*``);
   2. build every CUDA kernel of the port from ``sparsebev_tpu_torch/csrc``
      (one nvcc per source, all started together): the y-fold pack and the
      pair-mode pack (each with its adjoint), the sampling forward, the
@@ -55,13 +56,16 @@ prints its wall time):
      just after;
   6. the training step of ``configs/r50_nuimg_704x256.py`` at full width
      (B=1, 900 + 640 denoising queries, T=8, bf16 compute / fp32 parameters,
-     the backbone checkpointed) through ``train/step.py``: seeded weights, a
+     the backbone checkpointed, the decoder's layer remat on) through
+     ``train/step.py``: seeded weights, a
      seeded synthetic batch, 4 optimizer steps on that batch with the
      step's generator re-seeded each time, so that only the updates move
      the loss. The launch counts of the pack, the sampling forward, the
      sampling backward and the pack adjoint are reset just before the steps
      and read just after (4 / 6 / 6 / 4 a step); every loss must be finite
-     and step 4's lower than step 1's. One more step runs under
+     and step 4's lower than step 1's. One more step with the layer remat
+     and one without give the step's own peak memory and time each way.
+     One more step runs under
      torch.profiler with operand shapes recorded (device busy, device ops,
      and the table-gradient chain: the sampling backward kernel and every
      operator with a table-sized operand), the sampling backward is held
@@ -73,7 +77,26 @@ prints its wall time):
      bf16 reductions round every add, and the two pack adjoints are held
      bit for bit to their plain versions at the r50 training shapes and the
      vov99 level-0 frame shape;
-  7. a ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and last
+  7. the training loop at r50 full width: a ``train/runner.py::Runner``
+     over 3 seeded host batches (numpy, uploaded through pinned memory) with
+     the timer, text logger, checkpoint (``max_keep_ckpts=1``) and
+     sampler-seed hooks for 2 epochs, then a fresh ``Runner`` that resumes
+     from the latest checkpoint and runs epoch 3: one checkpoint left after
+     pruning, the step 6 after the resume and 9 at the end, the resumed
+     weights bit-equal to the saved ones, every loss finite, the kernels'
+     launches a step; ms/step, the upload of a batch, the checkpoint's size
+     and its save and load seconds;
+  8. the training step of ``configs/vov99_dd3d_1600x640_trainval_future.py``
+     at full width (B=1, 1600 + 640 denoising queries, T=15: 90 images of
+     1600x640, pair-mode level 0, group-split pack on level 3, VoVNet
+     ``with_cp`` and the decoder's layer remat) as in phase 6: launches a
+     step of the packs, the sampling forward and backward and both pack
+     adjoints, finite and falling losses, peak memory, ms/step, one
+     profiled step, the sampling backward on one recorded layer (pair,
+     y-fold and group-split levels), step 1 again with the plain versions;
+     then the pair adjoint at the step's shape (90 images of level 0)
+     against its plain version and the permute-copy call;
+  9. a ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and last
      ``{"ok": true, "device": {...}}``.
 
 Needs one CUDA card (it uses ``cuda:0`` alone); imports nothing of JAX.
@@ -83,6 +106,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import math
 import os
 import re
 import statistics
@@ -1590,10 +1614,13 @@ def check_pack_bwd(torch, dev, flush, bw, levels=TRAIN_LEVELS, m=48):
                 bound_by="bytes", library_ms=None)
 
 
-def check_pack_pair_bwd(torch, dev, flush, bw, shape=(6, 160, 400)):
-    """The pair pack's adjoint at the vov99 level-0 frame shape (bf16): bit
-    for bit against its plain version and against the one PyTorch call that
-    computes it (a slice, a permute and a copy), timed beside its bound."""
+def check_pack_pair_bwd(torch, dev, flush, bw, shape=(6, 160, 400),
+                        label="vov99 L0"):
+    """The pair pack's adjoint at the vov99 level-0 shape (bf16; one frame
+    by default, the training step's T * 6 = 90 images with ``shape=(90,
+    160, 400)``): bit for bit against its plain version and against the one
+    PyTorch call that computes it (a slice, a permute and a copy), timed
+    beside its bound."""
     from sparsebev_tpu_torch.ops.msmv_pack import (pack_level_pair_bwd,
                                                    pack_level_pair_bwd_plain)
     gen = torch.Generator(device=dev).manual_seed(8)
@@ -1619,7 +1646,7 @@ def check_pack_pair_bwd(torch, dev, flush, bw, shape=(6, 160, 400)):
     library_ms = time_ms(torch, library, 10, flush)
     nbytes = 2 * got.numel() * 2
     bound_ms = nbytes / bw * 1e3
-    log(f"pack_pair_bwd [vov99 L0]: bit-equal to plain and to the "
+    log(f"pack_pair_bwd [{label}]: bit-equal to plain and to the "
         f"permute-copy call at {shape}; {ms:.4f} ms (plain {plain_ms:.4f} "
         f"ms, permute-copy {library_ms:.4f} ms), bound {bound_ms:.4f} ms "
         f"({nbytes / 1e6:.1f} MB moved); launches in its run: {launches}")
@@ -1637,20 +1664,28 @@ def check_pack_pair_bwd(torch, dev, flush, bw, shape=(6, 160, 400)):
 TRAIN_LOSS_RTOL = 1e-3
 TRAIN_GRAD_TOL = 5e-2
 TRAIN_STEPS = 4
+_LAYER = "pts_bbox_head.transformer.decoder.decoder_layer."
 TRAIN_GRAD_PROBES = (
     "img_backbone.layer3.2.conv2.weight", "img_backbone.layer2.1.bn1.weight",
     "img_neck.fpn_convs.0.conv.weight",
-    "pts_bbox_head.transformer.decoder.decoder_layer.sampling."
-    "sampling_offset.weight",
-    "pts_bbox_head.transformer.decoder.decoder_layer.ffn.layers.1.weight",
-    "pts_bbox_head.init_query_bbox.weight")
+    _LAYER + "sampling.sampling_offset.weight",
+    _LAYER + "ffn.layers.1.weight", "pts_bbox_head.init_query_bbox.weight")
+# vov99: a conv of the last stage-4 block, the frozen stage 2's concat BN
+# and stem (their gradients count in the clip), the FPN, the decoder
+VOV_TRAIN_GRAD_PROBES = (
+    "img_backbone.stage4.OSA4_9.layers.4.OSA4_9_4/conv.weight",
+    "img_backbone.stage2.OSA2_1.concat.OSA2_1_concat/norm.weight",
+    "img_backbone.stem.stem_1/conv.weight",
+    "img_neck.fpn_convs.0.conv.weight",
+    _LAYER + "sampling.sampling_offset.weight",
+    _LAYER + "ffn.layers.1.weight", "pts_bbox_head.init_query_bbox.weight")
 
 
-def make_train_batch(torch, dev, cfg, seed=0):
-    """A seeded synthetic training batch at the config's full size: T * 6
-    uint8 images, six cameras repeated over the frames, 0.5 s between
-    frames, ``max_gt`` ground-truth slots of which 30 hold boxes inside the
-    point-cloud range."""
+def make_host_batch(cfg, seed=0):
+    """A seeded synthetic training batch at the config's full size, as the
+    numpy arrays a loader yields: T * 6 uint8 images, six cameras repeated
+    over the frames, 0.5 s between frames, ``max_gt`` ground-truth slots of
+    which 30 hold boxes inside the point-cloud range."""
     import numpy as np
     head = cfg.model["pts_bbox_head"]
     t = head["num_frames"]
@@ -1673,9 +1708,14 @@ def make_train_batch(torch, dev, cfg, seed=0):
     mask[:, :valid] = True
     boxes[~mask] = 0.0
     labels = rng.integers(0, head["num_classes"], (1, max_gt))
-    return {k: torch.from_numpy(v).to(dev) for k, v in dict(
-        img=img, lidar2img=l2i.astype(np.float32), time_diff=td,
-        gt_boxes=boxes, gt_labels=labels, gt_mask=mask).items()}
+    return dict(img=img, lidar2img=l2i.astype(np.float32), time_diff=td,
+                gt_boxes=boxes, gt_labels=labels, gt_mask=mask)
+
+
+def make_train_batch(torch, dev, cfg, seed=0):
+    """:func:`make_host_batch` on the card."""
+    return {k: torch.from_numpy(v).to(dev)
+            for k, v in make_host_batch(cfg, seed).items()}
 
 
 def profile_call(torch, fn, record_shapes=False):
@@ -1736,24 +1776,26 @@ def log_table_gradient_chain(prof, table_numels, label):
     return total
 
 
-def _train_harness(torch, dev):
-    """The r50 training config at full width, a seeded batch and two
-    closures: ``new_state()`` (seeded weights, AdamW) and ``run_step(state,
-    record=None)``, one step with the step's generator re-seeded
-    (``record`` collects the probed gradients just before the clip). Also
-    the element counts of the step's packed tables: each level's images (T
-    frames of 6 views) of the FPN's C channels, y-fold
-    (``[M, H, G, W+1, 2Cg]``) or pair (``[M, H, G, W+1, Cg]``)."""
+def _train_harness(torch, dev, path=None, probes=TRAIN_GRAD_PROBES):
+    """A training config at full width (``path``: one of ``PATHS``, r50 by
+    default), a seeded batch and two closures: ``new_state()`` (seeded
+    weights, AdamW) and ``run_step(state, record=None)``, one step with the
+    step's generator re-seeded (``record`` collects the gradients named in
+    ``probes`` just before the clip). Also the element counts of the step's
+    packed tables: each level's images (T frames of 6 views) of the FPN's C
+    channels, y-fold (``[M, H, G, W+1, 2Cg]``) or pair (``[M, H, G, W+1,
+    Cg]``)."""
     from sparsebev_tpu_torch.config import Config
     from sparsebev_tpu_torch.models.detector import build_detector
     from sparsebev_tpu_torch.train import optim, step as tstep
 
-    config = os.path.join(HERE, "configs/r50_nuimg_704x256.py")
+    path = path or PATHS[0]
+    config = os.path.join(HERE, path["config"])
     cfg = Config.fromfile(config)
     batch = make_train_batch(torch, dev, cfg)
     train_step = tstep.train_step_from_config(cfg)
     m, c = batch["img"].shape[1], cfg.model["img_neck"]["out_channels"]
-    table_numels = {m * h * (w + 1) * c * k for h, w in TRAIN_LEVELS
+    table_numels = {m * h * (w + 1) * c * k for h, w in path["levels"]
                     for k in (1, 2)}
 
     def new_state():
@@ -1769,7 +1811,7 @@ def _train_harness(torch, dev):
         def clip(params, max_norm):
             named = dict(state.model.named_parameters())
             record.update({k: named[k].grad.detach().float().clone()
-                           for k in TRAIN_GRAD_PROBES})
+                           for k in probes})
             return real_clip(params, max_norm)
 
         if record is not None:
@@ -1783,30 +1825,62 @@ def _train_harness(torch, dev):
     return config, cfg, batch, new_state, run_step, table_numels
 
 
-def training_phase(torch, dev, flush, bw, fp32_rate):
-    """The r50 training step at full width: seeded weights, a seeded
-    synthetic batch, ``TRAIN_STEPS`` optimizer steps on the same batch with
-    the same draws (so only the updates change the loss). Returns the launch
-    counts of the steps and the sampling backward's numbers on one layer's
-    recorded operands."""
+def _step_ms_and_peak(torch, dev, fn):
+    """Host ms of one synchronized call of ``fn`` and the peak memory it
+    allocated above what was allocated before it."""
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return ((time.perf_counter() - t0) * 1e3,
+            torch.cuda.max_memory_allocated(dev) - before, out)
+
+
+def training_phase(torch, dev, flush, bw, fp32_rate, path=None,
+                   probes=TRAIN_GRAD_PROBES, compare_remat=False):
+    """A training config at full width (``path``, r50 by default): seeded
+    weights, a seeded synthetic batch, ``TRAIN_STEPS`` optimizer steps on
+    the same batch with the same draws (so only the updates change the
+    loss), counted launches, one more step under the profiler, the sampling
+    backward on one layer's recorded operands, and step 1 again with the
+    plain versions. ``compare_remat``: one more step with the decoder's
+    layer remat off, for its peak memory and time. Returns the launch
+    counts of the steps, the sampling backward's numbers on the recorded
+    layer and the step's figures."""
     from sparsebev_tpu_torch.ops import msmv_pack
     from sparsebev_tpu_torch.ops import msmv_sampling as ms
 
+    path = path or PATHS[0]
+    name = path["name"]
+    label = f"training [{name}]"
     config, cfg, batch, new_state, run_step, table_numels = _train_harness(
-        torch, dev)
+        torch, dev, path, probes)
     head = cfg.model["pts_bbox_head"]
     dn = head["query_denoising_groups"] * cfg.max_gt
-    log(f"training [r50]: {config} (B=1, Q={head['num_query']} + {dn} "
+    log(f"{label}: {config} (B=1, Q={head['num_query']} + {dn} "
         f"denoising queries, T={head['num_frames']}, "
         f"{tuple(batch['img'].shape[2:4])} images, {head['num_layers']} "
         f"layers, {cfg.model['compute_dtype']} compute / fp32 parameters, "
-        f"with_cp={cfg.model['img_backbone'].get('with_cp')}, "
+        f"backbone with_cp={cfg.model['img_backbone'].get('with_cp')}, "
+        f"decoder layer remat on, table_yfold {head.get('table_yfold', True)}"
+        f", table_gsplit_pack {head.get('table_gsplit_pack', False)}, "
         f"{int(batch['gt_mask'].sum())} of {cfg.max_gt} ground-truth slots "
         f"valid), {TRAIN_STEPS} steps on one batch")
 
+    n_yfold = sum(path["yfold"])
+    n_pair = len(path["yfold"]) - n_yfold
+    layers = head["num_layers"]
     counters = dict(pack=msmv_pack.pack_level, sampling=ms.msmv_sampling,
                     sampling_bwd=ms.msmv_sampling_backward,
                     pack_bwd=msmv_pack.pack_level_bwd)
+    want = dict(pack=n_yfold, sampling=layers, sampling_bwd=layers,
+                pack_bwd=n_yfold)
+    if n_pair:
+        counters.update(pack_pair=msmv_pack.pack_level_pair,
+                        pack_pair_bwd=msmv_pack.pack_level_pair_bwd)
+        want.update(pack_pair=n_pair, pack_pair_bwd=n_pair)
     held = torch.cuda.memory_allocated(dev)
     state = new_state()
     n_params = sum(p.numel() for p in state.model.parameters())
@@ -1827,6 +1901,9 @@ def training_phase(torch, dev, flush, bw, fp32_rate):
         c.launches = 0
     for i in range(TRAIN_STEPS):
         if i == TRAIN_STEPS - 1:      # one layer's operands of the last step
+            # (the recorded tables outlive their step: its peak is not the
+            # step's own)
+            peak = torch.cuda.max_memory_allocated(dev) - held
             ms._msmv_sampling_backward_cuda = record_backward
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -1841,47 +1918,66 @@ def training_phase(torch, dev, flush, bw, fp32_rate):
         losses.append(float(metrics["loss"]))
         norms.append(float(metrics["grad_norm"]))
         if not all(bool(torch.isfinite(v)) for v in metrics.values()):
-            fail(f"training: non-finite loss or gradient norm at step {i}: "
+            fail(f"{label}: non-finite loss or gradient norm at step {i}: "
                  f"{ {k: float(v) for k, v in metrics.items()} }")
     launches = {k: c.launches for k, c in counters.items()}
-    peak = torch.cuda.max_memory_allocated(dev) - held
-    log("training [r50]: kernel launches "
-        + " ".join(f"{k}={v}" for k, v in launches.items()))
-    layers, levels = head["num_layers"], head["num_levels"]
-    want = dict(pack=levels, sampling=layers, sampling_bwd=layers,
-                pack_bwd=levels)
+    log(f"{label}: kernel launches "
+        + " ".join(f"{k}={v}" for k, v in launches.items())
+        + f" in {TRAIN_STEPS} steps")
     for k, per_step in want.items():
         if launches[k] != per_step * TRAIN_STEPS:
-            fail(f"training: kernel {k} launched {launches[k]} times in "
+            fail(f"{label}: kernel {k} launched {launches[k]} times in "
                  f"{TRAIN_STEPS} steps, {per_step} a step expected")
-    log("training [r50]: loss per step " + " ".join(f"{x:.4f}" for x in losses)
+    log(f"{label}: loss per step " + " ".join(f"{x:.4f}" for x in losses)
         + "; grad norm " + " ".join(f"{x:.3f}" for x in norms)
         + "; step 1 losses " + " ".join(f"{k}={v:.4f}" for k, v in
                                         first.items() if "loss_" in k))
     if not losses[-1] < losses[0]:
-        fail(f"training: the loss did not fall on the repeated batch "
+        fail(f"{label}: the loss did not fall on the repeated batch "
              f"({losses[0]:.4f} -> {losses[-1]:.4f})")
     steady = statistics.median(times[1:])
-    log(f"training [r50]: ms/step " + " ".join(f"{x:.1f}" for x in times)
+    log(f"{label}: ms/step " + " ".join(f"{x:.1f}" for x in times)
         + f" (median of steps 2..{TRAIN_STEPS}: {steady:.1f}, host clock, "
         f"smoke timing); {n_params / 1e6:.1f}M parameters; peak memory "
-        f"{peak / 2**30:.2f} GiB above {held / 2**30:.2f} GiB held by "
-        "earlier phases")
+        f"of steps 1..{TRAIN_STEPS - 1} {peak / 2**30:.2f} GiB above "
+        f"{held / 2**30:.2f} GiB held by earlier phases")
+    figures = dict(ms_per_step=steady, peak_gib=peak / 2**30)
+    if compare_remat:
+        decoder = state.model.pts_bbox_head.transformer.decoder
+        on_ms, on_peak, _ = _step_ms_and_peak(torch, dev,
+                                              lambda: run_step(state))
+        decoder.with_cp = False
+        try:
+            off_ms, off_peak, _ = _step_ms_and_peak(torch, dev,
+                                                    lambda: run_step(state))
+        finally:
+            decoder.with_cp = True
+        log(f"{label}: one step's own peak memory (above what the steps "
+            f"hold between them) and host ms, decoder layer remat on / off: "
+            f"{on_peak / 2**30:.2f} / {off_peak / 2**30:.2f} GiB, "
+            f"{on_ms:.1f} / {off_ms:.1f} ms")
+        figures.update(step_peak_gib=on_peak / 2**30,
+                       no_remat_step_peak_gib=off_peak / 2**30,
+                       no_remat_ms=off_ms)
     ops, busy, wall, top, prof = profile_call(
         torch, lambda: run_step(state), record_shapes=True)
-    log(f"training [r50]: one more step under torch.profiler (operand "
+    log(f"{label}: one more step under torch.profiler (operand "
         f"shapes recorded): wall {wall:.1f} ms, device busy {busy:.1f} ms "
         f"({100 * busy / wall:.1f}%), {ops} device ops")
     for key, dev_ms, count in top:
-        log(f"training [r50]: {dev_ms:9.3f} ms {count:5d} calls  {key}")
-    chain_ms = log_table_gradient_chain(prof, table_numels, "training [r50]")
+        log(f"{label}: {dev_ms:9.3f} ms {count:5d} calls  {key}")
+    chain_ms = log_table_gradient_chain(prof, table_numels, label)
     del prof
+    figures.update(device_busy_ms=busy, device_ops=ops,
+                   table_grad_chain_ms=chain_ms)
 
     # the sampling backward on one layer's recorded operands
     packed, loc, sw, gout = recorded["operands"]
+    del state
+    torch.cuda.empty_cache()
     bwd = check_sampling_backward(torch, flush, bw, fp32_rate, packed, loc,
-                                  sw, gout, "r50 train, recorded layer")
-    del recorded, packed, loc, sw, gout, state
+                                  sw, gout, f"{name} train, recorded layer")
+    del recorded, packed, loc, sw, gout
     torch.cuda.empty_cache()
 
     # step 1 again from the same weights with the plain versions on the card
@@ -1892,24 +1988,261 @@ def training_phase(torch, dev, flush, bw, fp32_rate):
     del state
     torch.cuda.empty_cache()
     rel = abs(first["loss"] - plain["loss"]) / abs(plain["loss"])
-    log(f"training [r50]: step 1 with kernels loss {first['loss']:.6f}, with "
+    log(f"{label}: step 1 with kernels loss {first['loss']:.6f}, with "
         f"the plain versions {plain['loss']:.6f} (relative difference "
         f"{rel:.3g}, tolerance {TRAIN_LOSS_RTOL:g}); grad norm "
         f"{first['grad_norm']:.4f} vs {plain['grad_norm']:.4f}")
     if not rel <= TRAIN_LOSS_RTOL:
-        fail("training: the kernel step's loss differs from the plain step's")
-    for k in TRAIN_GRAD_PROBES:
+        fail(f"{label}: the kernel step's loss differs from the plain "
+             "step's")
+    for k in probes:
         a, b = kernel_grads[k], plain_grads[k]
         scale = b.abs().max().item()
         d = (a - b).abs().max().item()
-        log(f"training [r50]: grad {k}: max|kernel - plain| = {d:.3g} at "
+        log(f"{label}: grad {k}: max|kernel - plain| = {d:.3g} at "
             f"scale {scale:.3g} (tolerance {TRAIN_GRAD_TOL * scale:.3g})")
         if not scale > 0 or not d <= TRAIN_GRAD_TOL * scale:
-            fail(f"training: gradient of {k} differs between the kernel "
+            fail(f"{label}: gradient of {k} differs between the kernel "
                  "and the plain step")
-    return launches, bwd, dict(ms_per_step=steady, device_busy_ms=busy,
-                               device_ops=ops, peak_gib=peak / 2**30,
-                               table_grad_chain_ms=chain_ms)
+    return launches, bwd, figures
+
+
+RUNNER_EPOCHS = 2          # then a resume runs epoch 3
+RUNNER_BATCHES = 3         # host batches a epoch (seeds 0, 1, 2)
+
+
+class _Record:
+    """A hook that keeps every step's metrics and host ms (after the
+    ``IterTimerHook`` before it has set ``time``)."""
+
+    def __init__(self):
+        self.metrics, self.ms = [], []
+
+    def after_iter(self, runner, metrics):
+        self.metrics.append(metrics)
+        self.ms.append(runner.log_vars.get("time", 0.0) * 1e3)
+
+
+def runner_phase(torch, dev):
+    """The training loop at r50 full width: a ``Runner`` over a loader of
+    ``RUNNER_BATCHES`` seeded host batches with the timer, text logger,
+    checkpoint (``max_keep_ckpts=1``) and sampler-seed hooks for
+    ``RUNNER_EPOCHS`` epochs, then a fresh ``Runner`` on other weights that
+    resumes from the latest checkpoint and runs one more epoch. Checks the
+    pruning, the step after the resume and at the end, the resumed weights
+    bit for bit, finite losses and the kernels' launches a step. Returns the
+    launch counts and the loop's figures."""
+    import shutil
+    from sparsebev_tpu_torch.config import Config
+    from sparsebev_tpu_torch.models.detector import build_detector
+    from sparsebev_tpu_torch.ops import msmv_pack
+    from sparsebev_tpu_torch.ops import msmv_sampling as ms
+    from sparsebev_tpu_torch.train import hooks as H
+    from sparsebev_tpu_torch.train import optim, step as tstep
+    from sparsebev_tpu_torch.train.runner import Runner
+    from sparsebev_tpu_torch.utils import checkpoint_io
+    from sparsebev_tpu_torch.utils.logging import init_logging
+
+    label = "training loop [r50]"
+    path = PATHS[0]
+    cfg = Config.fromfile(os.path.join(HERE, path["config"]))
+    loader = [make_host_batch(cfg, seed) for seed in range(RUNNER_BATCHES)]
+    work_dir = os.path.join(HERE, "outputs", "chip_smoke_runner")
+    shutil.rmtree(work_dir, ignore_errors=True)
+    total = (RUNNER_EPOCHS + 1) * RUNNER_BATCHES
+    train_step = tstep.train_step_from_config(cfg)
+    schedule = optim.cosine_warmup_schedule(
+        cfg.optimizer["lr"], total, cfg.lr_config.get("warmup_iters", 500),
+        cfg.lr_config.get("warmup_ratio", 1 / 3),
+        cfg.lr_config.get("min_lr_ratio", 1e-3))
+
+    def new_state(seed):
+        model = build_detector(cfg, device=dev, seed=seed)
+        opt, sched, _ = optim.optimizer_from_config(model, cfg, total)
+        return tstep.create_train_state(model, opt, sched)
+
+    save_s = []
+
+    class TimedCheckpointHook(H.CheckpointHook):
+        def after_epoch(self, runner):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            super().after_epoch(runner)
+            save_s.append(time.perf_counter() - t0)
+
+    def runner(state, epochs, record):
+        return Runner(train_step, state, loader, work_dir,
+                      total_epochs=epochs, lr_schedule=schedule,
+                      hooks=[H.IterTimerHook(), H.TextLoggerHook(interval=1),
+                             TimedCheckpointHook(max_keep_ckpts=1),
+                             H.SamplerSeedHook(), record],
+                      device=dev, seed=0)
+
+    counters = dict(pack=msmv_pack.pack_level, sampling=ms.msmv_sampling,
+                    sampling_bwd=ms.msmv_sampling_backward,
+                    pack_bwd=msmv_pack.pack_level_bwd)
+    head = cfg.model["pts_bbox_head"]
+    levels, layers = head["num_levels"], head["num_layers"]
+    want = dict(pack=levels, sampling=layers, sampling_bwd=layers,
+                pack_bwd=levels)
+    init_logging()
+    log(f"{label}: Runner over {RUNNER_BATCHES} seeded host batches (numpy, "
+        f"uploaded through pinned memory), {RUNNER_EPOCHS} epochs, hooks "
+        f"IterTimer, TextLogger(interval=1), Checkpoint(max_keep_ckpts=1), "
+        f"SamplerSeed; work dir {os.path.relpath(work_dir, HERE)}")
+    first = _Record()
+    run1 = runner(new_state(0), RUNNER_EPOCHS, first)
+    for c in counters.values():
+        c.launches = 0
+    run1.run()
+    launches = {k: c.launches for k, c in counters.items()}
+    steps = RUNNER_EPOCHS * RUNNER_BATCHES
+    for k, per_step in want.items():
+        if launches[k] != per_step * steps:
+            fail(f"{label}: kernel {k} launched {launches[k]} times in "
+                 f"{steps} steps, {per_step} a step expected")
+    saved = {k: v.detach().cpu().clone()
+             for k, v in run1.state.model.state_dict().items()}
+    kept = sorted(f for f in os.listdir(work_dir) if f.startswith("ckpt_"))
+    latest = checkpoint_io.latest_checkpoint(work_dir)
+    if kept != [f"ckpt_{steps}.pth"] or latest is None:
+        fail(f"{label}: checkpoints left after pruning: {kept}")
+    size_mb = os.path.getsize(latest) / 1e6
+    upload_ms = []
+    for batch in loader:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run1.upload(batch)
+        torch.cuda.synchronize()
+        upload_ms.append((time.perf_counter() - t0) * 1e3)
+    del run1
+    torch.cuda.empty_cache()
+
+    second = _Record()
+    run2 = runner(new_state(1), RUNNER_EPOCHS + 1, second)
+    t0 = time.perf_counter()
+    run2.resume(latest)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    if run2.global_step != steps or run2.epoch != RUNNER_EPOCHS:
+        fail(f"{label}: resume reads step {run2.global_step}, epoch "
+             f"{run2.epoch}; {steps}, {RUNNER_EPOCHS} expected")
+    differ = [k for k, v in run2.state.model.state_dict().items()
+              if not torch.equal(v.cpu(), saved[k])]
+    if differ:
+        fail(f"{label}: {len(differ)} tensors differ after the resume from "
+             f"the saved ones, e.g. {differ[:3]}")
+    run2.run()
+    if run2.global_step != total:
+        fail(f"{label}: the step reads {run2.global_step} at the end, "
+             f"{total} expected")
+    losses = [m["loss"] for m in first.metrics + second.metrics]
+    if len(losses) != total or not all(
+            math.isfinite(v) for m in first.metrics + second.metrics
+            for v in m.values()):
+        fail(f"{label}: {len(losses)} steps, losses {losses}")
+    del run2
+    torch.cuda.empty_cache()
+    ms_step = statistics.median(first.ms[1:] + second.ms[1:])
+    log(f"{label}: kernel launches in the first {steps} steps "
+        + " ".join(f"{k}={v}" for k, v in launches.items())
+        + f"; one checkpoint left after pruning ({os.path.basename(latest)},"
+        f" {size_mb:.1f} MB); the step reads {steps} after the resume and "
+        f"{total} at the end; the resumed weights equal the saved ones bit "
+        f"for bit")
+    log(f"{label}: loss per step " + " ".join(f"{x:.4f}" for x in losses))
+    log(f"{label}: ms/step (IterTimerHook, host clock) "
+        + " ".join(f"{x:.1f}" for x in first.ms + second.ms)
+        + f" (median without each run's first: {ms_step:.1f}); upload of a "
+        f"batch {statistics.median(upload_ms):.2f} ms (median of "
+        f"{len(upload_ms)}); checkpoint save "
+        + " / ".join(f"{x:.2f}" for x in save_s)
+        + f" s, load (resume) {load_s:.2f} s")
+    return launches, dict(ms_per_step=ms_step,
+                          upload_ms=statistics.median(upload_ms),
+                          checkpoint_mb=size_mb, save_s=max(save_s),
+                          load_s=load_s)
+
+
+def jpeg_decoders(cuda_home=None):
+    """What this host offers to decode JPEGs: ``import PIL``, the header and
+    library that ``csrc/fastloader.cpp`` builds against (``jpeglib.h``,
+    ``libjpeg.so*``), and nvJPEG under the CUDA toolkit (``nvjpeg.h``,
+    ``libnvjpeg.so*``). One line of facts; nothing here fails."""
+    import glob
+    import importlib.util
+    cuda_home = cuda_home or os.environ.get("CUDA_HOME", "/usr/local/cuda")
+
+    def found(patterns):
+        hits = sorted({os.path.realpath(h) for pat in patterns
+                       for h in glob.glob(pat)})
+        return ", ".join(hits[:3]) + (" ..." if len(hits) > 3 else "") \
+            if hits else "none"
+
+    pil = importlib.util.find_spec("PIL")
+    if pil is not None:
+        import PIL
+        pil_msg = f"yes ({PIL.__version__})"
+    else:
+        pil_msg = "no"
+    incdirs = ["/usr/include", "/usr/include/*", "/usr/local/include"]
+    libdirs = ["/usr/lib", "/usr/lib64", "/usr/local/lib",
+               "/usr/lib/*-linux-gnu", "/lib/*-linux-gnu"]
+    # the toolkit, and the CUDA wheels beside torch (nvidia/<lib>/...)
+    cuda_dirs = [cuda_home, f"{cuda_home}/targets/*"] + [
+        f"{p}/nvidia/*" for p in sys.path if os.path.isdir(f"{p}/nvidia")]
+    jpeglib = found([f"{d}/jpeglib.h" for d in incdirs])
+    libjpeg = found([f"{d}/libjpeg.so*" for d in libdirs])
+    nvjpeg_h = found([f"{d}/include/nvjpeg.h" for d in cuda_dirs])
+    libnvjpeg = found([f"{d}/lib*/libnvjpeg.so*" for d in cuda_dirs])
+    return (f"import PIL: {pil_msg}; jpeglib.h: {jpeglib}; libjpeg.so*: "
+            f"{libjpeg}; nvjpeg.h: {nvjpeg_h}; libnvjpeg.so*: {libnvjpeg}")
+
+
+def vov99_memory(stem_remat=False, plain=False, steps=2):
+    """The vov99 training step's memory on its own (one process a setting):
+    builds the four training kernels, runs ``steps`` steps and prints each
+    step's host ms and the peak memory above the weights and optimizer
+    state. ``stem_remat`` runs the VoVNet stem as one more checkpointed
+    region (the model keeps its activations, as the JAX VoVNet does);
+    ``plain`` runs the plain versions.
+    ``python3 -c "import chip_smoke; chip_smoke.vov99_memory(True)"``."""
+    import torch
+    from torch.utils.checkpoint import checkpoint
+    sys.path.insert(0, HERE)
+    from sparsebev_tpu_torch.kernels import build
+    dev = torch.device("cuda", 0)
+    label = f"vov99_memory [stem remat {stem_remat}, plain {plain}]"
+    log(f"{label}: {nvidia_smi_line()}")
+    build.build_all(["msmv_pack", "msmv_pack_pair", "msmv_sample",
+                     "msmv_sample_bwd"])
+    _, _, _, new_state, run_step, _ = _train_harness(
+        torch, dev, PATHS[1], VOV_TRAIN_GRAD_PROBES)
+    state = new_state()
+    if stem_remat:
+        backbone = state.model.img_backbone
+        layers = list(backbone._stem)
+
+        def stem(x):
+            for layer in layers:
+                x = layer(x)
+            return x
+
+        backbone._stem = [lambda x: checkpoint(
+            stem, x, use_reentrant=False, preserve_rng_state=False)]
+    held = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    ctx = plain_versions() if plain else contextlib.nullcontext()
+    with ctx:
+        for i in range(steps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            loss = float(run_step(state)["loss"])
+            step_ms = (time.perf_counter() - t0) * 1e3
+            log(f"{label}: step {i + 1}: {step_ms:.1f} ms, loss {loss:.4f}, "
+                f"peak so far "
+                f"{(torch.cuda.max_memory_allocated(dev) - held) / 2**30:.2f} "
+                f"GiB above {held / 2**30:.2f} GiB of weights and optimizer")
 
 
 def bringup_train_kernels():
@@ -2082,6 +2415,8 @@ def main() -> int:
     log(f"env: {smi}; torch {torch.__version__} CUDA {torch.version.cuda}; "
         f"nvcc {nvcc_msg}; import triton: {triton_ok}")
     log(f"env: {visible} card(s) visible; this run uses cuda:0 alone")
+    log("env: JPEG decoders on this host: " + jpeg_decoders(
+        os.path.dirname(os.path.dirname(os.path.realpath(nvcc)))))
     bw, fp32_rate, bf16_rate = peaks(name)
     log(f"env: bound rates for {name}: {bw / 1e12:.2f} TB/s, "
         f"{fp32_rate / 1e12:.0f} TFLOP/s fp32, {bf16_rate / 1e12:.0f} "
@@ -2158,7 +2493,8 @@ def main() -> int:
 
     t0 = time.perf_counter()
     (launches["r50 train"], measured["sampling_bwd"]["r50 train recorded"],
-     _) = training_phase(torch, dev, flush, bw, fp32_rate)
+     _) = training_phase(torch, dev, flush, bw, fp32_rate,
+                         compare_remat=True)
     # (no inference_mode here: the plain backward is autograd)
     check_reduction_rounding(torch, dev)
     measured["sampling_bwd"]["r50 train uniform"] = check_sampling_backward(
@@ -2170,13 +2506,34 @@ def main() -> int:
         *synthetic_train_sampling(torch, dev, torch.float32),
         "r50 train, uniform points", timed=False)
     measured["pack_bwd"]["r50 train"] = check_pack_bwd(torch, dev, flush, bw)
-    launches["pack_pair_bwd vov99 L0"], \
-        measured["pack_pair_bwd"]["vov99 L0"] = check_pack_pair_bwd(
-            torch, dev, flush, bw)
-    del flush
+    _, measured["pack_pair_bwd"]["vov99 L0"] = check_pack_pair_bwd(
+        torch, dev, flush, bw)
     torch.cuda.empty_cache()
     log(f"phase: training (r50, {TRAIN_STEPS} steps, the plain step and the "
         f"three training kernels' checks) took "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    launches["r50 train loop"], _ = runner_phase(torch, dev)
+    log(f"phase: training loop (r50, {RUNNER_EPOCHS} epochs, resume, one "
+        f"more epoch) took {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    vov = PATHS[1]
+    (launches["vov99 train"],
+     measured["sampling_bwd"]["vov99 train recorded"], _) = training_phase(
+         torch, dev, flush, bw, fp32_rate, vov, VOV_TRAIN_GRAD_PROBES)
+    # the pair adjoint at the step's shape: T * 6 images of level 0
+    (h0, w0), = [hw for hw, yf in zip(vov["levels"], vov["yfold"]) if not yf]
+    _, pair_train = check_pack_pair_bwd(
+        torch, dev, flush, bw, shape=(vov["t"] * 6, h0, w0),
+        label="vov99 train")
+    measured["pack_pair_bwd"] = {"vov99 train": pair_train,
+                                 **measured["pack_pair_bwd"]}
+    del flush
+    torch.cuda.empty_cache()
+    log(f"phase: training (vov99, {TRAIN_STEPS} steps, the plain step, the "
+        f"recorded sampling backward and the pair adjoint) took "
         f"{time.perf_counter() - t0:.1f} s")
 
     log(json.dumps(kernels_line(measured, launches)))

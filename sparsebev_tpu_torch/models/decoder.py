@@ -14,12 +14,25 @@ the denoising mask on the self-attention, the classification branch in every
 layer, and gradients through the sampling op and the pack (autograd
 Functions over the CUDA kernels). As in the JAX package the query boxes
 carry no gradient into the attention's distance term nor into the velocity
-warp, and each layer refines a detached box. The JAX decoder's layer remat
-(a memory measure that changes no number) is not ported.
+warp, and each layer refines a detached box.
+
+Layer remat (``with_cp``, on by default in training as in the JAX decoder,
+whose ``nn.remat`` policy saves only the sampled features): a layer runs as
+two non-reentrant ``torch.utils.checkpoint`` regions with the sampling call
+between them. The first region (position MLP, SASA, the offsets, the point
+geometry, the projection and the level weights) keeps its inputs and hands
+out the sampling op's operands; the second (mixing, FFN, branches, refine)
+keeps the sampled features. The sampling forward therefore runs once a layer
+and its backward once a call, and its table gradient goes to the pack's
+``TableGrad`` as without remat. The recompute draws the same dropout masks:
+:func:`~.layers.checkpoint_with_generator` replays the regions with the
+dropout generator's state at their first run. A recompute gives the same
+bits, so the remat changes no number.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Sequence
 
 import torch
@@ -28,8 +41,10 @@ from torch import nn
 
 from ..ops.box_ops import decode_bbox
 from ..ops.geometry import inverse_sigmoid
-from ..ops.projection import make_sample_points, sampling_4d
-from .layers import FFN, LayerNorm, Linear, MultiheadAttention
+from ..ops.projection import (make_sample_points, sampling_4d_operands,
+                              sampling_4d_sample)
+from .layers import (FFN, LayerNorm, Linear, MultiheadAttention,
+                     checkpoint_with_generator, dropout_generator)
 
 
 class SparseBEVSelfAttention(nn.Module):
@@ -82,8 +97,11 @@ class SparseBEVSampling(nn.Module):
         self.scale_weights = Linear(embed_dims,
                                     num_groups * num_points * num_levels)
 
-    def forward(self, query_bbox, query_feat, packed, lidar2img, time_diff,
-                image_h, image_w):
+    def forward(self, query_bbox, query_feat, lidar2img, time_diff, image_h,
+                image_w):
+        """The sampling op's locations and level weights (see
+        ``ops/projection.py::sampling_4d_operands``); :meth:`sample` makes
+        the call."""
         b, q = query_bbox.shape[:2]
         g, p, t = self.num_groups, self.num_points, self.num_frames
         offset = self.sampling_offset(query_feat).reshape(b, q, g * p, 3)
@@ -101,8 +119,13 @@ class SparseBEVSampling(nn.Module):
         sw = self.scale_weights(query_feat).reshape(
             b, q, g, 1, p, self.num_levels).float()
         sw = torch.softmax(sw, dim=-1).expand(b, q, g, t, p, self.num_levels)
-        return sampling_4d(pts_q, packed, sw, lidar2img, image_h, image_w,
-                           num_views=self.num_views)          # [B,Q,G,TP,C]
+        return sampling_4d_operands(pts_q, sw, lidar2img, image_h, image_w,
+                                    num_views=self.num_views)
+
+    def sample(self, packed, loc, sw, b: int):
+        """The sampling call: ``[B, Q, G, T*P, C]``."""
+        return sampling_4d_sample(packed, loc, sw, b, self.num_groups,
+                                  self.num_frames, self.num_views)
 
 
 def _ln2d(t, eps: float = 1e-5):
@@ -198,14 +221,44 @@ class SparseBEVTransformerDecoderLayer(nn.Module):
 
     def forward(self, query_bbox, query_feat, packed, lidar2img, time_diff,
                 image_h, image_w, with_cls: bool = True, attn_mask=None,
-                deterministic: bool = True):
+                deterministic: bool = True, remat: bool = False):
+        """One iteration; ``remat`` runs it as the two checkpointed regions
+        of the module docstring."""
+        attend = functools.partial(self._attend, image_h=image_h,
+                                   image_w=image_w, attn_mask=attn_mask,
+                                   deterministic=deterministic)
+        refine = functools.partial(self._refine, with_cls=with_cls,
+                                   deterministic=deterministic)
+        if remat:
+            gen = dropout_generator(self)
+            query_feat, loc, sw = checkpoint_with_generator(
+                attend, query_bbox, query_feat, lidar2img, time_diff,
+                generator=gen)
+        else:
+            query_feat, loc, sw = attend(query_bbox, query_feat, lidar2img,
+                                         time_diff)
+        sampled = self.sampling.sample(packed, loc, sw, query_bbox.shape[0])
+        if remat:
+            return checkpoint_with_generator(refine, query_bbox, query_feat,
+                                             sampled, time_diff,
+                                             generator=gen)
+        return refine(query_bbox, query_feat, sampled, time_diff)
+
+    def _attend(self, query_bbox, query_feat, lidar2img, time_diff, image_h,
+                image_w, attn_mask, deterministic):
+        """pos-MLP -> SASA -> the sampling operands."""
         cdt = query_feat.dtype
         query_feat = query_feat + self.position_encoder(
             query_bbox[..., :3].to(cdt))
         query_feat = self.norm1(self.self_attn(
             query_bbox, query_feat, attn_mask, deterministic))
-        sampled = self.sampling(query_bbox, query_feat, packed, lidar2img,
-                                time_diff, image_h, image_w)
+        loc, sw = self.sampling(query_bbox, query_feat, lidar2img, time_diff,
+                                image_h, image_w)
+        return query_feat, loc, sw
+
+    def _refine(self, query_bbox, query_feat, sampled, time_diff, with_cls,
+                deterministic):
+        """mixing -> FFN -> cls / reg branches -> refine."""
         query_feat = self.norm2(self.mixing(sampled, query_feat))
         query_feat = self.norm3(self.ffn(query_feat, deterministic))
 
@@ -224,11 +277,14 @@ class SparseBEVTransformerDecoderLayer(nn.Module):
 
 
 class SparseBEVTransformerDecoder(nn.Module):
-    """Runs the one weight-shared layer ``num_layers`` times."""
+    """Runs the one weight-shared layer ``num_layers`` times; ``with_cp``
+    remats each layer in training (module docstring)."""
 
-    def __init__(self, num_layers: int, **layer_kwargs):
+    def __init__(self, num_layers: int, with_cp: bool = True,
+                 **layer_kwargs):
         super().__init__()
         self.num_layers = num_layers
+        self.with_cp = with_cp
         self.decoder_layer = SparseBEVTransformerDecoderLayer(**layer_kwargs)
 
     def forward(self, query_bbox, query_feat, packed, lidar2img, time_diff,
@@ -238,11 +294,13 @@ class SparseBEVTransformerDecoder(nn.Module):
         ("no object": sigmoid ~ 0); in training every layer classifies."""
         bbox_preds, cls_scores = [], []
         last = self.num_layers - 1
+        remat = self.with_cp and not deterministic and torch.is_grad_enabled()
         for i in range(self.num_layers):
             query_feat, cls_score, bbox_pred = self.decoder_layer(
                 query_bbox, query_feat, packed, lidar2img, time_diff,
                 image_h, image_w, with_cls=(not deterministic or i == last),
-                attn_mask=attn_mask, deterministic=deterministic)
+                attn_mask=attn_mask, deterministic=deterministic,
+                remat=remat)
             query_bbox = bbox_pred.detach()
             bbox_preds.append(bbox_pred)
             cls_scores.append(cls_score)

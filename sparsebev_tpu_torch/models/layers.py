@@ -30,6 +30,7 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 
 class CastCache:
@@ -102,6 +103,44 @@ def set_dropout_generator(module: nn.Module,
     for m in module.modules():
         if isinstance(m, Dropout):
             m.generator = generator
+
+
+def dropout_generator(module: nn.Module) -> Optional[torch.Generator]:
+    """The one generator the :class:`Dropout` modules under ``module`` draw
+    from (None: the global generator)."""
+    gens = {id(m.generator): m.generator for m in module.modules()
+            if isinstance(m, Dropout)}
+    if len(gens) > 1:
+        raise ValueError("the dropout sites draw from more than one "
+                         "generator (see set_dropout_generator)")
+    return next(iter(gens.values()), None)
+
+
+def checkpoint_with_generator(fn, *args, generator=None):
+    """``fn(*args)`` as a non-reentrant ``torch.utils.checkpoint`` region
+    whose recompute draws what its first run drew. ``torch.utils.checkpoint``
+    restores only the default generators; a region that draws from an
+    explicit ``generator`` (the dropout of a training step) is replayed with
+    that generator's state at the first run, which is put back afterwards,
+    so the masks and every later draw stay as they were."""
+    if generator is None:
+        return checkpoint(fn, *args, use_reentrant=False)
+    state = generator.get_state()
+    ran = []
+
+    def run(*a):
+        if not ran:
+            ran.append(True)
+            return fn(*a)
+        now = generator.get_state()
+        generator.set_state(state)
+        try:
+            return fn(*a)
+        finally:
+            generator.set_state(now)
+
+    return checkpoint(run, *args, use_reentrant=False,
+                      preserve_rng_state=False)
 
 
 class _AttentionCore(nn.Module):

@@ -15,18 +15,28 @@ package), so bf16 features follow the JAX order. eSE runs in every block
 (the reference's dead SE flag), and blocks after a stage's first add their
 input. Convolutions run through ``F.conv2d`` in channels_last memory.
 
-The depthwise specs (``dw=True``) are not ported yet (ROADMAP Queue 1
-item 13). ``with_cp``, ``frozen_stages`` and ``norm_eval`` are training
-options, accepted for config parity.
+``with_cp`` checkpoints each OSA module while autograd records
+(``torch.utils.checkpoint``, non-reentrant; ``nn.remat(OSAModule)`` in the
+JAX VoVNet): only its input is kept and its activations are recomputed in
+the backward pass. Each stage's max pool runs inside its first block's
+region, so its backward keeps no int64 indices either. A recompute gives
+the same bits, so neither changes a number. The stem is not checkpointed,
+as in the JAX VoVNet.
+
+``frozen_stages`` is enforced by the optimizer's multipliers
+(``train/optim.py``); ``norm_eval`` is accepted for config parity. The
+depthwise specs (``dw=True``) are not ported yet (ROADMAP Queue 1 item 13).
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Any, Dict, Sequence
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from .layers import CastCache
 from .resnet import FrozenBatchNorm2d
@@ -174,6 +184,7 @@ class VoVNet(nn.Module):
                 f"the depthwise VoVNet spec {spec_name} is not ported yet "
                 "(ROADMAP Queue 1 item 13)")
         self.out_features = tuple(out_features)
+        self.with_cp = with_cp
         stem_ch = spec["stem"]
         self.stem = nn.Module()
         self._stem = [
@@ -194,16 +205,28 @@ class VoVNet(nn.Module):
             setattr(self, f"stage{n}", stage)
 
     def forward(self, x):
+        remat = self.with_cp and torch.is_grad_enabled()
         for layer in self._stem:
             x = layer(x)
         outs = [x] if "stem" in self.out_features else []
         for n in range(2, 6):
-            if n != 2:
-                # ceil-mode 3x3/2 max pool: the JAX package's -inf bottom/
-                # right pad then VALID pool
-                x = F.max_pool2d(x, 3, stride=2, ceil_mode=True)
-            for block in getattr(self, f"stage{n}").children():
-                x = block(x)
+            for b, block in enumerate(getattr(self, f"stage{n}").children()):
+                run = block
+                if n != 2 and b == 0:
+                    # the stage's pool runs inside its first block's region:
+                    # its backward then keeps no int64 indices
+                    run = functools.partial(_pool_then, block)
+                if remat:
+                    x = checkpoint(run, x, use_reentrant=False,
+                                   preserve_rng_state=False)
+                else:
+                    x = run(x)
             if f"stage{n}" in self.out_features:
                 outs.append(x)
         return outs
+
+
+def _pool_then(block, x):
+    """ceil-mode 3x3/2 max pool (the JAX package's -inf bottom/right pad,
+    then a VALID pool), then ``block``."""
+    return block(F.max_pool2d(x, 3, stride=2, ceil_mode=True))

@@ -2,7 +2,8 @@
 ``sparsebev_tpu/ops/projection.py``): the box-frame sample-point placement
 (:func:`make_sample_points`), the query-major projection with single-view
 selection (:func:`project_points_qmajor`) and the fold into the sampling op
-(:func:`sampling_4d`).
+(:func:`sampling_4d`, which is :func:`sampling_4d_operands` then
+:func:`sampling_4d_sample`).
 
 One quirk of the reference is kept on purpose: scale weights fold as
 ``(B, G, T)`` while features and locations fold as ``(B, T, G)``. When
@@ -81,7 +82,8 @@ def sampling_4d(sample_points_q: torch.Tensor,
                 num_views: int = 6,
                 eps: float = 1e-5) -> torch.Tensor:
     """Spatio-temporal multi-view sampling, query-major path of the JAX
-    ``sampling_4d`` (its ``sample_points_q`` fast path).
+    ``sampling_4d`` (its ``sample_points_q`` fast path):
+    :func:`sampling_4d_operands` then :func:`sampling_4d_sample`.
 
     Args:
       sample_points_q: ``[Q, B, G, T, P, 3]`` world-space points.
@@ -97,11 +99,43 @@ def sampling_4d(sample_points_q: torch.Tensor,
       ``[B, Q, G, T*P, C]`` sampled features in the sampling accumulator
       dtype (the table dtype for bf16 / fp32 tables).
     """
+    loc, sw = sampling_4d_operands(sample_points_q, scale_weights, lidar2img,
+                                   image_h, image_w, num_views, eps)
+    b, g, t = sample_points_q.shape[1:4]
+    return sampling_4d_sample(packed, loc, sw, b, g, t, num_views)
+
+
+def sampling_4d_operands(sample_points_q: torch.Tensor,
+                         scale_weights: torch.Tensor,
+                         lidar2img: torch.Tensor, image_h: int, image_w: int,
+                         num_views: int = 6, eps: float = 1e-5):
+    """The sampling op's operands: the projected locations ``[Q, B*G*T, P,
+    3]`` and the level weights ``[Q, B*G*T, P, L]`` (fp32), both in the
+    (b, g, t) slice order of the points. (The decoder's layer remat keeps
+    these two and the sampled features, and recomputes what makes them.)"""
     q, b, g, t, p, _ = sample_points_q.shape
     num_levels = scale_weights.shape[-1]
     dev = sample_points_q.device
     loc, _ = project_points_qmajor(sample_points_q, lidar2img, image_h,
                                    image_w, num_views, eps)
+    # weight pairing keeps the (B, G, T) fold quirk: loc slice (g, t) — flat
+    # position j = t*G + g within a sample — takes the weights at flat
+    # position j of the (G, T)-folded weights, i.e. sw[b, j // T, j % T]
+    jmat = (torch.arange(t, device=dev)[None, :] * g
+            + torch.arange(g, device=dev)[:, None])           # [G, T]
+    swf = scale_weights.reshape(b, q, g * t, p, num_levels)
+    sw = torch.index_select(swf, 2, jmat.reshape(-1))         # [B,Q,GT,P,L]
+    sw = sw.permute(1, 0, 2, 3, 4).reshape(q, b * g * t, p, num_levels)
+    return loc.contiguous(), sw.float().contiguous()
+
+
+def sampling_4d_sample(packed, loc: torch.Tensor, sw: torch.Tensor, b: int,
+                       g: int, t: int, num_views: int = 6) -> torch.Tensor:
+    """One :func:`msmv_sampling` call on the operands of
+    :func:`sampling_4d_operands`; returns ``[B, Q, G, T*P, C]``. ``packed``
+    as for :func:`sampling_4d`."""
+    dev = loc.device
+    q, _, p, _ = loc.shape
     if not isinstance(packed, PackedFeatures):
         if get_sampling_impl() == "hybrid":
             # the grouped query-major pack has no one-hot tables, so the
@@ -111,18 +145,9 @@ def sampling_4d(sample_points_q: torch.Tensor,
             warnings.warn(
                 "set_sampling_impl('hybrid') has no effect on sampling_4d's "
                 "grouped pack path; using the XLA y-fold gather",
-                stacklevel=2)
+                stacklevel=3)
         packed = pack_mlvl_feats_grouped(list(packed), num_views,
                                          num_groups=1)
-
-    # weight pairing keeps the (B, G, T) fold quirk: loc slice (g, t) — flat
-    # position j = t*G + g within a sample — takes the weights at flat
-    # position j of the (G, T)-folded weights, i.e. sw[b, j // T, j % T]
-    jmat = (torch.arange(t, device=dev)[None, :] * g
-            + torch.arange(g, device=dev)[:, None])           # [G, T]
-    swf = scale_weights.reshape(b, q, g * t, p, num_levels)
-    sw = torch.index_select(swf, 2, jmat.reshape(-1))         # [B,Q,GT,P,L]
-    sw = sw.permute(1, 0, 2, 3, 4).reshape(q, b * g * t, p, num_levels)
 
     # slice values for the (b, g, t) point order: the packed slice space is
     # (b, t, g)-ordered, composed with any ring slot indirection
@@ -133,8 +158,7 @@ def sampling_4d(sample_points_q: torch.Tensor,
         logical = packed.slice_map.to(dev)[logical]
     view = packed.replace(batch=b * g * t, slice_map=logical)
 
-    final = msmv_sampling(view, loc.contiguous(),
-                          sw.float().contiguous())            # [Q, BGT, P, C]
+    final = msmv_sampling(view, loc, sw)                      # [Q, BGT, P, C]
     c = final.shape[-1]
     final = final.reshape(q, b, g, t * p, c)
     return final.permute(1, 0, 2, 3, 4)                       # [B,Q,G,TP,C]

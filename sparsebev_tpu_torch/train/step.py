@@ -119,3 +119,25 @@ def train_step_from_config(cfg) -> Callable:
         loss_cls_weight=head.get("loss_cls", {}).get("loss_weight", 2.0),
         loss_bbox_weight=head.get("loss_bbox", {}).get("loss_weight", 0.25),
         grad_clip=clip.get("max_norm", 35.0))
+
+
+def make_multi_step(train_step: Callable, num_steps: int) -> Callable:
+    """``num_steps`` steps a call over a stacked batch (leading dim =
+    ``num_steps``; the JAX ``make_multi_step``, a ``lax.scan`` there, a
+    loop here). Returns ``multi_step(state, stacked_batch, generator=None)
+    -> (state, stacked_metrics)`` with every metric stacked along a first
+    dim of ``num_steps``. The steps draw from ``generator`` in turn, as
+    ``num_steps`` single steps given it would."""
+
+    def multi_step(state, stacked_batch: Dict[str, torch.Tensor],
+                   generator: Optional[torch.Generator] = None):
+        metrics = []
+        for i in range(num_steps):
+            state, m = train_step(
+                state, {k: v[i] for k, v in stacked_batch.items()},
+                generator)
+            metrics.append(m)
+        return state, {k: torch.stack([m[k] for m in metrics])
+                       for k in metrics[0]}
+
+    return multi_step

@@ -47,6 +47,11 @@ def test_port_modules_import_without_jax():
                 "losses.l1", "losses.matching", "losses.target",
                 "losses.denoising", "train.optim", "train.step"):
         assert f"sparsebev_tpu_torch.{mod}" in mods
+    # the training loop: its own copies of the JAX package's pure-Python
+    # helpers (registry, logging), checkpoints, hooks and the runner
+    for mod in ("registry", "utils.logging", "utils.checkpoint_io",
+                "train.hooks", "train.runner"):
+        assert f"sparsebev_tpu_torch.{mod}" in mods
     code = (
         "import sys\n"
         f"sys.path.insert(0, {REPO!r})\n"
