@@ -86,7 +86,22 @@ prints its wall time):
      weights bit-equal to the saved ones, every loss finite, the kernels'
      launches a step; ms/step, the upload of a batch, the checkpoint's size
      and its save and load seconds;
-  8. the training step of ``configs/vov99_dd3d_1600x640_trainval_future.py``
+  8. the host data path and the two CLIs at r50 full width, from JPEGs on
+     disk: the port's ``make_synthetic_dataset`` writes a train set (5
+     samples) and a val set (4) in nuScenes' format at 1600x900 with 7
+     sweeps between keyframes (48 JPEGs a sample for T=8); one epoch of the
+     config's train loader alone (samples/s, the JPEG decoder, the host's
+     CPU count, the collated batch's shapes and dtypes, which must equal
+     ``make_host_batch``'s); then, in-process, ``tools/train.main`` on the
+     r50 config with its val split keeping the ground truth (batch 1, 2
+     epochs, a checkpoint, the ``EvalHook`` at epoch 2): finite losses, the
+     checkpoint, NDS and mAP from the hook, the pack, sampling, sampling
+     backward and pack adjoint launches of every step, ms/step as the
+     ``IterTimerHook`` reads it beside phase 7's, the device's busy share
+     over two steps under torch.profiler; and ``tools/val.main`` offline and
+     ``--online`` (with ``--out``) on that checkpoint: ms a sample, the
+     metrics' keys, the pack and sampling launches, what the ring reused;
+  9. the training step of ``configs/vov99_dd3d_1600x640_trainval_future.py``
      at full width (B=1, 1600 + 640 denoising queries, T=15: 90 images of
      1600x640, pair-mode level 0, group-split pack on level 3, VoVNet
      ``with_cp`` and the decoder's layer remat) as in phase 6: launches a
@@ -96,7 +111,7 @@ prints its wall time):
      y-fold and group-split levels), step 1 again with the plain versions;
      then the pair adjoint at the step's shape (90 images of level 0)
      against its plain version and the permute-copy call;
-  9. a ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and last
+ 10. a ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and last
      ``{"ok": true, "device": {...}}``.
 
 Needs one CUDA card (it uses ``cuda:0`` alone); imports nothing of JAX.
@@ -1707,7 +1722,9 @@ def make_host_batch(cfg, seed=0):
     mask = np.zeros((1, max_gt), bool)
     mask[:, :valid] = True
     boxes[~mask] = 0.0
-    labels = rng.integers(0, head["num_classes"], (1, max_gt))
+    # int32 labels, as the loader's collate gives them
+    labels = rng.integers(0, head["num_classes"], (1, max_gt)).astype(
+        np.int32)
     return dict(img=img, lidar2img=l2i.astype(np.float32), time_diff=td,
                 gt_boxes=boxes, gt_labels=labels, gt_mask=mask)
 
@@ -2007,6 +2024,24 @@ def training_phase(torch, dev, flush, bw, fp32_rate, path=None,
     return launches, bwd, figures
 
 
+def _counters():
+    """The launch counters of the r50 training path's four kernels."""
+    from sparsebev_tpu_torch.ops import msmv_pack
+    from sparsebev_tpu_torch.ops import msmv_sampling as ms
+    return dict(pack=msmv_pack.pack_level, sampling=ms.msmv_sampling,
+                sampling_bwd=ms.msmv_sampling_backward,
+                pack_bwd=msmv_pack.pack_level_bwd)
+
+
+def _reset(counters):
+    for c in counters.values():
+        c.launches = 0
+
+
+def _read(counters):
+    return {k: c.launches for k, c in counters.items()}
+
+
 RUNNER_EPOCHS = 2          # then a resume runs epoch 3
 RUNNER_BATCHES = 3         # host batches a epoch (seeds 0, 1, 2)
 
@@ -2035,8 +2070,6 @@ def runner_phase(torch, dev):
     import shutil
     from sparsebev_tpu_torch.config import Config
     from sparsebev_tpu_torch.models.detector import build_detector
-    from sparsebev_tpu_torch.ops import msmv_pack
-    from sparsebev_tpu_torch.ops import msmv_sampling as ms
     from sparsebev_tpu_torch.train import hooks as H
     from sparsebev_tpu_torch.train import optim, step as tstep
     from sparsebev_tpu_torch.train.runner import Runner
@@ -2078,9 +2111,7 @@ def runner_phase(torch, dev):
                              H.SamplerSeedHook(), record],
                       device=dev, seed=0)
 
-    counters = dict(pack=msmv_pack.pack_level, sampling=ms.msmv_sampling,
-                    sampling_bwd=ms.msmv_sampling_backward,
-                    pack_bwd=msmv_pack.pack_level_bwd)
+    counters = _counters()
     head = cfg.model["pts_bbox_head"]
     levels, layers = head["num_levels"], head["num_layers"]
     want = dict(pack=levels, sampling=layers, sampling_bwd=layers,
@@ -2092,10 +2123,9 @@ def runner_phase(torch, dev):
         f"SamplerSeed; work dir {os.path.relpath(work_dir, HERE)}")
     first = _Record()
     run1 = runner(new_state(0), RUNNER_EPOCHS, first)
-    for c in counters.values():
-        c.launches = 0
+    _reset(counters)
     run1.run()
-    launches = {k: c.launches for k, c in counters.items()}
+    launches = _read(counters)
     steps = RUNNER_EPOCHS * RUNNER_BATCHES
     for k, per_step in want.items():
         if launches[k] != per_step * steps:
@@ -2162,6 +2192,288 @@ def runner_phase(torch, dev):
                           upload_ms=statistics.median(upload_ms),
                           checkpoint_mb=size_mb, save_s=max(save_s),
                           load_s=load_s)
+
+
+# the data path's synthetic datasets: nuScenes' camera size, 7 sweeps between
+# keyframes so that the r50 sweep loader takes 8 real frames (48 JPEGs) a
+# sample; train and val from two seeds
+DATA_IMAGE_HW = (900, 1600)
+DATA_SWEEPS_BETWEEN = 7
+DATA_SAMPLES = dict(train=6, val=8)
+DATA_EPOCHS = 2
+# the device-busy window: two steps after the first, inside epoch 1
+PROFILED_STEPS = (3, 4)
+
+
+def _tree_bytes(root):
+    return sum(os.path.getsize(os.path.join(d, f))
+               for d, _, fs in os.walk(root) for f in fs)
+
+
+class _WatchTraining:
+    """A hook that keeps, step by step, the metrics, the ``IterTimerHook``'s
+    ``time`` and ``data_time`` and the kernels' launches; the launches of
+    the ``EvalHook`` (which fires before it at an epoch's end) apart; and a
+    torch.profiler trace of ``PROFILED_STEPS`` (device busy share)."""
+
+    def __init__(self, torch, counters):
+        self.torch, self.counters = torch, counters
+        self.metrics, self.ms, self.data_ms, self.launches = [], [], [], []
+        self.eval_launches = {}
+        self.prof, self.wall_ms = None, None
+        self._last = {}
+
+    def before_run(self, runner):
+        self._last = _read(self.counters)
+
+    def _since_last(self):
+        now = _read(self.counters)
+        diff = {k: now[k] - self._last[k] for k in now}
+        self._last = now
+        return diff
+
+    def after_iter(self, runner, metrics):
+        self.metrics.append(metrics)
+        self.ms.append(runner.log_vars.get("time", 0.0) * 1e3)
+        self.data_ms.append(runner.log_vars.get("data_time", 0.0) * 1e3)
+        self.launches.append(self._since_last())
+        step = runner.global_step
+        if step == PROFILED_STEPS[0] - 1:
+            from torch.profiler import ProfilerActivity, profile
+            self.torch.cuda.synchronize()
+            self.prof = profile(activities=[ProfilerActivity.CPU,
+                                            ProfilerActivity.CUDA])
+            self.prof.start()
+            self._t0 = time.perf_counter()
+        elif step == PROFILED_STEPS[-1]:
+            self.torch.cuda.synchronize()
+            self.wall_ms = (time.perf_counter() - self._t0) * 1e3
+            self.prof.stop()        # its rows are read after the run
+
+    def busy(self):
+        """Device busy ms, device ops and wall ms of the profiled steps."""
+        device = [e for e in self.prof.key_averages()
+                  if _dev_us(e) > 0 and str(e.device_type).endswith("CUDA")]
+        return dict(wall_ms=self.wall_ms, ops=sum(e.count for e in device),
+                    busy_ms=sum(_dev_us(e) for e in device) / 1e3)
+
+    def after_epoch(self, runner):
+        diff = self._since_last()
+        if any(diff.values()):
+            self.eval_launches = diff
+
+
+def data_path_phase(torch, dev, preloaded_ms):
+    """The host data path and the two CLIs at r50 full width, from JPEGs on
+    disk: two synthetic nuScenes-format datasets (train and val, 1600x900,
+    7 sweeps between keyframes), the r50 config with its val split keeping
+    the ground truth, one epoch of the train loader alone, then
+    ``tools/train.main`` (``DATA_EPOCHS`` epochs of batch 1, the EvalHook on
+    the val set at the last epoch, a checkpoint) and ``tools/val.main``
+    offline and ``--online`` on that checkpoint. Each CLI run's launches
+    are reset just before it and read just after. Returns the launch
+    counts of the three runs and the phase's figures."""
+    import shutil
+    import numpy as np
+    from sparsebev_tpu_torch.builder import build_dataloader, build_dataset
+    from sparsebev_tpu_torch.config import Config
+    from sparsebev_tpu_torch.data import fastloader, make_synthetic_dataset
+    from sparsebev_tpu_torch.tools import train as train_cli
+    from sparsebev_tpu_torch.tools import val as val_cli
+
+    label = "data path [r50]"
+    path = PATHS[0]
+    root = os.path.join(HERE, "outputs", "chip_smoke_data")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    # the config with a val split that keeps its ground truth through the
+    # pipeline (as configs/smoke_synthetic.py does), so that the evaluator
+    # has boxes to score; everything else is the config's own
+    base = os.path.join(HERE, path["config"])
+    val_pipeline = [dict(p) for p in Config.fromfile(base).test_pipeline]
+    val_pipeline[-1]["keys"] = ["gt_bboxes_3d", "gt_labels_3d", "img"]
+    config = os.path.join(root, "r50_synthetic_val_with_gt.py")
+    with open(config, "w") as f:
+        f.write(f"_base_ = [{base!r}]\n"
+                f"data = dict(val=dict(test_mode=False, "
+                f"pipeline={val_pipeline!r}))\n")
+    cfg = Config.fromfile(config)
+    anns = {}
+    for seed, (split, n) in enumerate(DATA_SAMPLES.items()):
+        t0 = time.perf_counter()
+        anns[split] = make_synthetic_dataset(
+            os.path.join(root, split), num_samples=n,
+            sweeps_between=DATA_SWEEPS_BETWEEN, image_hw=DATA_IMAGE_HW,
+            seed=seed)
+        sec = time.perf_counter() - t0
+        jpegs = len(os.listdir(os.path.join(root, split, "imgs")))
+        log(f"{label}: wrote the {split} set: {n} samples, {jpegs} JPEGs of "
+            f"{DATA_IMAGE_HW[1]}x{DATA_IMAGE_HW[0]}, "
+            f"{_tree_bytes(os.path.join(root, split)) / 1e6:.1f} MB in "
+            f"{sec:.1f} s ({os.path.relpath(anns[split], HERE)})")
+
+    # the train loader alone, as the config builds it
+    workers = cfg.data.get("workers_per_gpu", 4)
+    dataset = build_dataset(dict(cfg.data["train"], ann_file=anns["train"]))
+    t0 = time.perf_counter()
+    np.random.seed(0)
+    dataset[1]
+    one_ms = (time.perf_counter() - t0) * 1e3
+    loader = build_dataloader(dataset, batch_size=1, num_workers=workers,
+                              shuffle=True, seed=0, max_gt=cfg.max_gt)
+    t0 = time.perf_counter()
+    batches = list(loader)
+    sec = time.perf_counter() - t0
+    ref = make_host_batch(cfg)
+    first = batches[0]
+    log(f"{label}: train loader alone: {len(batches)} samples in {sec:.2f} s "
+        f"= {len(batches) / sec:.2f} samples/s, {sec * 1e3 / len(batches):.1f}"
+        f" ms a sample ({workers} threads, prefetch {loader.prefetch} "
+        f"batches); one sample on one thread {one_ms:.1f} ms; JPEG decoder "
+        f"{fastloader.decoder()}; os.cpu_count() {os.cpu_count()}")
+    log(f"{label}: collated batch: " + ", ".join(
+        f"{k} {tuple(v.shape)} {v.dtype}" for k, v in first.items()
+        if hasattr(v, "shape")))
+    for k, v in ref.items():
+        got = first[k]
+        if got.shape != v.shape or got.dtype != v.dtype:
+            fail(f"{label}: the loader's {k} is {got.shape} {got.dtype}, "
+                 f"make_host_batch's {v.shape} {v.dtype}")
+    loader_sps = len(batches) / sec
+    del batches, first
+
+    # the training CLI, in-process
+    counters = _counters()
+    work = os.path.join(root, "work")
+    watch = _WatchTraining(torch, counters)
+    argv = ["--config", config, "--work-dir", work, "--batch-size", "1",
+            "--epochs", str(DATA_EPOCHS), "--override",
+            f"data.train.ann_file={anns['train']}",
+            f"data.val.ann_file={anns['val']}",
+            f"data.train.data_root={os.path.dirname(anns['train'])}",
+            f"data.val.data_root={os.path.dirname(anns['val'])}",
+            f"checkpoint_config.interval={DATA_EPOCHS}",
+            "checkpoint_config.max_keep_ckpts=1",
+            f"eval_config.interval={DATA_EPOCHS}"]
+    log(f"{label}: python -m sparsebev_tpu_torch.tools.train "
+        + " ".join(os.path.relpath(a, HERE) if a.startswith(HERE) else a
+                   for a in argv))
+    _reset(counters)
+    t0 = time.perf_counter()
+    runner = train_cli.main(argv, extra_hooks=[watch])
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    train_launches = _read(counters)
+    steps = DATA_EPOCHS * DATA_SAMPLES["train"]
+    head = cfg.model["pts_bbox_head"]
+    want = dict(pack=head["num_levels"], sampling=head["num_layers"],
+                sampling_bwd=head["num_layers"], pack_bwd=head["num_levels"])
+    if runner.global_step != steps or len(watch.metrics) != steps:
+        fail(f"{label}: the train CLI took {runner.global_step} steps, "
+             f"{steps} expected")
+    for i, per_step in enumerate(watch.launches):
+        if per_step != want:
+            fail(f"{label}: step {i + 1} launched {per_step}, {want} "
+                 "expected")
+    if not all(math.isfinite(v) for m in watch.metrics for v in m.values()):
+        fail(f"{label}: losses {[m['loss'] for m in watch.metrics]}")
+    ckpts = sorted(f for f in os.listdir(work) if f.startswith("ckpt_"))
+    if ckpts != [f"ckpt_{steps}.pth"]:
+        fail(f"{label}: checkpoints {ckpts}")
+    metrics = runner.eval_results
+    if not metrics or not {"NDS", "mAP"} <= set(metrics) or not all(
+            math.isfinite(v) for v in metrics.values()):
+        fail(f"{label}: the EvalHook returned {metrics}")
+    if not all(watch.eval_launches.get(k, 0) > 0
+               for k in ("pack", "sampling")):
+        fail(f"{label}: the EvalHook launched {watch.eval_launches}")
+    ckpt = os.path.join(work, ckpts[0])
+    del runner
+    torch.cuda.empty_cache()
+    # steady steps: not an epoch's first (the loader starts again), not the
+    # profiled ones nor the one after them (the profiler's teardown)
+    per_epoch = DATA_SAMPLES["train"]
+    steady = [i for i in range(steps) if i % per_epoch != 0
+              and i + 1 not in PROFILED_STEPS
+              and i != PROFILED_STEPS[-1]]
+    ms_step = statistics.median(watch.ms[i] for i in steady)
+    wall_step = statistics.mean(watch.ms[i] + watch.data_ms[i]
+                                for i in steady)
+    busy = watch.busy()
+    log(f"{label}: train CLI: {steps} steps in {train_s:.1f} s (model build, "
+        f"loader, steps, checkpoint and EvalHook); launches a step "
+        + " ".join(f"{k}={v}" for k, v in want.items())
+        + f" (every step), in the EvalHook "
+        + " ".join(f"{k}={v}" for k, v in watch.eval_launches.items()))
+    log(f"{label}: loss per step "
+        + " ".join(f"{m['loss']:.4f}" for m in watch.metrics))
+    log(f"{label}: ms/step (IterTimerHook, host clock) "
+        + " ".join(f"{x:.1f}" for x in watch.ms)
+        + f"; of which data_time (loader wait + upload) "
+        + " ".join(f"{x:.1f}" for x in watch.data_ms)
+        + f"; steps {[i + 1 for i in steady]}: {ms_step:.1f} ms/step (median "
+        f"time) from JPEGs against {preloaded_ms:.1f} on preloaded batches "
+        f"(training loop phase); with the loader wait {wall_step:.1f} ms/step"
+        " (mean time + data_time)")
+    log(f"{label}: steps {PROFILED_STEPS[0]}-{PROFILED_STEPS[-1]} under "
+        f"torch.profiler: wall {busy['wall_ms']:.1f} ms, device busy "
+        f"{busy['busy_ms']:.1f} ms ({100 * busy['busy_ms'] / busy['wall_ms']:.1f}"
+        f"%), idle {100 - 100 * busy['busy_ms'] / busy['wall_ms']:.1f}%, "
+        f"{busy['ops']} device ops")
+    log(f"{label}: EvalHook metrics: " + ", ".join(
+        f"{k} {metrics[k]:.4f}" for k in ("NDS", "mAP", "mATE")))
+
+    # the val CLI on that checkpoint, offline then online
+    val_argv = ["--config", config, "--weights", ckpt, "--override",
+                f"data.val.ann_file={anns['val']}",
+                f"data.val.data_root={os.path.dirname(anns['val'])}"]
+    launches = {"r50 data path train CLI": train_launches}
+    figures = dict(loader_samples_per_s=loader_sps, ms_per_step=ms_step,
+                   wall_ms_per_step=wall_step, busy=busy)
+    for mode in ("offline", "online"):
+        extra = ["--online"] if mode == "online" else []
+        out_json = os.path.join(root, f"submission_{mode}.json")
+        if mode == "online":
+            extra += ["--out", out_json]
+        _reset(counters)
+        t0 = time.perf_counter()
+        out = val_cli.main(val_argv + extra)
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        got = _read(counters)
+        launches[f"r50 data path val {mode}"] = {
+            k: got[k] for k in ("pack", "sampling")}
+        m = out["metrics"]
+        if (m is None or not {"NDS", "mAP"} <= set(m)
+                or not all(math.isfinite(v) for v in m.values())):
+            fail(f"{label}: val {mode} metrics {m}")
+        if got["pack"] == 0 or got["sampling"] == 0:
+            fail(f"{label}: val {mode} launched {got}")
+        n = len(out["results"])
+        if n != DATA_SAMPLES["val"]:
+            fail(f"{label}: val {mode} decoded {n} samples")
+        if mode == "online":
+            with open(out_json) as f:
+                sub = json.load(f)["results"]
+            if sorted(sub) != sorted(out["results"]):
+                fail(f"{label}: the submission holds {len(sub)} samples, "
+                     f"{n} expected")
+        ms_sample = statistics.mean(out["sample_ms"])
+        figures[f"val_{mode}_ms"] = ms_sample
+        cache = (f"; ring: {out['frames_run']} frames ran the backbone, "
+                 f"{out['frames_reused']} were found in the ring"
+                 if mode == "online" else "")
+        log(f"{label}: val {mode}: {n} samples in {sec:.1f} s; ms a sample "
+            "(host clock, synchronized, samples 1..n-1) "
+            + " ".join(f"{x:.1f}" for x in out["sample_ms"])
+            + f" (mean {ms_sample:.1f}; loader wait "
+            + " ".join(f"{x:.1f}" for x in out["wait_ms"][1:])
+            + f"); launches pack={got['pack']} sampling={got['sampling']}"
+            + f"; metrics {sorted(m)}" + cache
+            + (f"; submission {os.path.relpath(out_json, HERE)} holds {n} "
+               "samples" if mode == "online" else ""))
+        torch.cuda.empty_cache()
+    return launches, figures
 
 
 def jpeg_decoders(cuda_home=None):
@@ -2514,9 +2826,17 @@ def main() -> int:
         f"{time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
-    launches["r50 train loop"], _ = runner_phase(torch, dev)
+    launches["r50 train loop"], loop_figures = runner_phase(torch, dev)
     log(f"phase: training loop (r50, {RUNNER_EPOCHS} epochs, resume, one "
         f"more epoch) took {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    data_launches, _ = data_path_phase(torch, dev,
+                                       loop_figures["ms_per_step"])
+    launches.update(data_launches)
+    log(f"phase: data path and CLIs (r50, {DATA_EPOCHS} epochs from JPEGs, "
+        f"the EvalHook, val offline and online) took "
+        f"{time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
     vov = PATHS[1]

@@ -42,6 +42,9 @@ class StreamingDetector:
         # key -> (device tensor, event) from prefetch_upload
         self._pending: dict = {}
         self.ring = None    # per-level table ring (device buffers)
+        # frames that ran the backbone / were found in the ring
+        self.frames_run = 0
+        self.frames_reused = 0
         self._meta = None   # single-frame PackedFeatures geometry
         self._upload_stream = None
 
@@ -59,7 +62,9 @@ class StreamingDetector:
         """frame_imgs_fn: () -> [1, N, H, W, 3] device tensor (lazy, so a
         cache hit uploads nothing). Returns the frame's ring slot."""
         if key in self.slot_of_key:
+            self.frames_reused += 1
             return self.slot_of_key[key]
+        self.frames_run += 1
         fp = self.model.forward_frame_packed(frame_imgs_fn())
         if self.ring is None:
             self._meta = fp.meta(

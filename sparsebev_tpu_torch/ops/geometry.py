@@ -1,7 +1,10 @@
-"""Geometry primitives (counterpart of ``sparsebev_tpu/ops/geometry.py``)."""
+"""Geometry primitives (counterpart of ``sparsebev_tpu/ops/geometry.py``):
+the torch functions of the model, and ``compose_lidar2img`` in numpy for the
+host-side sweep loaders."""
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -33,3 +36,46 @@ def inverse_sigmoid(x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     x1 = x.clamp(min=eps)
     x2 = (1.0 - x).clamp(min=eps)
     return torch.log(x1 / x2)
+
+
+def compose_lidar2img(ego2global_translation_curr,
+                      ego2global_rotation_curr,
+                      lidar2ego_translation_curr,
+                      lidar2ego_rotation_curr,
+                      sensor2global_translation_past,
+                      sensor2global_rotation_past,
+                      cam_intrinsic_past) -> np.ndarray:
+    """4x4 matrix projecting current-keyframe lidar points into a (possibly
+    past/future) camera image (reference loaders/pipelines/loading.py:9-32).
+    Host-side numpy; used by the sweep loaders.
+
+    Derivation: map lidar -> current ego -> global with the current pose,
+    then global -> past camera with the past sensor pose, then apply the
+    camera intrinsics. Returns the combined row-vector-convention matrix
+    ``lidar2img`` such that ``pix_homo = lidar2img @ [x, y, z, 1]^T``.
+    """
+    e2g_r = np.asarray(ego2global_rotation_curr, dtype=np.float64)
+    l2e_r = np.asarray(lidar2ego_rotation_curr, dtype=np.float64)
+    e2g_t = np.asarray(ego2global_translation_curr, dtype=np.float64)
+    l2e_t = np.asarray(lidar2ego_translation_curr, dtype=np.float64)
+    s2g_r = np.asarray(sensor2global_rotation_past, dtype=np.float64)
+    s2g_t = np.asarray(sensor2global_translation_past, dtype=np.float64)
+    intrinsic = np.asarray(cam_intrinsic_past, dtype=np.float64)
+
+    inv = np.linalg.inv
+    # R, T express the past sensor pose in the current lidar frame.
+    m = inv(e2g_r).T @ inv(l2e_r).T
+    r = s2g_r @ m
+    t = s2g_t @ m - (e2g_t @ m + l2e_t @ inv(l2e_r).T)
+
+    lidar2cam_r = inv(r.T)
+    lidar2cam_t = t @ lidar2cam_r.T
+
+    lidar2cam_rt = np.eye(4)
+    lidar2cam_rt[:3, :3] = lidar2cam_r.T
+    lidar2cam_rt[3, :3] = -lidar2cam_t
+
+    viewpad = np.eye(4)
+    viewpad[:intrinsic.shape[0], :intrinsic.shape[1]] = intrinsic
+    lidar2img = (viewpad @ lidar2cam_rt.T).astype(np.float32)
+    return lidar2img

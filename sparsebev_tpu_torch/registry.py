@@ -106,5 +106,8 @@ def build_from_cfg(cfg, registry, default_args=None):
 
 
 # the port builds its models from configs directly (models/detector.py);
-# the training loop's hooks are looked up by name
+# the training loop's hooks, the datasets and the data pipeline's steps are
+# looked up by name
 HOOKS = Registry("hooks")
+DATASETS = Registry("datasets")
+PIPELINES = Registry("pipelines")

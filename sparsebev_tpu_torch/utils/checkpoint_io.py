@@ -105,7 +105,12 @@ def load_torch_checkpoint(path: str) -> Dict[str, torch.Tensor]:
     entry when it has one). Side effect: a top-level ``version`` tag
     (released SparseBEV checkpoints carry one) sets the VERSION singleton, so
     the v0.17.1 yaw convention and decode swap apply."""
-    ckpt = torch.load(path, map_location="cpu", weights_only=False)
+    return reference_state_dict(
+        torch.load(path, map_location="cpu", weights_only=False))
+
+
+def reference_state_dict(ckpt) -> Dict[str, torch.Tensor]:
+    """:func:`load_torch_checkpoint` on a checkpoint already loaded."""
     if isinstance(ckpt, dict) and "version" in ckpt:
         from .version import VERSION
         VERSION.name = str(ckpt["version"])
@@ -168,3 +173,24 @@ def load_pretrained(model: nn.Module, state_dict: Dict[str, torch.Tensor],
     logger.info("loaded %d pretrained tensors; %d model tensors not in the "
                 "checkpoint", loaded, len(missing))
     return {"missing": missing, "unexpected": unexpected}
+
+
+def load_weights(model: nn.Module, path: str,
+                 revise_keys: Sequence[Tuple[str, str]] = ()) -> Optional[int]:
+    """Weights for evaluation: a checkpoint of the training loop (its model
+    state, strictly; its ``extra.version`` restored into VERSION, as the
+    JAX val CLI restores it before any decode) or a reference ``.pth``
+    (through :func:`load_pretrained`, its top-level ``version`` tag
+    applied). Returns the checkpoint's step, or None for a ``.pth``."""
+    payload = torch.load(path, map_location="cpu", weights_only=False)
+    if not (isinstance(payload, dict)
+            and {"model", "step", "extra"} <= set(payload)):
+        load_pretrained(model, reference_state_dict(payload), revise_keys)
+        return None
+    tag = payload["extra"].get("version")
+    if tag is not None:
+        from .version import VERSION
+        VERSION.name = str(tag)
+        logging.info("checkpoint version: %s", VERSION.name)
+    model.load_state_dict(payload["model"], strict=True)
+    return int(payload["step"])

@@ -52,6 +52,12 @@ def test_port_modules_import_without_jax():
     for mod in ("registry", "utils.logging", "utils.checkpoint_io",
                 "train.hooks", "train.runner"):
         assert f"sparsebev_tpu_torch.{mod}" in mods
+    # the host data path, the evaluator and the two CLIs
+    for mod in ("data", "data.box3d", "data.synthetic", "data.fastloader",
+                "data.pipelines", "data.dataset", "data.loader", "builder",
+                "evaluation", "evaluation.results", "evaluation.metrics",
+                "evaluation.loop", "tools", "tools.train", "tools.val"):
+        assert f"sparsebev_tpu_torch.{mod}" in mods
     code = (
         "import sys\n"
         f"sys.path.insert(0, {REPO!r})\n"
