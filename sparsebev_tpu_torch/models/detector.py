@@ -1,6 +1,7 @@
 """SparseBEV detector (counterpart of ``sparsebev_tpu/models/detector.py``):
 on-device augmentation (training) -> normalize -> pad -> ResNet or VoVNet ->
-FPN -> head. Two ways in: the full forward over all T frames
+FPN -> head (an EVA02 backbone carries its own pyramid and has no neck).
+Two ways in: the full forward over all T frames
 (:meth:`SparseBEV.forward`, training and offline evaluation; the head packs
 the pyramids once for its decoder layers), and the streaming unit of work,
 the grouped pack of one frame (y-fold or pair rows per level, the head's
@@ -24,12 +25,13 @@ from ..ops.msmv_sampling import pack_mlvl_feats_grouped
 from .augment import (draw_grid_mask, draw_photometric, grid_mask,
                       photometric_distortion)
 from ..utils.device import resolve_device
+from .eva02 import EVA02
 from .fpn import FPN
 from .head import SparseBEVHead
 from .resnet import ResNet
 from .vovnet import VoVNet
 
-_BACKBONES = {"ResNet": ResNet, "VoVNet": VoVNet}
+_BACKBONES = {"ResNet": ResNet, "VoVNet": VoVNet, "EVA02": EVA02}
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 # head-config keys that parametrize training / decoding, not the module
@@ -68,6 +70,10 @@ class SparseBEV(nn.Module):
             raise NotImplementedError(
                 f"backbone {bb_type} is not ported yet (ROADMAP Queue 1 "
                 "item 13)")
+        if bb_type == "EVA02":
+            # computes in its own dtype flow (models/eva02.py), as the JAX
+            # detector hands the compute dtype to every backbone
+            bb.setdefault("dtype", compute_dtype)
         self.img_backbone = _BACKBONES[bb_type](**bb)
         self.img_neck = None
         if img_neck is not None:
@@ -119,8 +125,13 @@ class SparseBEV(nn.Module):
     def extract_img_feat(self, img: torch.Tensor, train: bool = False,
                          aug_draws: Optional[dict] = None):
         """GridMask (training) -> backbone -> neck on folded images
-        ``[M, H, W, 3]``; returns NHWC pyramids ``[M, H', W', C]`` in the
-        compute dtype."""
+        ``[M, H, W, 3]``; returns NHWC pyramids ``[M, H', W', C]`` cast to
+        the compute dtype (an EVA02 pyramid is fp32, as in JAX)."""
+        if train and isinstance(self.img_backbone, EVA02):
+            raise NotImplementedError(
+                "training an EVA02 backbone is not ported yet (drop path, "
+                "block remat, frozen blocks, an attention backward kernel: "
+                "ROADMAP Queue 1 item 13)")
         if self.use_grid_mask and train:
             draws = (aug_draws or {}).get("grid_mask")
             if draws is None:
@@ -131,7 +142,8 @@ class SparseBEV(nn.Module):
         feats = self.img_backbone(x)
         if self.img_neck is not None:
             feats = self.img_neck(feats)
-        return [f.permute(0, 2, 3, 1).contiguous() for f in feats]
+        return [f.permute(0, 2, 3, 1).to(self.compute_dtype).contiguous()
+                for f in feats]
 
     def extract_feat(self, img: torch.Tensor, train: bool = False,
                      aug_draws: Optional[dict] = None):

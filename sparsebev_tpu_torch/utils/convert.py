@@ -3,9 +3,10 @@
 The port's modules use the reference state-dict key names (``img_backbone.*``,
 ``img_neck.*``, ``pts_bbox_head.*``), so :func:`state_dict_from_jax` is the
 inverse of the JAX package's torch-checkpoint porting
-(``utils/checkpoint_io.py::_port_resnet``, ``_port_vovnet``, ``_port_fpn``,
-``_port_sparsebev_head``): Linear kernels ``[in, out]`` are transposed, conv
-kernels go from HWIO to OIHW, ``in_proj_weight`` is transposed, and the BN
+(``utils/checkpoint_io.py::_port_resnet``, ``_port_vovnet``,
+``_port_eva02``, ``_port_fpn``, ``_port_sparsebev_head``): Linear kernels
+``[in, out]`` are transposed, conv kernels go from HWIO to OIHW,
+``in_proj_weight`` is transposed, and the BN
 ``scale/bias`` params and ``mean/var`` statistics become
 ``weight/bias/running_mean/running_var``. :func:`jax_trees_from_state_dict`
 goes back: parameters or gradients under the port's names into the JAX tree
@@ -103,6 +104,63 @@ def _vovnet(sd, params, stats, prefix="img_backbone."):
                   p["ese"]["fc"]["bias"])
 
 
+# the JAX pyramid's scale index -> the reference's stage and the members of
+# its Sequential in order (None: a layer without parameters); each conv
+# member carries the LN of the same number (``conv1`` -> ``ln1``) as
+# ``.norm`` (``_port_eva02``'s ``layouts``)
+_SFP_LAYOUTS = {
+    "s0": (2, ["deconv1", "ln0", None, "deconv2", "conv1", "conv2"]),
+    "s1": (3, ["deconv1", "conv1", "conv2"]),
+    "s2": (4, ["conv1", "conv2"]),
+    "s3": (5, [None, "conv1", "conv2"]),
+}
+
+
+def _eva02(sd, params, prefix="img_backbone."):
+    """JAX ``vit`` / ``sfp`` -> the reference's detectron2 keys ``net.*`` /
+    ``simfp_{stage}.{j}``. Deconv kernels ``[kh, kw, out, in]`` go to
+    ``[in, out, kh, kw]``, the same axis order as a conv's HWIO -> OIHW."""
+    vit, net = params["vit"], f"{prefix}net."
+    _conv(sd, f"{net}patch_embed.proj", vit["patch_embed"]["kernel"],
+          vit["patch_embed"]["bias"])
+    if "pos_embed" in vit:
+        sd[f"{net}pos_embed"] = _t(vit["pos_embed"])
+    i = 0
+    while f"block{i}" in vit:
+        p, dst = vit[f"block{i}"], f"{net}blocks.{i}"
+        attn = p["attn"]
+        for name, bias in (("q", True), ("k", False), ("v", True)):
+            lin = attn[f"{name}_proj"]["linear"]
+            sd[f"{dst}.attn.{name}_proj.weight"] = _t(
+                np.transpose(np.asarray(lin["kernel"])))
+            if bias:
+                sd[f"{dst}.attn.{name}_bias"] = _t(lin["bias"])
+        _linear(sd, f"{dst}.attn.proj", attn["proj"])
+        for name in ("norm1", "norm2"):
+            _ln(sd, f"{dst}.{name}", p[name])
+        for name in ("w1", "w2", "w3"):
+            _linear(sd, f"{dst}.mlp.{name}", p["mlp"][name])
+        _ln(sd, f"{dst}.mlp.ffn_ln", p["mlp"]["ffn_ln"])
+        if "residual" in p:
+            res = p["residual"]
+            for j in (1, 2, 3):
+                _conv(sd, f"{dst}.residual.conv{j}", res[f"conv{j}"]["kernel"])
+                _ln(sd, f"{dst}.residual.norm{j}", res[f"norm{j}"])
+        i += 1
+    sfp = params["sfp"]
+    for sidx, (stage, members) in _SFP_LAYOUTS.items():
+        for j, member in enumerate(members):
+            if member is None or f"{sidx}_{member}" not in sfp:
+                continue
+            src, dst = sfp[f"{sidx}_{member}"], f"{prefix}simfp_{stage}.{j}"
+            if member.startswith("ln"):
+                _ln(sd, dst, src)
+                continue
+            _conv(sd, dst, src["kernel"], src.get("bias"))
+            if member.startswith("conv"):
+                _ln(sd, f"{dst}.norm", sfp[f"{sidx}_ln{member[-1]}"])
+
+
 def _fpn(sd, params, prefix="img_neck."):
     i = 0
     while f"lateral_conv{i}" in params:
@@ -152,12 +210,16 @@ def state_dict_from_jax(params: Dict[str, Any],
                         batch_stats: Dict[str, Any]) -> "OrderedDict":
     """The port's ``state_dict`` from the JAX detector's ``{params,
     batch_stats}`` trees (leaves as numpy arrays): subtrees ``backbone``
-    (ResNet, or VoVNet when it holds ``stem1``), ``neck`` (FPN) and
-    ``head`` (SparseBEVHead)."""
+    (ResNet; VoVNet when it holds ``stem1``; EVA02, which keeps no batch
+    statistics, when it holds ``vit``), ``neck`` (FPN) and ``head``
+    (SparseBEVHead)."""
     sd: "OrderedDict[str, torch.Tensor]" = OrderedDict()
     if "backbone" in params:
-        bb = _vovnet if "stem1" in params["backbone"] else _resnet
-        bb(sd, params["backbone"], batch_stats["backbone"])
+        if "vit" in params["backbone"]:
+            _eva02(sd, params["backbone"])
+        else:
+            bb = _vovnet if "stem1" in params["backbone"] else _resnet
+            bb(sd, params["backbone"], batch_stats["backbone"])
     if "neck" in params:
         _fpn(sd, params["neck"])
     if "head" in params:

@@ -1,0 +1,421 @@
+"""The port's EVA02 backbone (``sparsebev_tpu_torch/models/eva02.py``) and
+its attention op (``ops/eva_attention.py``, the plain version on the CPU)
+against the JAX package's ``sparsebev_tpu/models/eva02.py``, unit by unit,
+on seeded inputs.
+
+The small EVA02: embed 64, 4 heads of 16, depth 3 (block 0 windowed over a
+3x5 token grid padded to 4x6 by 2x2 windows, block 1 global, block 2 global
+with the residual block), ``real_img_size`` 48x80, pretrain grid 2x2 (plus
+the cls token) resized to 3x5, the pyramid at all four scales with the top
+block, 32 channels. The JAX parameters get seeded noise and cross into the
+port through ``state_dict_from_jax``. fp32 outputs agree within 1e-5 of
+each output's scale (the two frameworks sum products and reductions in
+other orders). Under a bf16 compute dtype both trunks run in fp32 after the
+patch embed (flax promotes a bf16 input against fp32 parameters); the
+pyramid's bf16 convolutions round where JAX rounds, so it agrees within
+2^-8 of its scale (one bf16 ulp)."""
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from sparsebev_tpu.models import eva02 as jeva
+from sparsebev_tpu.utils.checkpoint_io import port_torch_params
+
+from sparsebev_tpu_torch.models import eva02 as teva
+from sparsebev_tpu_torch.models.detector import build_detector
+from sparsebev_tpu_torch.ops import eva_attention as tatt
+from sparsebev_tpu_torch.utils.checkpoint_io import load_pretrained
+from sparsebev_tpu_torch.utils.convert import state_dict_from_jax
+
+torch.set_num_threads(1)
+
+IMG_HW = (48, 80)
+KW = dict(img_size=64, real_img_size=IMG_HW, patch_size=16, embed_dim=64,
+          depth=3, num_heads=4, window_size=2, window_block_indexes=(0,),
+          residual_block_indexes=(2,), fpn_out_channels=32,
+          fpn_scale_factors=(4.0, 2.0, 1.0, 0.5), fpn_top_block=True,
+          pretrain_img_size=32)
+FP32_TOL = 1e-5         # of each output's max abs
+BF16_TOL = 2.0 ** -8
+
+
+def _close(got, want, rel, what=""):
+    got = np.asarray(got, np.float32)
+    want = np.asarray(want, np.float32)
+    assert got.shape == want.shape, (what, got.shape, want.shape)
+    scale = max(1.0, float(np.abs(want).max()))
+    err = float(np.abs(got - want).max())
+    assert err <= rel * scale, f"{what}: {err} > {rel} x {scale}"
+
+
+def _noise(tree, rng):
+    def leaf(path, x):
+        name = str(getattr(path[-1], "key", path[-1]))
+        x = np.asarray(x)
+        if name == "kernel":
+            return (rng.randn(*x.shape) / np.sqrt(np.prod(x.shape[:-1]))
+                    ).astype(np.float32)
+        if name == "scale":
+            return rng.uniform(0.8, 1.2, x.shape).astype(np.float32)
+        return (x + 0.1 * rng.randn(*x.shape)).astype(np.float32)
+    return jax.tree_util.tree_map_with_path(leaf, tree)
+
+
+def _image(rng, b=2):
+    return rng.randn(b, *IMG_HW, 3).astype(np.float32)
+
+
+@pytest.fixture(scope="module")
+def pair():
+    """The JAX EVA02's noised params and the port module carrying them."""
+    rng = np.random.RandomState(0)
+    x = _image(rng)
+    jm = jeva.EVA02(**KW)
+    params = _noise(jm.init(jax.random.PRNGKey(0), jnp.asarray(x))["params"],
+                    rng)
+    tm = teva.EVA02(**KW)
+    sd = state_dict_from_jax({"backbone": params}, {})
+    prefix = "img_backbone."
+    tm.load_state_dict({k[len(prefix):]: v for k, v in sd.items()},
+                       strict=True)
+    return params, tm.eval()
+
+
+# -------------------------------------------------------------- helpers --
+
+@pytest.mark.parametrize("args", [
+    (16, 16, 8, None), (16, 16, 4, (6, 10)), (16, 16, 2, None),
+    (16, 16, 4, (3, 5)), (64, 16, 16, None), (64, 16, 96, (40, 100))])
+def test_rope_tables_bit_equal(args):
+    hd, pt, ft, real = args
+    for got, want in zip(teva.build_rope_tables(hd, pt, ft,
+                                                real_img_size=real),
+                         jeva.build_rope_tables(hd, pt, ft,
+                                                real_img_size=real)):
+        assert got.dtype == want.dtype and np.array_equal(got, want)
+
+
+@pytest.mark.parametrize("src,dst", [(14, 40), (14, 100), (2, 3), (96, 40),
+                                     (5, 5)])
+def test_bicubic_matrix_and_resize_bit_equal(src, dst):
+    assert np.array_equal(teva._bicubic_matrix(src, dst),
+                          jeva._bicubic_matrix(src, dst))
+    x = np.random.RandomState(src).randn(src, 7, 3).astype(np.float32)
+    assert np.array_equal(teva._bicubic_resize(x, (dst, 4)),
+                          jeva._bicubic_resize(x, (dst, 4)))
+
+
+@pytest.mark.parametrize("table_dtype", ["float32", "bfloat16"])
+def test_apply_rope_matches_jax(table_dtype):
+    rng = np.random.RandomState(1)
+    cos, sin = jeva.build_rope_tables(16, 16, 4)
+    t = rng.randn(3, 16, 4, 16).astype(np.float32)
+    jdt = getattr(jnp, table_dtype)
+    tdt = getattr(torch, table_dtype)
+    want = jeva.apply_rope(jnp.asarray(t), jnp.asarray(cos).astype(jdt),
+                           jnp.asarray(sin).astype(jdt))
+    got = teva.apply_rope(torch.from_numpy(t),
+                          torch.from_numpy(cos).to(tdt),
+                          torch.from_numpy(sin).to(tdt))
+    assert got.dtype == torch.float32 and want.dtype == jnp.float32
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    np.testing.assert_array_equal(
+        teva._rotate_half(torch.tensor([[1.0, 2.0, 3.0, 4.0]])).numpy(),
+        [[-2.0, 1.0, -4.0, 3.0]])
+
+
+@pytest.mark.parametrize("hw,ws", [((10, 14), 4), ((8, 8), 4), ((3, 5), 2),
+                                   ((40, 100), 16)])
+def test_window_partition_matches_jax(hw, ws):
+    rng = np.random.RandomState(2)
+    x = rng.randn(2, *hw, 8).astype(np.float32)
+    jw, jpad = jeva.window_partition(jnp.asarray(x), ws)
+    tw, tpad = teva.window_partition(torch.from_numpy(x), ws)
+    assert tuple(tpad) == tuple(jpad)
+    np.testing.assert_array_equal(tw.numpy(), np.asarray(jw))
+    back = teva.window_unpartition(tw, ws, tpad, hw)
+    np.testing.assert_array_equal(back.numpy(), x)
+    np.testing.assert_array_equal(
+        back.numpy(), np.asarray(jeva.window_unpartition(jw, ws, jpad, hw)))
+    if hw == (40, 100):
+        assert tw.shape[0] == 2 * 21       # 48x112: 3 x 7 windows a view
+
+
+# ------------------------------------------------------------ attention --
+
+def _qkv(rng, b, n, h, hd, scale=1.0):
+    return [(rng.randn(b, n, h, hd) * scale).astype(np.float32)
+            for _ in range(3)]
+
+
+@pytest.mark.parametrize("shape", [(3, 16, 4, 16), (2, 37, 2, 64),
+                                   (1, 256, 2, 64)])
+def test_attention_plain_matches_jax(shape):
+    q, k, v = _qkv(np.random.RandomState(3), *shape, scale=2.0)
+    want = jax.nn.dot_product_attention(*map(jnp.asarray, (q, k, v)))
+    got = tatt.eva_attention(*map(torch.from_numpy, (q, k, v)))
+    _close(got.numpy(), want, FP32_TOL, "attention")
+
+
+@pytest.mark.parametrize("n", [700, 2100])
+def test_attention_plain_matches_jax_chunked(n):
+    """Above 512 tokens against ``_chunked_attention``; at 2100 the port's
+    plain version takes its query chunks too (above 2048)."""
+    q, k, v = _qkv(np.random.RandomState(4), 1, n, 2, 16)
+    want = jeva._chunked_attention(*map(jnp.asarray, (q, k, v)))
+    got = tatt.eva_attention_plain(*map(torch.from_numpy, (q, k, v)))
+    _close(got.numpy(), want, FP32_TOL, "chunked attention")
+    if n > tatt.CHUNK_ABOVE:
+        one = tatt._attention_core(*map(torch.from_numpy, (q, k, v)))
+        _close(got.numpy(), one.numpy(), FP32_TOL, "chunks vs one call")
+
+
+def test_attention_plain_bf16_matches_jax():
+    q, k, v = _qkv(np.random.RandomState(5), 2, 24, 2, 16)
+    want = jax.nn.dot_product_attention(
+        *(jnp.asarray(a).astype(jnp.bfloat16) for a in (q, k, v)))
+    got = tatt.eva_attention(
+        *(torch.from_numpy(a).to(torch.bfloat16) for a in (q, k, v)))
+    assert got.dtype == torch.bfloat16
+    _close(got.float().numpy(), np.asarray(want.astype(jnp.float32)),
+           2.0 ** -7, "bf16 attention")
+
+
+def test_attention_cuda_branch_refuses_other_devices():
+    q = torch.zeros(1, 4, 16, 64)
+    with pytest.raises(ValueError, match="no kernel for device"):
+        tatt._eva_attention_cuda(q, q, q)
+    with pytest.raises(ValueError, match="shape"):
+        tatt.eva_attention_plain(q, q[:, :2], q)
+
+
+# -------------------------------------------------------------- modules --
+
+def _tokens(rng, b, h, w, c=64):
+    return rng.randn(b, h, w, c).astype(np.float32)
+
+
+def _tables(kind):
+    if kind == "win":
+        return jeva.build_rope_tables(16, 16, 2)
+    return jeva.build_rope_tables(16, 16, 4, real_img_size=(3, 5))
+
+
+def test_swiglu_matches_jax(pair):
+    params, tm = pair
+    x = _tokens(np.random.RandomState(6), 2, 3, 5)
+    p = params["vit"]["block1"]["mlp"]
+    want = jeva.SwiGLU(int(64 * 4 * 2 / 3), 64).apply({"params": p},
+                                                      jnp.asarray(x))
+    with torch.no_grad():
+        got = tm.net.blocks[1].mlp(torch.from_numpy(x))
+    assert tm.net.blocks[1].mlp.w1.out_features == 170
+    _close(got.numpy(), want, FP32_TOL, "SwiGLU")
+
+
+@pytest.mark.parametrize("kind", ["win", "glb"])
+def test_eva_attention_matches_jax(pair, kind):
+    params, tm = pair
+    rng = np.random.RandomState(7)
+    blk = 0 if kind == "win" else 1
+    x = _tokens(rng, 4 if kind == "win" else 2, *((2, 2) if kind == "win"
+                                                   else (3, 5)))
+    cos, sin = _tables(kind)
+    want = jeva.EvaAttention(64, 4).apply(
+        {"params": params["vit"][f"block{blk}"]["attn"]}, jnp.asarray(x),
+        jnp.asarray(cos), jnp.asarray(sin))
+    with torch.no_grad():
+        got = tm.net.blocks[blk].attn(torch.from_numpy(x),
+                                      torch.from_numpy(cos),
+                                      torch.from_numpy(sin))
+    _close(got.numpy(), want, FP32_TOL, "EvaAttention")
+
+
+@pytest.mark.parametrize("blk", [0, 1, 2])
+def test_eva_block_matches_jax(pair, blk):
+    """Block 0 windowed (a padded grid), 1 global, 2 global with the
+    residual block."""
+    params, tm = pair
+    x = _tokens(np.random.RandomState(8), 2, 3, 5)
+    cos, sin = _tables("win" if blk == 0 else "glb")
+    jb = jeva.EvaBlock(64, 4, 4 * 2 / 3, window_size=2 if blk == 0 else 0,
+                       use_residual_block=blk == 2)
+    want = jb.apply({"params": params["vit"][f"block{blk}"]},
+                    jnp.asarray(x), jnp.asarray(cos), jnp.asarray(sin))
+    with torch.no_grad():
+        got = tm.net.blocks[blk](torch.from_numpy(x), torch.from_numpy(cos),
+                                 torch.from_numpy(sin))
+    _close(got.numpy(), want, FP32_TOL, f"EvaBlock {blk}")
+
+
+def test_res_bottleneck_block_matches_jax(pair):
+    params, tm = pair
+    x = _tokens(np.random.RandomState(9), 2, 3, 5)
+    p = params["vit"]["block2"]["residual"]
+    want = jeva.ResBottleneckBlock(64).apply({"params": p}, jnp.asarray(x))
+    with torch.no_grad():
+        got = tm.net.blocks[2].residual(torch.from_numpy(x))
+    _close(got.numpy(), want, FP32_TOL, "ResBottleneckBlock")
+    # the reference zero-initialises its last norm: the block starts as the
+    # identity
+    fresh = teva.ResBottleneckBlock(8)
+    y = torch.randn(1, 2, 2, 8)
+    assert torch.equal(fresh(y), y)
+
+
+def _jax_vit(dtype=None):
+    keys = ("img_size", "real_img_size", "patch_size", "embed_dim", "depth",
+            "num_heads", "window_size", "window_block_indexes",
+            "residual_block_indexes", "pretrain_img_size")
+    return jeva.ViT(dtype=dtype, **{k: KW[k] for k in keys})
+
+
+def test_vit_matches_jax(pair):
+    params, tm = pair
+    x = _image(np.random.RandomState(10))
+    want = _jax_vit().apply({"params": params["vit"]}, jnp.asarray(x))
+    with torch.no_grad():
+        got = tm.net(torch.from_numpy(x))
+    _close(got.numpy(), want, FP32_TOL, "ViT")
+    # the pretrain grid (2x2) resized to the 3x5 tokens, torch-bicubic
+    jpos = _jax_vit().apply({"params": params["vit"]}, 3, 5,
+                            method=jeva.ViT._abs_pos)
+    with torch.no_grad():
+        _close(tm.net._abs_pos(3, 5).numpy(), jpos, FP32_TOL, "abs pos")
+
+
+def test_simple_feature_pyramid_matches_jax(pair):
+    params, tm = pair
+    feat = _tokens(np.random.RandomState(11), 2, 3, 5)
+    want = jeva.SimpleFeaturePyramid(32, (4.0, 2.0, 1.0, 0.5), True).apply(
+        {"params": params["sfp"]}, jnp.asarray(feat))
+    with torch.no_grad():
+        got = teva.SimpleFeaturePyramid.forward(tm, torch.from_numpy(feat))
+    assert [tuple(g.shape) for g in got] == [
+        (2, 12, 20, 32), (2, 6, 10, 32), (2, 3, 5, 32), (2, 1, 2, 32),
+        (2, 1, 1, 32)]
+    assert tm.stage_names == ["simfp_2", "simfp_3", "simfp_4", "simfp_5"]
+    for i, (g, w) in enumerate(zip(got, want)):
+        _close(g.numpy(), w, FP32_TOL, f"pyramid level {i}")
+
+
+def test_eva02_matches_jax(pair):
+    params, tm = pair
+    x = _image(np.random.RandomState(12))
+    want = jeva.EVA02(**KW).apply({"params": params}, jnp.asarray(x))
+    with torch.no_grad():
+        got = tm(torch.from_numpy(x).permute(0, 3, 1, 2))
+    for i, (g, w) in enumerate(zip(got, want)):
+        assert g.dtype == torch.float32
+        _close(g.permute(0, 2, 3, 1).numpy(), w, FP32_TOL, f"level {i}")
+
+
+def test_bf16_dtype_flow_matches_jax(pair):
+    """Under a bf16 compute dtype: the patch embed and the position add in
+    bf16, every block output fp32 on both sides (block 0 multiplies by
+    bf16-rounded RoPE tables), the pyramid fp32 within one bf16 ulp."""
+    params, _ = pair
+    x = _image(np.random.RandomState(13))
+    jm = jeva.EVA02(dtype=jnp.bfloat16, **KW)
+    want, inter = jm.apply({"params": params},
+                           jnp.asarray(x).astype(jnp.bfloat16),
+                           capture_intermediates=True)
+    vit = inter["intermediates"]["vit"]
+    jdt = {name: vit[name]["__call__"][0].dtype
+           for name in ("patch_embed", "block0", "block1", "block2")}
+    assert jdt == {"patch_embed": jnp.bfloat16, "block0": jnp.float32,
+                   "block1": jnp.float32, "block2": jnp.float32}
+
+    tm = teva.EVA02(dtype=torch.bfloat16, **KW)
+    sd = state_dict_from_jax({"backbone": params}, {})
+    tm.load_state_dict({k[len("img_backbone."):]: v for k, v in sd.items()})
+    seen = {}
+    hooks = [tm.net.patch_embed.register_forward_hook(
+        lambda m, a, out: seen.__setitem__("patch_embed", out))]
+    for i, blk in enumerate(tm.net.blocks):
+        hooks.append(blk.register_forward_hook(
+            lambda m, a, out, i=i: seen.__setitem__(f"block{i}", out)))
+        hooks.append(blk.register_forward_pre_hook(
+            lambda m, a, i=i: seen.__setitem__(f"cos{i}", a[1])))
+    with torch.no_grad():
+        got = tm(torch.from_numpy(x).to(torch.bfloat16).permute(0, 3, 1, 2))
+    for h in hooks:
+        h.remove()
+    assert seen["patch_embed"].dtype == torch.bfloat16
+    assert [seen[f"block{i}"].dtype for i in range(3)] == [torch.float32] * 3
+    assert seen["cos0"].dtype == torch.bfloat16
+    assert seen["cos1"].dtype == seen["cos2"].dtype == torch.float32
+    for name in ("patch_embed", "block0", "block2"):
+        _close(seen[name].float().numpy(),
+               np.asarray(vit[name]["__call__"][0].astype(jnp.float32)),
+               BF16_TOL, f"bf16 {name}")
+    for i, (g, w) in enumerate(zip(got, want)):
+        assert g.dtype == torch.float32 and w.dtype == jnp.float32
+        _close(g.permute(0, 2, 3, 1).numpy(), w, BF16_TOL,
+               f"bf16 level {i}")
+
+
+# ------------------------------------------------- weights and detector --
+
+def _detector_cfg(compute_dtype="float32", residual=(2,)):
+    bb = dict(KW, type="EVA02", residual_block_indexes=residual)
+    return {"model": dict(
+        type="SparseBEV", compute_dtype=compute_dtype,
+        img_backbone=bb, img_neck=None,
+        pts_bbox_head=dict(type="SparseBEVHead", num_classes=10,
+                           in_channels=32, num_query=16, num_frames=2,
+                           num_points=2, num_layers=2, num_levels=5,
+                           code_size=10,
+                           pc_range=[-51.2, -51.2, -5.0, 51.2, 51.2, 3.0]))}
+
+
+def test_load_pretrained_matches_port_torch_params():
+    """A synthetic checkpoint with the reference's detectron2 keys
+    (``backbone.net.*``, ``backbone.simfp_*``, and a key the model lacks)
+    loads into the port as JAX's ``port_torch_params(backbone_type=
+    "EVA02")`` ports it."""
+    model = build_detector(_detector_cfg(residual=()), device="cpu")
+    gen = torch.Generator().manual_seed(0)
+    ckpt = {"backbone." + k[len("img_backbone."):]:
+            torch.randn(v.shape, generator=gen)
+            for k, v in model.state_dict().items()
+            if k.startswith("img_backbone.")}
+    ckpt["backbone.net.blocks.0.attn.rope.freqs_cos"] = torch.zeros(4, 16)
+    out = load_pretrained(model, ckpt)
+    assert out["unexpected"] == ["img_backbone.net.blocks.0.attn.rope"
+                                 ".freqs_cos"]
+    assert not [k for k in out["missing"] if k.startswith("img_backbone.")]
+    ported = port_torch_params({k: v.numpy() for k, v in ckpt.items()},
+                               backbone_type="EVA02")
+    want = state_dict_from_jax({"backbone": ported["params"]["backbone"]},
+                               {})
+    own = model.state_dict()
+    assert len(want) == len(ckpt) - 1
+    for k, v in want.items():
+        assert torch.equal(own[k], v), k
+
+
+def test_train_true_raises_not_implemented():
+    model = build_detector(_detector_cfg(), device="cpu", seed=0)
+    img = torch.zeros(1, 12, *IMG_HW, 3)
+    l2i = torch.eye(4).expand(1, 12, 4, 4)
+    td = torch.zeros(1, 2)
+    with pytest.raises(NotImplementedError, match="EVA02"):
+        model(img, l2i, td, train=True)
+
+
+def test_bf16_detector_casts_the_pyramid():
+    """The EVA02 pyramid is fp32; the detector casts every level to the
+    compute dtype, as the JAX detector does."""
+    model = build_detector(_detector_cfg("bfloat16"), device="cpu", seed=0)
+    assert model.img_backbone.dtype == torch.bfloat16
+    with torch.no_grad():
+        feats = model.extract_img_feat(
+            torch.randn(2, *IMG_HW, 3, generator=torch.Generator()
+                        .manual_seed(0)))
+    assert [f.dtype for f in feats] == [torch.bfloat16] * 5
+    assert all(f.is_contiguous() for f in feats)

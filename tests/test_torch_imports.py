@@ -1,7 +1,8 @@
 """The port stands alone: no module of ``sparsebev_tpu_torch`` and nothing
-``chip_smoke.py`` loads imports ``jax`` or the JAX package, and the smoke
-script refuses to run (printing no result) without a card or without the
-package beside it."""
+``chip_smoke.py`` loads imports ``jax`` or the JAX package, no module calls
+a library attention in place of its own kernel, and the smoke script refuses
+to run (printing no result) without a card or without the package beside
+it."""
 
 import os
 import pkgutil
@@ -58,6 +59,9 @@ def test_port_modules_import_without_jax():
                 "evaluation", "evaluation.results", "evaluation.metrics",
                 "evaluation.loop", "tools", "tools.train", "tools.val"):
         assert f"sparsebev_tpu_torch.{mod}" in mods
+    # the EVA02 backbone and its attention op
+    for mod in ("models.eva02", "ops.eva_attention"):
+        assert f"sparsebev_tpu_torch.{mod}" in mods
     code = (
         "import sys\n"
         f"sys.path.insert(0, {REPO!r})\n"
@@ -88,6 +92,21 @@ def test_port_sources_name_no_jax_import():
     assert not bad, "".join(bad)
 
 
+def test_port_never_names_a_library_attention():
+    """The EVA02 attention is the port's own kernel
+    (``csrc/eva_attention.cu``): no source of the package names
+    ``scaled_dot_product_attention`` (``chip_smoke.py`` times it only as a
+    yardstick)."""
+    bad = []
+    for d, _, fs in os.walk(PKG):
+        for f in fs:
+            if f.endswith((".py", ".cu")):
+                with open(os.path.join(d, f)) as fh:
+                    if "scaled_dot_product_attention" in fh.read():
+                        bad.append(os.path.relpath(os.path.join(d, f), REPO))
+    assert not bad, bad
+
+
 def test_chip_smoke_fails_without_a_card():
     out = subprocess.run([sys.executable, "chip_smoke.py"],
                          capture_output=True, text=True, cwd=REPO,
@@ -109,13 +128,21 @@ def test_chip_smoke_fails_alone(tmp_path):
 
 @pytest.mark.parametrize("src", ["msmv_pack", "msmv_pack_pair",
                                  "msmv_sample", "msmv_sample_bwd",
-                                 "msmv_onehot", "mixing", "tap_fold"])
+                                 "msmv_onehot", "mixing", "tap_fold",
+                                 "eva_attention"])
 def test_cuda_sources_declare_their_tpu_kernel_and_bound(src):
     """Each kernel source notes the TPU function it replaces, its bound and
     its design, and exports the C entry its wrapper binds."""
     with open(os.path.join(PKG, "csrc", f"{src}.cu")) as fh:
         text = fh.read()
-    assert "Replaces: sparsebev_tpu/ops/" in text
+    if src == "eva_attention":
+        # an XLA op of the JAX model (jax.nn.dot_product_attention), not a
+        # Pallas kernel
+        assert "Replaces: sparsebev_tpu/models/eva02.py" in text
+        assert "int eva_attention_forward(" in text
+        assert text.count("__global__") == 1
+    else:
+        assert "Replaces: sparsebev_tpu/ops/" in text
     assert "Bound:" in text and "Design:" in text
     assert f"{src}_error_string" in text
     assert "return cudaGetLastError()" in text.replace("(int)", "")
@@ -134,7 +161,8 @@ def test_cuda_sources_declare_their_tpu_kernel_and_bound(src):
         assert f"int {src}_level_bwd(" in text
         assert text.count("__global__") == 2
         assert "_bwd (:" in text            # the JAX adjoint it replaces
-    if src in ("msmv_sample", "msmv_sample_bwd", "msmv_onehot", "mixing"):
+    if src in ("msmv_sample", "msmv_sample_bwd", "msmv_onehot", "mixing",
+               "eva_attention"):
         # the kernels redesigned for the H100 stay hand-written: no library
         # GEMM takes their place
         assert "cublas" not in text.lower()
@@ -148,7 +176,7 @@ def test_every_cuda_source_is_covered_and_built_by_the_smoke_run():
                      if f.endswith(".cu"))
     assert sources == sorted(["msmv_pack", "msmv_pack_pair", "msmv_sample",
                               "msmv_sample_bwd", "msmv_onehot", "mixing",
-                              "tap_fold"])
+                              "tap_fold", "eva_attention"])
     with open(os.path.join(REPO, "chip_smoke.py")) as fh:
         smoke = fh.read()
     for src in sources:
