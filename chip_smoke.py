@@ -16,7 +16,8 @@ prints its wall time):
      tap-fold epilogue and the EVA02 attention; for the sampling forward
      and backward, the one-hot sampler, the mixing core and the attention,
      what ``ptxas -v`` reports per kernel (registers, shared memory, stack
-     frame, spills);
+     frame, spills), and the tensor-core opcodes in the attention kernel's
+     SASS (``cuobjdump -sass``: it must hold TF32 HMMA);
   3. the first three kernels at the shapes of each streaming path that runs
      them against their plain PyTorch versions on the same inputs (bit for
      bit; the sampling op in fp32 within 1e-5 of the output scale), timed
@@ -25,8 +26,13 @@ prints its wall time):
      is checked in both of its accumulation orders (with and without a
      group-split level), and again at P=8 for the EVA02 path; the EVA02
      attention at its global (6 x 4000 tokens) and windowed (126 x 256)
-     shapes within ``ATTENTION_TOL`` of its plain version, timed beside
-     ``F.scaled_dot_product_attention``;
+     shapes within ``ATTENTION_TOL`` of its plain version, timed beside its
+     3xTF32 bound and ``F.scaled_dot_product_attention`` (whose kernels are
+     named from a profiler trace); the packs again on fp32 tables at the
+     eva02 shapes; then a ResNet-50 stage conv recorded on an fp32 frame
+     pass of the r50 config with the process-wide cuDNN TF32 flag on,
+     against the CPU in fp64 within ``CONV_FP32_TOL`` of its scale (the
+     error TF32 would give is printed);
   4. streaming inference at full width with seeded random weights, one new
      frame per sample of a synthetic 6-camera stream, for each path:
      ``configs/r50_nuimg_704x256.py`` (12 samples, T=8, 704x256) and
@@ -34,21 +40,27 @@ prints its wall time):
      1600x640, pair level 0) and
      ``configs/vit_eva02_1600x640_trainval_future.py`` (6 samples: EVA02
      ViT-L, 16 windowed and 8 global blocks, its own pyramid, P=8; 24
-     attention launches a new frame). The kernel launch counts are reset
-     just before each path's run and read just after it; the outputs must
-     be finite and match a second run of the same stream that uses the
-     plain versions. Each path's breakdown also times a first sample's T
-     frame passes back to back. One more sample of the r50 and vov99
-     streams records the inputs of the next phase: an ``AdaptiveMixing``
-     call's operands (a forward hook), and at r50 one sampling call's
-     points and the sample's T frames of FPN maps;
+     attention launches a new frame), and the EVA02 config again with
+     ``compute_dtype="float32"`` (4 samples, an fp32 ring of about 10.6
+     GB; its ring held to ``RING_FP32_TOL``). The kernel launch counts are
+     reset just before each path's run and read just after it; the outputs
+     must be finite and match a second run of the same stream that uses the
+     plain versions (on the EVA02 paths the ring and the head replayed over
+     it; see ``compare_with_plain``). Each path's breakdown also times a
+     first sample's T frame passes back to back. One more sample of the r50
+     and vov99 streams records the inputs of the next phase: an
+     ``AdaptiveMixing`` call's operands (a forward hook), and at r50 one
+     sampling call's points and the sample's T frames of FPN maps;
   5. the hybrid sampling path (``set_sampling_impl("hybrid")``,
      ``pack_mlvl_feats`` and slice-major ``msmv_sampling``) at r50 full
      width on those maps and points, with bf16 and fp32 features: bit for
      bit against the same call through the plain versions and within a
      stated tolerance of the "xla" y-fold path, timed beside it and beside
      the same call with the one-hot levels taken one at a time (as the path
-     ran before the fused kernel), each with its count of device launches;
+     ran before the fused kernel), each with its kernel launches (the
+     wrappers' counts, held: fewer on the fused route) and its device ops
+     (a torch.profiler trace, taken again while it holds fewer ops than the
+     counted launches; held where a trace holds them);
      the fused one-hot kernel against its plain version with a bf16 and an
      fp32 accumulator, with and without a y-fold prefix, and the per-level
      kernel at each level, all bit for bit and timed beside their bounds;
@@ -139,6 +151,10 @@ import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 PROFILE_SAMPLES = 4
+# an fp32 path's ring (``ring_tol``): the frame pass in fp32 through 24
+# attention calls, each within about 2e-6 of its plain version's scale,
+# and the pyramid's fp32 convs; 1e-4 of each level's scale
+RING_FP32_TOL = 1e-4
 # the streaming paths: config, samples, the kernels each path must launch,
 # the kernels checked at its shapes in phase 3 (``checks``, default all),
 # and the shapes its kernels see (sampling: level shapes, pair/y-fold mode
@@ -167,6 +183,22 @@ PATHS = (
          yfold=(False, True, True, True, True),
          gsplit=(False, False, False, True, False), t=15, q=1600, p=8,
          attention=dict(glb=(6, 4000), win=(126, 256))),
+    # the same model with compute_dtype float32 (fp32 pyramid, packs, ring
+    # and head): the ring is held to RING_FP32_TOL of each level's scale,
+    # the head replay to the gate; the end-to-end outputs are printed, not
+    # held: one fp32 ulp on 1e-5 of the ring's entries moves them 8.6 times
+    # past the gate (PERF.md, section 6). Phase 3 checks the packs on
+    # fp32 tables here (sampling and attention are checked in fp32 above);
+    # no timing breakdown.
+    dict(name="eva02 fp32",
+         config="configs/vit_eva02_1600x640_trainval_future.py",
+         model_overrides=dict(compute_dtype="float32"), dtype="float32",
+         samples=4, kernels=("pack", "pack_pair", "sampling", "attention"),
+         checks=("pack", "pack_pair"), capture=False, breakdown=False,
+         exact=False, ring_tol=RING_FP32_TOL,
+         levels=[(160, 400), (80, 200), (40, 100), (20, 50), (10, 25)],
+         yfold=(False, True, True, True, True),
+         gsplit=(False, False, False, True, False), t=15, q=1600, p=8),
 )
 # sources whose ptxas report is printed per kernel
 PTXAS_REPORTS = ("msmv_sample", "msmv_sample_bwd", "msmv_onehot", "mixing",
@@ -296,13 +328,14 @@ def check_pack(torch, dev, flush, bw, path):
     from sparsebev_tpu_torch.ops.msmv_pack import pack_level, pack_level_plain
     gen = torch.Generator(device=dev).manual_seed(1)
     levels = [hw for hw, yf in zip(path["levels"], path["yfold"]) if yf]
+    dtype = getattr(torch, path.get("dtype", "bfloat16"))
     m, c, g = 6, 256, 4
     ms = plain_ms = 0.0
     nbytes = 0
     err = 0.0
     for h, w in levels:
         feat = torch.randn((m, h, w, c), generator=gen, device=dev,
-                           dtype=torch.bfloat16)
+                           dtype=dtype)
         got = pack_level(feat, g)
         want = pack_level_plain(feat, g)
         torch.cuda.synchronize()
@@ -312,11 +345,12 @@ def check_pack(torch, dev, flush, bw, path):
         ms += time_ms(torch, lambda: pack_level(feat, g), 30, flush)
         plain_ms += time_ms(torch, lambda: pack_level_plain(feat, g), 20,
                             flush, PLAIN_BUSY_CYCLES)
-        nbytes += (feat.numel() + got.numel()) * 2
+        nbytes += (feat.numel() + got.numel()) * feat.element_size()
     bound_ms = nbytes / bw * 1e3
-    log(f"pack [{path['name']}]: bit-equal to plain at all {len(levels)} "
-        f"y-fold levels; one frame {ms:.4f} ms (plain {plain_ms:.4f} ms), "
-        f"bound {bound_ms:.4f} ms ({nbytes / 1e6:.1f} MB moved)")
+    log(f"pack [{path['name']}]: {str(dtype)[6:]}, bit-equal to plain at "
+        f"all {len(levels)} y-fold levels; one frame {ms:.4f} ms (plain "
+        f"{plain_ms:.4f} ms), bound {bound_ms:.4f} ms ({nbytes / 1e6:.1f} "
+        f"MB moved)")
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                 bound_by="bytes", library_ms=None)
 
@@ -328,12 +362,13 @@ def check_pack_pair(torch, dev, flush, bw, path):
                                                    pack_level_pair_plain)
     gen = torch.Generator(device=dev).manual_seed(3)
     levels = [hw for hw, yf in zip(path["levels"], path["yfold"]) if not yf]
+    dtype = getattr(torch, path.get("dtype", "bfloat16"))
     m, c, g = 6, 256, 4
     ms = plain_ms = library_ms = 0.0
     nbytes = 0
     for h, w in levels:
         feat = torch.randn((m, h, w, c), generator=gen, device=dev,
-                           dtype=torch.bfloat16)
+                           dtype=dtype)
         got = pack_level_pair(feat, g)
         want = pack_level_pair_plain(feat, g)
         torch.cuda.synchronize()
@@ -351,12 +386,12 @@ def check_pack_pair(torch, dev, flush, bw, path):
         plain_ms += time_ms(torch, lambda: pack_level_pair_plain(feat, g),
                             20, flush)
         library_ms += time_ms(torch, library, 20, flush)
-        nbytes += (feat.numel() + got.numel()) * 2
+        nbytes += (feat.numel() + got.numel()) * feat.element_size()
     bound_ms = nbytes / bw * 1e3
-    log(f"pack_pair [{path['name']}]: bit-equal to plain and to the F.pad "
-        f"call at {levels}; one frame {ms:.4f} ms (plain {plain_ms:.4f} ms, "
-        f"F.pad {library_ms:.4f} ms), bound {bound_ms:.4f} ms "
-        f"({nbytes / 1e6:.1f} MB moved)")
+    log(f"pack_pair [{path['name']}]: {str(dtype)[6:]}, bit-equal to plain "
+        f"and to the F.pad call at {levels}; one frame {ms:.4f} ms (plain "
+        f"{plain_ms:.4f} ms, F.pad {library_ms:.4f} ms), bound "
+        f"{bound_ms:.4f} ms ({nbytes / 1e6:.1f} MB moved)")
     return dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                 bound_by="bytes", library_ms=library_ms)
 
@@ -559,25 +594,34 @@ def check_sampling_recorded(torch, flush, bw, fp32_rate, cap, name):
     return dict(result, max_abs_err=0.0)
 
 
-# the attention kernel against its plain version: the same fp32 products,
-# summed in another order, and the division by the softmax sum taken at the
-# end instead of before the product with v: a few fp32 roundings of values
-# up to the output scale, hence 1e-5 of the output's max abs
-ATTENTION_TOL = 1e-5
+def _device_kernels(torch, fn):
+    """Names of the device kernels one call of ``fn`` launches (a
+    torch.profiler trace)."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sorted({e.key for e in prof.key_averages()
+                   if str(e.device_type).endswith("CUDA") and _dev_us(e) > 0})
 
 
 def check_attention(torch, dev, flush, bw, fp32_rate, path):
     """The EVA02 attention kernel at the path's two shapes (fp32 q, k, v
     from N(0, 1), 16 heads of 64) against its plain version within
-    ``ATTENTION_TOL``, timed with CUDA events beside its bound (4 B H N^2 hd
-    flops at the fp32 rate, or the bytes of q, k, v and out) and beside
+    ``ATTENTION_TOL``, timed with CUDA events beside its bound (three
+    products of 4 B H N^2 hd flops at the dense TF32 rate; the one-product
+    fp32-FMA bound printed beside it) and beside
     ``F.scaled_dot_product_attention`` on the same tensors (a yardstick the
-    package never calls). Returns one result per shape."""
+    package never calls; the kernels it launches are named from a profiler
+    trace). Returns one result per shape."""
     import torch.nn.functional as F
-    from sparsebev_tpu_torch.ops.eva_attention import (eva_attention,
+    from sparsebev_tpu_torch.ops.eva_attention import (ATTENTION_TOL,
+                                                       eva_attention,
                                                        eva_attention_plain)
     gen = torch.Generator(device=dev).manual_seed(4)
     heads, hd = 16, 64
+    bf16_rate = peaks(torch.cuda.get_device_name(dev))[2]
     results = {}
     for label, (b, n) in path["attention"].items():
         q, k, v = (torch.randn((b, n, heads, hd), generator=gen, device=dev)
@@ -598,28 +642,125 @@ def check_attention(torch, dev, flush, bw, fp32_rate, path):
         if not err <= ATTENTION_TOL * scale:
             fail(f"attention kernel differs from its plain version ({name})")
         del got, want, lib
+        lib_kernels = _device_kernels(
+            torch, lambda: F.scaled_dot_product_attention(qt, kt, vt))
+        log(f"attention [{name}]: SDPA's device kernels: "
+            + "; ".join(lib_kernels))
         ms = time_ms(torch, lambda: eva_attention(q, k, v), 20, flush)
         plain_ms = time_ms(torch, lambda: eva_attention_plain(q, k, v), 5,
                            flush, PLAIN_BUSY_CYCLES)
         library_ms = time_ms(
             torch, lambda: F.scaled_dot_product_attention(qt, kt, vt), 20,
             flush)
-        flops = 4 * b * heads * n * n * hd
+        flops = 4 * b * heads * n * n * hd      # one product pair
         nbytes = 4 * q.numel() * q.element_size()
-        bound_ms = max(flops / fp32_rate, nbytes / bw) * 1e3
-        bound_by = "operations" if flops / fp32_rate >= nbytes / bw \
-            else "bytes"
+        # three TF32 products at the dense TF32 rate (half the bf16 rate);
+        # beside it one fp32 product on the non-tensor-core rate
+        bound_ms = max(3 * flops / (bf16_rate / 2), nbytes / bw) * 1e3
+        fma_ms = max(flops / fp32_rate, nbytes / bw) * 1e3
         log(f"attention [{name}]: {ms:.4f} ms (plain {plain_ms:.4f} ms, "
             f"SDPA {library_ms:.4f} ms), bound {bound_ms:.4f} ms by "
-            f"{bound_by} ({flops / 1e9:.1f} GFLOP, {nbytes / 1e6:.1f} MB): "
-            f"{100 * bound_ms / ms:.1f}% of the bound, "
-            f"{flops / ms / 1e9:.2f} TFLOP/s")
+            f"operations (3xTF32: 3 x {flops / 1e9:.1f} GFLOP at the dense "
+            f"TF32 rate; {nbytes / 1e6:.1f} MB): {100 * bound_ms / ms:.1f}% "
+            f"of the bound; {flops / ms / 1e9:.2f} TFLOP/s of fp32 work; "
+            f"the fp32-FMA bound {fma_ms:.4f} ms ({100 * fma_ms / ms:.1f}%)")
         results[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                             bound_ms=bound_ms, bound_by=bound_by,
-                             library_ms=library_ms)
+                             bound_ms=bound_ms, bound_by="operations",
+                             library_ms=library_ms, bound_route="3xTF32",
+                             fp32_fma_bound_ms=fma_ms,
+                             library_kernels=lib_kernels)
         del q, k, v, qt, kt, vt
         torch.cuda.empty_cache()
     return results
+
+
+def attention_sass(lib_path):
+    """Print the counts of the tensor-core (HMMA) opcodes in the SASS of a
+    built library (``cuobjdump -sass``); fails when the attention kernel
+    holds no TF32 HMMA."""
+    import collections
+    from sparsebev_tpu_torch.kernels import build
+    tool = os.path.join(os.path.dirname(os.path.realpath(build.find_nvcc())),
+                        "cuobjdump")
+    out = subprocess.run([tool, "-sass", lib_path], capture_output=True,
+                         text=True, timeout=300)
+    if out.returncode != 0:
+        fail(f"cuobjdump -sass failed: {out.stderr.strip()[:400]}")
+    counts = collections.Counter(re.findall(r"\b(HMMA\.[\w.]+)",
+                                            out.stdout))
+    log(f"sass[eva_attention]: {os.path.basename(lib_path)}: "
+        + (", ".join(f"{k} x {v}" for k, v in sorted(counts.items()))
+           or "no HMMA"))
+    if not any("TF32" in k for k in counts):
+        fail("the attention kernel's SASS holds no TF32 HMMA")
+
+
+# the fp32 conv against the CPU: fp32 sums of C_in * 9 = 2,304 products in
+# another order than the fp64 CPU reference, a few fp32 roundings of values
+# up to the output scale, hence 1e-5 of its max abs; TF32 operands (10-bit
+# mantissas) miss it by tens of times (3.9e-4 of the scale on an H100)
+CONV_FP32_TOL = 1e-5
+
+
+def check_fp32_conv(torch, dev):
+    """A ResNet-50 stage conv of the r50 config in fp32 (layer3's first 3x3,
+    stride 2, 256 channels, folded with its BN), recorded on the frame pass
+    (``forward_frame_packed`` of one 6-view frame at 704x256, seeded
+    weights) with the process-wide cuDNN conv precision "tf32": its output
+    against the same conv on the CPU in fp64 within ``CONV_FP32_TOL`` of the
+    scale.
+    The same operands through cuDNN with TF32 allowed give the error the
+    port's scope removes (printed)."""
+    import torch.nn.functional as F
+    from sparsebev_tpu_torch.config import Config
+    from sparsebev_tpu_torch.models.detector import build_detector
+    cfg = Config.fromfile(os.path.join(HERE, PATHS[0]["config"]))
+    cfg.model["compute_dtype"] = "float32"
+    image_h, image_w = cfg.ida_aug_conf["final_dim"]
+    model = build_detector(cfg, device=dev, seed=0)
+    block = model.img_backbone.layer3[0]
+    cbn = block._cbn[1]
+    seen = {}
+
+    def record(x):
+        w, t = cbn._folded(x.dtype, x.device)
+        seen.update(x=x.clone(), w=w.clone(), t=t.clone(),
+                    flag=torch.backends.cudnn.conv.fp32_precision)
+        out = cbn(x)
+        seen["out"] = out.clone()
+        return out
+
+    saved = torch.backends.cudnn.conv.fp32_precision
+    torch.backends.cudnn.conv.fp32_precision = "tf32"
+    block._cbn[1] = record
+    try:
+        gen = torch.Generator().manual_seed(7)
+        img = torch.randint(0, 256, (1, 6, image_h, image_w, 3),
+                            generator=gen, dtype=torch.uint8).to(dev)
+        with torch.inference_mode():
+            model.forward_frame_packed(img)
+            conv = cbn._conv
+            args = (conv.stride, conv.padding)
+            tf32 = F.conv2d(seen["x"], seen["w"], seen["t"], *args)
+            torch.cuda.synchronize()
+        ref = F.conv2d(seen["x"].cpu().double(), seen["w"].cpu().double(),
+                       seen["t"].cpu().double(), *args)
+    finally:
+        block._cbn[1] = cbn
+        torch.backends.cudnn.conv.fp32_precision = saved
+    scale = ref.abs().max().item()
+    err = (seen["out"].cpu().double() - ref).abs().max().item()
+    tf32_err = (tf32.cpu().double() - ref).abs().max().item()
+    log(f"fp32 conv [r50 layer3.0.conv2, {tuple(seen['x'].shape)} -> "
+        f"{tuple(ref.shape)}]: cuDNN conv precision inside the frame pass "
+        f"{seen['flag']} (process-wide tf32); max|card - CPU fp64| = "
+        f"{err:.4g} ({err / scale:.3g} of the scale {scale:.4g}, tolerance "
+        f"{CONV_FP32_TOL:g}); with TF32 allowed {tf32_err:.4g} "
+        f"({tf32_err / scale:.3g} of the scale)")
+    if seen["flag"] != "ieee" or not err <= CONV_FP32_TOL * scale:
+        fail("the frame pass's fp32 conv did not run in fp32")
+    del model
+    torch.cuda.empty_cache()
 
 
 # ------------------------------------------------------------- phase 4 --
@@ -687,19 +828,34 @@ def _dev_us(e):
     return v if v is not None else e.self_cuda_time_total
 
 
-def device_ops(torch, fn):
+def device_ops(torch, fn, kernels, tries=5):
     """Device operations (kernels, copies, memsets) that one call of ``fn``
-    puts on the card, counted from a torch.profiler trace of a second
-    call."""
+    puts on the card, counted from a torch.profiler trace of a later call,
+    and the launches that the wrappers in ``kernels`` counted in that call.
+    torch.profiler on the H100 host now and then records none of a short
+    call's device ops (0 ops for a 0.1 ms call whose wrappers counted 2
+    launches, at times in each of five traces in a row), so the trace
+    stays open for a pause of the host before and after the call, and a
+    trace that holds fewer device ops than the counted launches, or none,
+    is taken again, at most ``tries`` times. Returns (ops or None if every trace fell short,
+    launches)."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    return sum(e.count for e in prof.key_averages()
-               if _dev_us(e) > 0 and str(e.device_type).endswith("CUDA"))
+    for _ in range(tries):
+        before = sum(k.launches for k in kernels)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            time.sleep(0.05)
+            fn()
+            torch.cuda.synchronize()
+            time.sleep(0.2)
+        launched = sum(k.launches for k in kernels) - before
+        ops = sum(e.count for e in prof.key_averages()
+                  if _dev_us(e) > 0 and str(e.device_type).endswith("CUDA"))
+        if ops >= max(launched, 1):
+            return ops, launched
+    return None, launched
 
 
 def breakdown(torch, det, samples, frame_label):
@@ -882,6 +1038,7 @@ def streaming_phase(torch, dev, path):
     if not os.path.isfile(config):
         fail(f"missing {config}")
     cfg = Config.fromfile(config)
+    cfg.model.update(path.get("model_overrides", {}))
     head = cfg.model["pts_bbox_head"]
     t = head["num_frames"]
     image_h, image_w = cfg.ida_aug_conf["final_dim"]
@@ -945,8 +1102,9 @@ def streaming_phase(torch, dev, path):
     modes = "".join("y" if yf else "p" for yf in model.pts_bbox_head
                     .table_yfold)
     neck = "its pyramid" if cfg.model.get("img_neck") is None else "FPN"
-    breakdown(torch, det, stream[num_samples:],
-              f"normalize, {label}, {neck}, packs {modes}")
+    if path.get("breakdown", True):
+        breakdown(torch, det, stream[num_samples:],
+                  f"normalize, {label}, {neck}, packs {modes}")
     captured = (capture_inputs(torch, det, model, stream, path)
                 if path.get("capture", True) else {})
     del det
@@ -988,102 +1146,178 @@ def _output_gap(torch, preds, other):
     return worst, exact
 
 
+def _flipped_queries(calls, other, samples):
+    """The discrete choice of the head: ``project_points_qmajor`` picks one
+    view a sampling point (the first that sees it) and drops a point no view
+    sees, so a point at an image's edge jumps between views or in and out of
+    them. ``calls`` and ``other`` hold, for each call of two runs over the
+    same samples (one call a decoder layer), the chosen view plus twice the
+    valid flag ``[Q, B*G*T, P]``. Returns, per sample, a ``[Q]`` mask of the
+    queries whose choice differs at some point of some layer, and the count
+    of queries whose first difference is at each layer."""
+    if len(calls) != len(other) or len(calls) % samples:
+        fail(f"the two runs made {len(calls)} and {len(other)} projection "
+             f"calls over {samples} samples")
+    layers = len(calls) // samples
+    masks, first = [], [0] * layers
+    for i in range(samples):
+        seen = None
+        for lvl in range(layers):
+            a, b = calls[i * layers + lvl], other[i * layers + lvl]
+            diff = (a != b).flatten(1).any(1)
+            new = diff if seen is None else diff & ~seen
+            first[lvl] += int(new.sum().item())
+            seen = diff if seen is None else seen | diff
+        masks.append(seen)
+    return masks, first
+
+
+def _agreeing_gap(preds, other, masks):
+    """``_output_gap`` over the queries whose choices agree (``masks`` the
+    flipped ones, per sample), and over the flipped ones."""
+    agree, flip = 0.0, 0.0
+    for key in ("all_cls_scores", "all_bbox_preds"):
+        for a, b, m in zip(preds, other, masks):
+            tol = STREAM_TOL * max(1.0, b[key].abs().max().item())
+            d = (a[key] - b[key]).abs().amax(-1)            # [B, Q]
+            agree = max(agree, d[:, ~m].max().item() / tol if
+                        bool((~m).any()) else 0.0)
+            flip = max(flip, d[:, m].max().item() / tol if bool(m.any())
+                       else 0.0)
+    return agree, flip
+
+
 def compare_with_plain(torch, dev, path, model, det, samples, preds):
     """The kernel run (``det`` right after it, ``preds``) against the same
     stream with the plain versions of every kernel on the card (including
     the frame pass's: the packs and the EVA02 attention):
 
     - the ring, every table the head reads, within ``STREAM_TOL`` of each
-      level's scale;
+      level's scale (the path's ``ring_tol`` where it gives one);
     - the head replayed with the plain versions over the kernel run's ring
       within ``STREAM_TOL`` of the output scale;
+    - the head replayed with the kernels over the kernel run's ring, bit-
+      equal to the kernel run, recording each layer's view choice
+      (``_flipped_queries``);
     - the two runs' outputs within ``STREAM_TOL`` on paths whose kernels
       all give their plain versions' bits (``exact``, the default). The
       EVA02 attention sums in another order than its plain version, so the
-      rings differ in rounding, and the seeded bf16 head amplifies a
-      one-ulp change of its input past the tolerance: the difference is
-      printed beside the probe below, not held to the tolerance;
+      rings differ in rounding, and the seeded head amplifies that past the
+      tolerance, in bf16 and in fp32: there the difference is printed, over
+      all queries, over those whose view choices differ in some layer of
+      the two runs and over those whose choices agree;
     - the probe: ``NUDGE_SHARE`` of the ring's entries moved by one ulp,
       the last sample's head run with the kernels on it, the change of its
       outputs as a share of the tolerance (how far the seeded head
-      amplifies a rounding of its input)."""
+      amplifies a rounding of its input), split the same way."""
     from sparsebev_tpu_torch.inference import StreamingDetector
     from sparsebev_tpu_torch.ops import projection
     name, t = path["name"], det.num_frames
     project = projection.project_points_qmajor
-    valid = []
+    valid, calls = [], []
 
-    def project_and_count(*a, **k):
+    def project_and_record(*a, **k):
         loc, v = project(*a, **k)
         valid.append(v.mean().item())
+        calls.append(loc[..., 2] + 2 * v)
         return loc, v
 
-    projection.project_points_qmajor = project_and_count
+    projection.project_points_qmajor = project_and_record
     try:
         with plain_versions():
             plain_det = StreamingDetector(model, num_frames=t, device=dev)
             _, plain_preds = run_stream(torch, plain_det, samples,
                                         prefetch=False)
+        plain_calls, calls = calls, []
+        log(f"streaming [{name}]: share of sampling points that land in a "
+            f"view: {statistics.mean(valid):.3f}")
+        if statistics.mean(valid) < 0.2:
+            fail("too few sampling points land in a camera view")
+        if list(plain_det.slot_of_key.items()) != \
+                list(det.slot_of_key.items()):
+            fail("the plain run laid out its ring otherwise")
+        ring_exact = True
+        for lvl, (a, b) in enumerate(zip(det.ring, plain_det.ring)):
+            d = (a.float() - b.float()).abs()
+            scale = max(1.0, b.float().abs().max().item())
+            same = _bit_equal(torch, a, b)
+            ring_exact = ring_exact and same
+            log(f"streaming [{name}]: ring level {lvl} {tuple(a.shape)}, "
+                f"kernel vs plain run: max abs diff {d.max().item():.4g} "
+                f"(scale {scale:.4g}), "
+                f"{100 * (d > 0).float().mean().item():.4f}% of the entries "
+                f"differ; bit-equal: {same}")
+            if not d.max().item() <= path.get("ring_tol", STREAM_TOL) * scale:
+                fail(f"the kernel run's ring differs from the plain run's at "
+                     f"level {lvl}")
+            del d
+        del plain_det
+        torch.cuda.empty_cache()
+
+        calls.clear()
+        with torch.inference_mode(), plain_versions():
+            replayed = replay_head(torch, dev, model, det, det.ring, samples)
+        worst, exact = _output_gap(torch, preds, replayed)
+        log(f"streaming [{name}]: the head with the plain versions over the "
+            f"kernel run's ring: worst {worst:.3g} of the tolerance; "
+            f"bit-equal: {exact}")
+        if not worst <= 1.0:
+            fail(f"the head with the plain versions differs from the kernel "
+                 f"run ({name})")
+
+        calls.clear()
+        with torch.inference_mode():
+            again = replay_head(torch, dev, model, det, det.ring, samples)
+        kernel_calls, calls = calls, []
+        if not _output_gap(torch, preds, again)[1]:
+            fail(f"the head replayed with the kernels differs from the "
+                 f"kernel run ({name})")
+        del again
+
+        worst, exact = _output_gap(torch, preds, plain_preds)
+        masks, first = _flipped_queries(kernel_calls, plain_calls,
+                                        len(samples))
+        agree, flip = _agreeing_gap(preds, plain_preds, masks)
+        del plain_calls
+        for key in ("all_cls_scores", "all_bbox_preds"):
+            d_last = (preds[-1][key] - plain_preds[-1][key]).abs().max()
+            log(f"streaming [{name}]: kernel vs plain run, last sample "
+                f"{key}: max abs diff {d_last.item():.4g}")
+        gen = torch.Generator(device=dev).manual_seed(6)
+        nudged = []
+        for table in det.ring:
+            bits = table.view(torch.int16 if table.element_size() == 2
+                              else torch.int32)
+            move = torch.rand(table.shape, generator=gen,
+                              device=dev) < NUDGE_SHARE
+            nudged.append(torch.where(move & (table != 0), bits + 1, bits)
+                          .view(table.dtype))
+        with torch.inference_mode():
+            probe = replay_head(torch, dev, model, det, tuple(nudged),
+                                samples[-1:])
+        layers = len(kernel_calls) // len(samples)
+        p_masks, p_first = _flipped_queries(kernel_calls[-layers:], calls,
+                                            1)
     finally:
         projection.project_points_qmajor = project
-    log(f"streaming [{name}]: share of sampling points that land in a view: "
-        f"{statistics.mean(valid):.3f}")
-    if statistics.mean(valid) < 0.2:
-        fail("too few sampling points land in a camera view")
-    if list(plain_det.slot_of_key.items()) != list(det.slot_of_key.items()):
-        fail("the plain run laid out its ring otherwise")
-    ring_exact = True
-    for lvl, (a, b) in enumerate(zip(det.ring, plain_det.ring)):
-        d = (a.float() - b.float()).abs()
-        scale = max(1.0, b.float().abs().max().item())
-        same = _bit_equal(torch, a, b)
-        ring_exact = ring_exact and same
-        log(f"streaming [{name}]: ring level {lvl} {tuple(a.shape)}, kernel "
-            f"vs plain run: max abs diff {d.max().item():.4g} (scale "
-            f"{scale:.4g}), {100 * (d > 0).float().mean().item():.4f}% of "
-            f"the entries differ; bit-equal: {same}")
-        if not d.max().item() <= STREAM_TOL * scale:
-            fail(f"the kernel run's ring differs from the plain run's at "
-                 f"level {lvl}")
-        del d
-    del plain_det
-    torch.cuda.empty_cache()
-
-    with torch.inference_mode(), plain_versions():
-        replayed = replay_head(torch, dev, model, det, det.ring, samples)
-    worst, exact = _output_gap(torch, preds, replayed)
-    log(f"streaming [{name}]: the head with the plain versions over the "
-        f"kernel run's ring: worst {worst:.3g} of the tolerance; bit-equal: "
-        f"{exact}")
-    if not worst <= 1.0:
-        fail(f"the head with the plain versions differs from the kernel run "
-             f"({name})")
-
-    worst, exact = _output_gap(torch, preds, plain_preds)
-    for key in ("all_cls_scores", "all_bbox_preds"):
-        d_last = (preds[-1][key] - plain_preds[-1][key]).abs().max().item()
-        log(f"streaming [{name}]: kernel vs plain run, last sample {key}: "
-            f"max abs diff {d_last:.4g}")
-    gen = torch.Generator(device=dev).manual_seed(6)
-    nudged = []
-    for table in det.ring:
-        bits = table.view(torch.int16 if table.element_size() == 2
-                          else torch.int32)
-        move = torch.rand(table.shape, generator=gen,
-                          device=dev) < NUDGE_SHARE
-        nudged.append(torch.where(move & (table != 0), bits + 1, bits)
-                      .view(table.dtype))
-    with torch.inference_mode():
-        probe = replay_head(torch, dev, model, det, tuple(nudged),
-                            samples[-1:])
     amp, _ = _output_gap(torch, preds[-1:], probe)
-    del nudged
+    p_agree, p_flip = _agreeing_gap(preds[-1:], probe, p_masks)
+    del nudged, kernel_calls, calls
     torch.cuda.empty_cache()
+    q = masks[0].numel()
     log(f"streaming [{name}]: kernel vs plain run over all samples: worst "
         f"{worst:.3g} of the tolerance ({STREAM_TOL:g} of the output scale); "
         f"bit-equal: {exact}; ring bit-equal: {ring_exact}. Probe: "
         f"{NUDGE_SHARE:g} of the ring's entries one ulp off move the last "
         f"sample's outputs by {amp:.3g} of the tolerance")
+    log(f"streaming [{name}]: view choices, kernel vs plain run: queries "
+        f"whose choice differs in some layer, per sample "
+        f"{[int(m.sum().item()) for m in masks]} of {q} (first difference "
+        f"by layer {first}); worst over the queries that agree {agree:.3g} "
+        f"of the tolerance, over those that differ {flip:.3g}. Probe: "
+        f"{int(p_masks[0].sum().item())} of {q} queries differ (by layer "
+        f"{p_first}); worst over the rest {p_agree:.3g}, over those "
+        f"{p_flip:.3g}")
     if path.get("exact", True):
         if not worst <= 1.0:
             fail(f"kernel run differs from the plain run ({name}): worst "
@@ -1091,7 +1325,8 @@ def compare_with_plain(torch, dev, path, model, det, samples, preds):
     elif not ring_exact:
         log(f"streaming [{name}]: end to end not held to the tolerance: the "
             "rings differ in rounding (the attention kernel sums in another "
-            "order) and the probe shows the seeded head amplifies that")
+            "order), the seeded head moves most queries' view choices on "
+            "that, and the queries whose choices agree differ about as far")
 
 
 # ------------------------------------------------------------- phase 5 --
@@ -1247,18 +1482,32 @@ def hybrid_phase(torch, flush, bw, cap):
                 per_level_sampling=time_ms(torch, per_level_sampling, 20,
                                            flush, busy),
                 xla_sampling=time_ms(torch, xla_sampling, 20, flush, busy))
-            ops = dict(hybrid=device_ops(torch, hybrid_sampling),
-                       per_level=device_ops(torch, per_level_sampling),
-                       xla=device_ops(torch, xla_sampling))
+            kernels = (ms.msmv_sampling, msmv_onehot.onehot_sample_levels,
+                       msmv_onehot.onehot_sample_level)
+            traced = dict(
+                hybrid=device_ops(torch, hybrid_sampling, kernels),
+                per_level=device_ops(torch, per_level_sampling, kernels),
+                xla=device_ops(torch, xla_sampling, kernels))
+            ops = {k: v[0] for k, v in traced.items()}
+            counted = {k: v[1] for k, v in traced.items()}
             log(f"hybrid [r50] {dname} features: pack + sampling "
                 f"{times['hybrid']:.4f} ms (xla path {times['xla']:.4f} ms); "
                 f"sampling alone {times['hybrid_sampling']:.4f} ms in "
-                f"{ops['hybrid']} device launches (one-hot levels one at a "
-                f"time, as before the fused kernel: "
-                f"{times['per_level_sampling']:.4f} ms in {ops['per_level']} "
-                f"launches; xla {times['xla_sampling']:.4f} ms in "
-                f"{ops['xla']})")
-            if not ops["hybrid"] < ops["per_level"]:
+                f"{ops['hybrid']} device ops, {counted['hybrid']} of them "
+                f"kernel launches (one-hot levels one at a time, as before "
+                f"the fused kernel: {times['per_level_sampling']:.4f} ms in "
+                f"{ops['per_level']} ops, {counted['per_level']} launches; "
+                f"xla {times['xla_sampling']:.4f} ms in {ops['xla']} ops, "
+                f"{counted['xla']} launches)")
+            for k, v in ops.items():
+                if v is None:
+                    log(f"hybrid [r50] {dname}: {k}: device ops not measured, "
+                        "five profiler traces in a row held fewer device ops "
+                        "than the counted launches")
+            if not counted["hybrid"] < counted["per_level"]:
+                fail("the fused one-hot kernel saved no kernel launch")
+            if None not in (ops["hybrid"], ops["per_level"]) \
+                    and not ops["hybrid"] < ops["per_level"]:
                 fail("the fused one-hot kernel saved no device launch")
             del got, plain, xla, per_level, packed_x
         onehot_launches, onehot, fused = check_onehot(torch, flush, bw,
@@ -2788,12 +3037,37 @@ def bringup_train_kernels():
         torch.cuda.empty_cache()
 
 
+def bringup_attention():
+    """The attention kernel alone: build it, print what ptxas reports and
+    the tensor-core opcodes of its SASS, hold it to its plain version at
+    both EVA02 shapes (timed beside SDPA), and check the fp32 conv of the
+    frame pass (``python3 -c "import chip_smoke;
+    chip_smoke.bringup_attention()"``)."""
+    import torch
+    sys.path.insert(0, HERE)
+    from sparsebev_tpu_torch.kernels import build
+    dev = torch.device("cuda", 0)
+    log(nvidia_smi_line())
+    logs = build.build_all(["msmv_pack", "msmv_pack_pair", "eva_attention"])
+    for r in ptxas_report(logs["eva_attention"]):
+        log(f"ptxas[eva_attention]: {r}")
+    attention_sass(build.library_path("eva_attention"))
+    bw, fp32_rate, _ = peaks(torch.cuda.get_device_name(0))
+    path = next(p for p in PATHS if p["name"] == "eva02")
+    flush = torch.empty(64 * 2**20, dtype=torch.int32, device=dev)
+    check_attention(torch, dev, flush, bw, fp32_rate, path)
+    del flush
+    torch.cuda.empty_cache()
+    check_fp32_conv(torch, dev)
+
+
 def bringup_eva02():
-    """The EVA02 path alone: build its four sources, print what ptxas
+    """The EVA02 paths alone: build their four sources, print what ptxas
     reports for the attention kernel, hold the attention kernel (both
     shapes) and the sampling kernel (P=8) against their plain versions,
-    then stream the EVA02 config as phase 4 does (``python3 -c "import
-    chip_smoke; chip_smoke.bringup_eva02()"``)."""
+    then stream the EVA02 config as phase 4 does, in bf16 and in fp32 (the
+    packs checked on fp32 tables first) (``python3 -c "import chip_smoke;
+    chip_smoke.bringup_eva02()"``)."""
     import torch
     sys.path.insert(0, HERE)
     from sparsebev_tpu_torch.kernels import build
@@ -2809,12 +3083,17 @@ def bringup_eva02():
     flush = torch.empty(64 * 2**20, dtype=torch.int32, device=dev)
     check_attention(torch, dev, flush, bw, fp32_rate, path)
     check_sampling(torch, dev, flush, bw, fp32_rate, path)
+    for p in PATHS:
+        if not p["name"].startswith("eva02"):
+            continue
+        t0 = time.perf_counter()
+        for k in p.get("checks", ()):
+            if k in ("pack", "pack_pair") and p is not path:
+                _CHECKS[k](torch, dev, flush, bw, p)
+        launches, _, _ = streaming_phase(torch, dev, p)
+        log(f"{p['name']} stream: launches {launches}; "
+            f"{time.perf_counter() - t0:.1f} s")
     del flush
-    torch.cuda.empty_cache()
-    t0 = time.perf_counter()
-    launches, _, _ = streaming_phase(torch, dev, path)
-    log(f"eva02 stream: launches {launches}; "
-        f"{time.perf_counter() - t0:.1f} s")
 
 
 def step_profile(root=HERE):
@@ -2978,6 +3257,7 @@ def main() -> int:
         fail(str(e))
     log(f"build: nvcc {' '.join(build.NVCC_FLAGS)}: {len(sources)} sources "
         f"built in {time.perf_counter() - t0:.1f} s")
+    attention_sass(build.library_path("eva_attention"))
     for src, text in logs.items():
         if src in PTXAS_REPORTS:
             for r in ptxas_report(text):
@@ -3004,6 +3284,7 @@ def main() -> int:
                 measured[k][path["name"]] = res
     del flush
     torch.cuda.empty_cache()
+    check_fp32_conv(torch, dev)
     log(f"phase: kernel checks took {time.perf_counter() - t0:.1f} s")
 
     launches, captured = {}, {}

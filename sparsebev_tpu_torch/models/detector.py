@@ -24,7 +24,7 @@ from torch import nn
 from ..ops.msmv_sampling import pack_mlvl_feats_grouped
 from .augment import (draw_grid_mask, draw_photometric, grid_mask,
                       photometric_distortion)
-from ..utils.device import resolve_device
+from ..utils.device import fp32_precision, resolve_device
 from .eva02 import EVA02
 from .fpn import FPN
 from .head import SparseBEVHead
@@ -126,7 +126,9 @@ class SparseBEV(nn.Module):
                          aug_draws: Optional[dict] = None):
         """GridMask (training) -> backbone -> neck on folded images
         ``[M, H, W, 3]``; returns NHWC pyramids ``[M, H', W', C]`` cast to
-        the compute dtype (an EVA02 pyramid is fp32, as in JAX)."""
+        the compute dtype (an EVA02 pyramid is fp32, as in JAX). The
+        backbone and neck run under ``fp32_precision``: fp32 convolutions
+        and products in fp32 on CUDA, not TF32."""
         if train and isinstance(self.img_backbone, EVA02):
             raise NotImplementedError(
                 "training an EVA02 backbone is not ported yet (drop path, "
@@ -139,9 +141,10 @@ class SparseBEV(nn.Module):
                                        img.device)
             img = grid_mask(img, draws)
         x = img.to(self.compute_dtype).permute(0, 3, 1, 2)  # NCHW view
-        feats = self.img_backbone(x)
-        if self.img_neck is not None:
-            feats = self.img_neck(feats)
+        with fp32_precision():      # fp32 convs and products, not TF32
+            feats = self.img_backbone(x)
+            if self.img_neck is not None:
+                feats = self.img_neck(feats)
         return [f.permute(0, 2, 3, 1).to(self.compute_dtype).contiguous()
                 for f in feats]
 

@@ -341,8 +341,9 @@ class PatchEmbed(nn.Module):
 
 class ViT(nn.Module):
     """Plain ViT trunk. Input ``[B, H, W, 3]``, output ``[B, H/ps, W/ps,
-    C]``. ``drop_path_rate``, ``use_act_checkpoint`` and ``frozen_blocks``
-    are accepted for the config and unused (inference only)."""
+    C]``. ``drop_path_rate`` and ``use_act_checkpoint`` are accepted for
+    the config and unused (inference only); the optimizer reads the
+    config's ``frozen_blocks`` (``train/optim.py::eva02_frozen_patterns``)."""
 
     def __init__(self, img_size: int = 1024,
                  real_img_size: Tuple[int, int] = (256, 704),

@@ -32,6 +32,14 @@ CHUNK_ABOVE = 2048      # EvaAttention.chunk_above
 CHUNK = 512             # _chunked_attention's query chunk
 HEAD_DIM = 64           # the kernel's one head dim
 
+# the kernel against its plain version: both products in 3xTF32 (about
+# 2^-21 of each product's size) against fp32 products, summed in another
+# order, and the division by the softmax sum taken at the end instead of
+# before the product with v: a few fp32 roundings of values up to the output
+# scale, hence 1e-5 of the output's max abs (one TF32 product a k-step would
+# land at 4e-4 - 7e-4 of it: tests/test_torch_kernel_layouts.py)
+ATTENTION_TOL = 1e-5
+
 
 def _check(q, k, v):
     if q.dim() != 4 or tuple(k.shape) != tuple(q.shape) or \

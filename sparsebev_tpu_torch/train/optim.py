@@ -1,6 +1,7 @@
 """Optimizer assembly (counterpart of ``sparsebev_tpu/train/optim.py``):
 AdamW + global-norm clip + the cosine / linear-warmup schedule + per-parameter
-learning-rate multipliers, with ``frozen_stages`` as a 0x multiplier.
+learning-rate multipliers, with ``frozen_stages`` (``frozen_blocks`` for
+EVA02) as a 0x multiplier.
 
 How the optax chain maps onto ``torch.optim.AdamW``. optax applies
 ``clip_by_global_norm -> scale_by_adam -> add_decayed_weights ->
@@ -87,6 +88,18 @@ def vovnet_frozen_patterns(frozen_stages: int,
     return pats
 
 
+def eva02_frozen_patterns(frozen_blocks: int,
+                          prefix: str = "img_backbone") -> list:
+    """EVA02 freezing: the patch embed, the position embedding and blocks
+    0..k-1 of the trunk (``net``)."""
+    pats = []
+    if frozen_blocks >= 0:
+        pats += [f"{prefix}.net.patch_embed.", f"{prefix}.net.pos_embed"]
+    for i in range(frozen_blocks):
+        pats.append(f"{prefix}.net.blocks.{i}.")
+    return pats
+
+
 def backbone_frozen_patterns(backbone_cfg: Mapping,
                              prefix: str = "img_backbone") -> list:
     """Dispatch by backbone type from the model config."""
@@ -96,6 +109,9 @@ def backbone_frozen_patterns(backbone_cfg: Mapping,
         return resnet_frozen_patterns(stages, prefix)
     if btype == "VoVNet":
         return vovnet_frozen_patterns(stages, prefix)
+    if btype == "EVA02":
+        return eva02_frozen_patterns(backbone_cfg.get("frozen_blocks", -1),
+                                     prefix)
     return []
 
 

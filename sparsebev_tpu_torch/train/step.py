@@ -19,6 +19,7 @@ from torch import nn
 from ..losses import (compute_detection_loss, compute_dn_loss, draw_dn_noise,
                       prepare_dn_inputs)
 from ..models.layers import set_dropout_generator
+from ..utils.device import fp32_precision
 from .optim import clip_by_global_norm
 
 
@@ -89,7 +90,8 @@ def make_train_step(num_classes: int, code_weights: Sequence[float],
         total = sum(losses.values())
 
         state.optimizer.zero_grad(set_to_none=True)
-        total.backward()
+        with fp32_precision():  # the backbone's fp32 conv gradients too
+            total.backward()
         params = [p for g in state.optimizer.param_groups
                   for p in g["params"]]
         grad_norm = clip_by_global_norm(params, grad_clip)

@@ -23,11 +23,13 @@ import jax
 import jax.numpy as jnp
 
 from sparsebev_tpu.models import eva02 as jeva
+from sparsebev_tpu.train import optim as joptim
 from sparsebev_tpu.utils.checkpoint_io import port_torch_params
 
 from sparsebev_tpu_torch.models import eva02 as teva
 from sparsebev_tpu_torch.models.detector import build_detector
 from sparsebev_tpu_torch.ops import eva_attention as tatt
+from sparsebev_tpu_torch.train import optim as toptim
 from sparsebev_tpu_torch.utils.checkpoint_io import load_pretrained
 from sparsebev_tpu_torch.utils.convert import state_dict_from_jax
 
@@ -419,3 +421,34 @@ def test_bf16_detector_casts_the_pyramid():
                         .manual_seed(0)))
     assert [f.dtype for f in feats] == [torch.bfloat16] * 5
     assert all(f.is_contiguous() for f in feats)
+
+
+@pytest.mark.parametrize("frozen_blocks", [-1, 0, 2, 3])
+def test_frozen_parameters_match_jax(pair, frozen_blocks):
+    """The parameters the port's optimizer gives lr 0 for an EVA02 backbone
+    with ``frozen_blocks`` are those JAX's multiplier tree sets to 0, carried
+    to the port's keys by ``state_dict_from_jax`` (the patch embed, the
+    position embedding and blocks 0..k-1; nothing at -1)."""
+    params, _ = pair
+    cfg = dict(type="EVA02", frozen_blocks=frozen_blocks)
+    mults = joptim.build_lr_mult_tree(
+        {"backbone": params},
+        frozen_patterns=joptim.backbone_frozen_patterns(cfg,
+                                                        prefix="backbone"))
+    leaves = jax.tree_util.tree_map(
+        lambda m, x: np.full(np.shape(x), m, np.float32), mults,
+        {"backbone": params})
+    want = {k for k, v in state_dict_from_jax(leaves, {}).items()
+            if not bool(v.any())}
+
+    holder = torch.nn.Module()
+    holder.img_backbone = teva.EVA02(**KW)
+    optimizer, _ = toptim.build_optimizer(
+        holder, frozen_patterns=toptim.backbone_frozen_patterns(cfg))
+    names = {id(p): n for n, p in holder.named_parameters()}
+    got = {names[id(p)] for group in optimizer.param_groups
+           if group["lr_mult"] == 0.0 for p in group["params"]}
+    assert got == want
+    blocks = {int(k.split(".")[3]) for k in got if ".blocks." in k}
+    assert blocks == set(range(max(frozen_blocks, 0)))
+    assert ("img_backbone.net.pos_embed" in got) == (frozen_blocks >= 0)

@@ -141,6 +141,9 @@ def test_cuda_sources_declare_their_tpu_kernel_and_bound(src):
         assert "Replaces: sparsebev_tpu/models/eva02.py" in text
         assert "int eva_attention_forward(" in text
         assert text.count("__global__") == 1
+        # both products on the tensor cores in TF32, K / V by cp.async
+        assert "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32" in text
+        assert "cp.async.cg.shared.global" in text
     else:
         assert "Replaces: sparsebev_tpu/ops/" in text
     assert "Bound:" in text and "Design:" in text

@@ -17,6 +17,7 @@ import pytest
 import torch
 
 from sparsebev_tpu_torch.ops import mixing
+from sparsebev_tpu_torch.ops.eva_attention import ATTENTION_TOL
 from sparsebev_tpu_torch.ops.mixing import (mixing_core_plain, mixing_route,
                                             padded_points)
 from sparsebev_tpu_torch.ops import msmv_onehot
@@ -207,3 +208,152 @@ def test_padded_chain_bf16_within_the_card_tolerance():
     scale = max(1.0, float(want.abs().max()))
     assert bool(((got - want).abs()
                  <= 2.0 ** -7 * want.abs() + 2.0 ** -8 * scale).all())
+
+
+# ------------------------------------------- the attention kernel's order --
+
+KEYS = 64               # keys a tile of csrc/eva_attention.cu
+STEP = 32               # keys a step of its online softmax
+
+
+def _tf32_rna(x):
+    """fp32 -> TF32 by bit mask, to nearest with ties away from zero (the
+    kernel's integer add and mask, as cvt.rna.tf32.f32)."""
+    return ((x.view(torch.int32) + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _tf32_read(x):
+    """What the tensor cores read of an fp32 register: its top 19 bits."""
+    return (x.view(torch.int32) & -0x2000).view(torch.float32)
+
+
+def _mma(acc, a, b):
+    """One m16n8k8 product into the fp32 accumulator, modelled as its 8
+    TF32 x TF32 products summed exactly and added with one rounding toward
+    zero (the tensor cores truncate: with one running output accumulator
+    this model lands 2.8e-5 of the scale at N = 4000, the card 3.0e-5)."""
+    exact = acc.double() + _tf32_read(a).double() @ _tf32_read(b).double()
+    out = exact.float()
+    return torch.where(out.double().abs() > exact.abs(),
+                       torch.nextafter(out, torch.zeros_like(out)), out)
+
+
+def _products(acc, a, b, groups, products, small=None):
+    """acc += a @ b over the contraction ``groups`` (8 indices each, one
+    k-step): three TF32 products a k-step (lo*hi, hi*lo, hi*hi) or one. With
+    ``small`` the two small products go into that accumulator instead;
+    returns ``(acc, small)`` then."""
+    for idx in groups:
+        ak, bk = a[:, idx], b[idx, :]
+        ah, bh = _tf32_rna(ak), _tf32_rna(bk)
+        if products == 3:
+            if small is None:
+                acc = _mma(acc, ak - ah, bh)
+                acc = _mma(acc, ah, bk - bh)
+            else:
+                small = _mma(small, ak - ah, bh)
+                small = _mma(small, ah, bk - bh)
+        acc = _mma(acc, ah, bh)
+    return acc if small is None else (acc, small)
+
+
+def _dim_groups(hd=64):
+    """The head dims of each k-step of S = q k^T: k-step 2p takes dims
+    16p + 4t and 16p + 4t + 1 (columns t and t + 4), k-step 2p + 1 dims
+    16p + 4t + 2 and + 3."""
+    groups = []
+    for p in range(hd // 16):
+        for off in (0, 2):
+            groups.append([16 * p + 4 * t + off for t in range(4)]
+                          + [16 * p + 4 * t + off + 1 for t in range(4)])
+    return groups
+
+
+def _key_groups(j0, keys):
+    """The keys of each k-step of O += P V, in the fragment's order: column
+    t is key 8j + 2t, column t + 4 key 8j + 2t + 1 (the permuted V rows)."""
+    return [[j0 + 8 * j + 2 * t for t in range(4)]
+            + [j0 + 8 * j + 2 * t + 1 for t in range(4)]
+            for j in range(keys // 8)]
+
+
+def _replay_attention(q, k, v, products=3):
+    """csrc/eva_attention.cu's arithmetic for one head, ``[N, 64]`` fp32:
+    64-key tiles (the last zero-filled past N), each taken as two steps of
+    32 keys: S with hi*hi and the small products in two accumulators, added
+    once, scaled by 1/8, the keys past N at -inf; the online softmax in
+    fp32; the step's P V in a fresh accumulator, added as ``o * corr + pv``
+    in one rounding (fmaf); O divided by the row sum at the end."""
+    n, hd = q.shape
+    tiles = -(-n // KEYS)
+    kp = torch.zeros(tiles * KEYS, hd)
+    vp = torch.zeros(tiles * KEYS, hd)
+    kp[:n], vp[:n] = k, v
+    m = torch.full((n, 1), -float("inf"))
+    l = torch.zeros(n, 1)
+    o = torch.zeros(n, hd)
+    for j0 in range(0, tiles * KEYS, STEP):
+        zeros = torch.zeros(n, STEP)
+        kt = kp[j0:j0 + STEP].T
+        if products == 3:
+            big, small = _products(zeros, q, kt, _dim_groups(hd), 3,
+                                   small=zeros.clone())
+            s = big + small
+        else:
+            s = _products(zeros, q, kt, _dim_groups(hd), 1)
+        s = s * 0.125
+        s[:, max(n - j0, 0):] = -float("inf")
+        m_new = torch.maximum(m, s.max(dim=1, keepdim=True).values)
+        corr = torch.exp(m - m_new)
+        p = torch.exp(s - m_new)
+        l = l * corr + p.sum(dim=1, keepdim=True)
+        pv = _products(torch.zeros(n, hd), p, vp[j0:j0 + STEP],
+                       [[i - j0 for i in g] for g in _key_groups(j0, STEP)],
+                       products)
+        o = (o.double() * corr.double() + pv.double()).float()
+        m = m_new
+    return o / l
+
+
+def _attention_operands(n, seed):
+    rng = np.random.RandomState(seed)
+    return [rng.randn(1, n, 1, 64).astype(np.float32) for _ in range(3)]
+
+
+def _replay_error(n, products, reference):
+    q, k, v = _attention_operands(n, n)
+    if reference == "plain":
+        from sparsebev_tpu_torch.ops.eva_attention import eva_attention_plain
+        want = eva_attention_plain(*map(torch.from_numpy, (q, k, v)))
+        want = want.numpy()
+    else:
+        import jax
+        import jax.numpy as jnp
+        want = np.asarray(jax.nn.dot_product_attention(
+            *map(jnp.asarray, (q, k, v))))
+    got = _replay_attention(*(torch.from_numpy(a[0, :, 0]) for a in (q, k, v)),
+                            products=products)
+    return (float(np.abs(got.numpy() - want[0, :, 0]).max())
+            / float(np.abs(want).max()))
+
+
+def test_replay_groups_cover_each_index_once():
+    assert sorted(sum(_dim_groups(), [])) == list(range(64))
+    assert sorted(sum(_key_groups(64, KEYS), [])) == list(range(64, 128))
+
+
+@pytest.mark.parametrize("reference", ["plain", "jax"])
+@pytest.mark.parametrize("n", [200, 300])
+def test_attention_3xtf32_replay_within_the_card_tolerance(n, reference):
+    """Three TF32 products a k-step: fp32-level attention, within the
+    tolerance the card holds the kernel to, of the plain version and of
+    ``jax.nn.dot_product_attention`` (N = 200 and 300: a ragged last
+    tile)."""
+    assert _replay_error(n, 3, reference) <= ATTENTION_TOL
+
+
+@pytest.mark.parametrize("n", [200, 300])
+def test_attention_1xtf32_replay_misses_the_tolerance(n):
+    """One TF32 product a k-step (plain TF32) lands outside the same
+    tolerance: the test tells the two routes apart."""
+    assert _replay_error(n, 1, "plain") > 10 * ATTENTION_TOL
