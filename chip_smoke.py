@@ -13,7 +13,8 @@ prints its wall time):
      pair-mode pack (each with its adjoint), the sampling forward, the
      sampling backward, the one-hot level sampler (two entries: all levels
      in one launch, and one level), the mixing core (two entries), the
-     tap-fold epilogue and the EVA02 attention; for the sampling forward
+     tap-fold epilogue and the EVA02 attention (forward, and a backward of
+     three kernels); for the sampling forward
      and backward, the one-hot sampler, the mixing core and the attention,
      what ``ptxas -v`` reports per kernel (registers, shared memory, stack
      frame, spills), and the tensor-core opcodes in the attention kernel's
@@ -131,7 +132,24 @@ prints its wall time):
      y-fold and group-split levels), step 1 again with the plain versions;
      then the pair adjoint at the step's shape (90 images of level 0)
      against its plain version and the permute-copy call;
- 10. a ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and last
+ 10. the training step of ``configs/vit_eva02_1600x640_trainval_future.py``
+     at full width (B=1, 1600 + 640 denoising queries, T=15: 90 images of
+     1600x640, of which the first ``stop_prev_grad`` = 4 frames, 24
+     images, carry gradients; EVA02 ViT-L with drop path 0.3, the block
+     remat and 3 frozen blocks): first the attention forward with its
+     log-sum-exp and the attention backward kernel at the step's two
+     shapes (24 x 4000 tokens, 504 windows of 256) against their plain
+     versions and autograd of the plain forward within
+     ``ATTENTION_BWD_TOL``, timed beside their bounds and the backward of
+     ``F.scaled_dot_product_attention``; then the trunk gate (the backbone's
+     parameter gradients over the 24 images with the kernels against the
+     plain versions within ``TRUNK_GRAD_TOL`` in the step's bf16; the same
+     with an fp32 compute dtype printed); then the step as in phase 6, with
+     the attention's launches a step held (72 forward: with gradients,
+     recomputed, detached; 24 backward), step 1's loss held to the plain
+     versions' and its probed gradients printed beside a one-ulp probe
+     (the seeded head amplifies any change past their tolerance);
+ 11. a ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and last
      ``{"ok": true, "device": {...}}``.
 
 Needs one CUDA card (it uses ``cuda:0`` alone); imports nothing of JAX.
@@ -175,7 +193,8 @@ PATHS = (
     # its in-points (P * T = 120) take neither mixing kernel's fast route.
     # Not ``exact``: the attention kernel is not bit-equal to its plain
     # version, so the end-to-end comparison is printed, not held (see
-    # compare_with_plain)
+    # compare_with_plain), and so are step 1's probed gradients in training
+    # (training_phase)
     dict(name="eva02", config="configs/vit_eva02_1600x640_trainval_future.py",
          samples=6, kernels=("pack", "pack_pair", "sampling", "attention"),
          checks=("sampling", "attention"), capture=False, exact=False,
@@ -674,6 +693,130 @@ def check_attention(torch, dev, flush, bw, fp32_rate, path):
     return results
 
 
+def check_attention_backward(torch, dev, flush, bw, fp32_rate, shapes):
+    """The attention backward kernel at the training step's shapes
+    (``shapes``: label -> (batch, tokens); fp32 q, k, v and dO from
+    N(0, 1), 16 heads of 64). First the forward with the log-sum-exp
+    against its plain versions (``ATTENTION_TOL`` of the output's and of
+    the lse's scale); then dq, dk, dv from that output and lse against
+    ``eva_attention_backward_plain`` and against autograd of
+    ``eva_attention_plain`` on the same inputs, each within
+    ``ATTENTION_BWD_TOL`` of its own scale. Timed with CUDA events (L2
+    flushed) beside its bounds (five products of 2 B H N^2 hd flops: three
+    TF32 products each at the dense TF32 rate, and one fp32-FMA product
+    each) and beside the backward of ``F.scaled_dot_product_attention``
+    (fp32) on the same tensors, whose kernels are named from a profiler
+    trace; the forward with the lse is timed too. Returns one result per
+    shape."""
+    import torch.nn.functional as F
+    from sparsebev_tpu_torch.ops import eva_attention as ea
+    gen = torch.Generator(device=dev).manual_seed(6)
+    heads, hd = 16, 64
+    tf32_rate = peaks(torch.cuda.get_device_name(dev))[2] / 2
+    results = {}
+    for key, (b, n) in shapes.items():
+        name = f"eva02 train {key}"
+        q, k, v, g = (torch.randn((b, n, heads, hd), generator=gen,
+                                  device=dev) for _ in range(4))
+        out, lse = ea._eva_attention_cuda(q, k, v, with_lse=True)
+        want = ea.eva_attention_plain(q, k, v)
+        want_lse = ea.eva_attention_lse_plain(q, k)
+        torch.cuda.synchronize()
+        err_o = (out - want).abs().max().item()
+        scale_o = want.abs().max().item()
+        err_l = (lse - want_lse).abs().max().item()
+        scale_l = want_lse.abs().max().item()
+        log(f"attention backward [{name}] B={b} N={n} H={heads} hd={hd} "
+            f"fp32: forward with lse: max|out - plain| = {err_o:.4g} (scale "
+            f"{scale_o:.4g}), max|lse - plain| = {err_l:.4g} (scale "
+            f"{scale_l:.4g}); tolerance {ea.ATTENTION_TOL:g} of each scale")
+        if not (err_o <= ea.ATTENTION_TOL * scale_o
+                and err_l <= ea.ATTENTION_TOL * scale_l):
+            fail(f"the attention forward with lse differs from its plain "
+                 f"versions ({name})")
+        del want, want_lse
+        got = ea._eva_attention_backward_cuda(q, k, v, out, lse, g)
+        plain = ea.eva_attention_backward_plain(q, k, v, out, lse, g)
+        qa, ka, va = (x.clone().requires_grad_() for x in (q, k, v))
+        auto = torch.autograd.grad(ea.eva_attention_plain(qa, ka, va),
+                                   (qa, ka, va), g)
+        del qa, ka, va
+        torch.cuda.synchronize()
+        errs, abs_errs, auto_errs, scales = [], [], [], []
+        for a, p_, r in zip(got, plain, auto):
+            scale = p_.abs().max().item()
+            scales.append(scale)
+            abs_errs.append((a - p_).abs().max().item())
+            errs.append(abs_errs[-1] / scale)
+            auto_errs.append((a - r).abs().max().item()
+                             / r.abs().max().item())
+        log(f"attention backward [{name}]: max|kernel - plain| / scale: dq "
+            f"{errs[0]:.3g}, dk {errs[1]:.3g}, dv {errs[2]:.3g} (scales "
+            + ", ".join(f"{x:.4g}" for x in scales) + "); against autograd "
+            f"of the plain forward: {auto_errs[0]:.3g}, {auto_errs[1]:.3g}, "
+            f"{auto_errs[2]:.3g}; tolerance {ea.ATTENTION_BWD_TOL:g}")
+        if not max(errs + auto_errs) <= ea.ATTENTION_BWD_TOL:
+            fail(f"the attention backward kernel differs from its plain "
+                 f"version ({name})")
+        del got, plain, auto
+        torch.cuda.empty_cache()
+        ms = time_ms(torch, lambda: ea._eva_attention_backward_cuda(
+            q, k, v, out, lse, g), 10, flush)
+        fwd_ms = time_ms(torch, lambda: ea._eva_attention_cuda(
+            q, k, v, with_lse=True), 10, flush)
+        plain_ms = time_ms(torch, lambda: ea.eva_attention_backward_plain(
+            q, k, v, out, lse, g), 3, flush, PLAIN_BUSY_CYCLES)
+        qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
+                      for x in (q, k, v))
+        gt = g.transpose(1, 2)
+        so = F.scaled_dot_product_attention(qt, kt, vt)
+
+        def library():
+            return torch.autograd.grad(so, (qt, kt, vt), gt,
+                                       retain_graph=True)
+
+        lib = library()
+        lib_err = max((x.transpose(1, 2) - r).abs().max().item()
+                      / r.abs().max().item()
+                      for x, r in zip(lib, ea.eva_attention_backward_plain(
+                          q, k, v, out, lse, g)))
+        del lib
+        for _ in range(5):      # a trace now and then holds no device op
+            lib_kernels = _device_kernels(torch, library)
+            if lib_kernels:
+                break
+        library_ms = time_ms(torch, library, 10, flush)
+        del so, qt, kt, vt, gt
+        flops = 10 * b * heads * n * n * hd   # five products
+        nbytes = 8 * q.numel() * q.element_size() + lse.numel() * 4
+        bound_ms = max(3 * flops / tf32_rate, nbytes / bw) * 1e3
+        fma_ms = max(flops / fp32_rate, nbytes / bw) * 1e3
+        fwd_bound_ms = 3 * (flops * 2 // 5) / tf32_rate * 1e3
+        log(f"attention backward [{name}]: SDPA's backward kernels: "
+            + "; ".join(lib_kernels) + f"; max|SDPA - plain| / scale "
+            f"{lib_err:.3g}")
+        log(f"attention backward [{name}]: {ms:.4f} ms (plain {plain_ms:.4f} "
+            f"ms, SDPA backward {library_ms:.4f} ms), bound {bound_ms:.4f} ms "
+            f"by operations (3xTF32: 3 x {flops / 1e12:.3f} TFLOP at the "
+            f"dense TF32 rate; {nbytes / 1e9:.3f} GB at {bw / 1e12:.2f} "
+            f"TB/s {nbytes / bw * 1e3:.4f} ms): {100 * bound_ms / ms:.1f}% "
+            f"of the bound; the fp32-FMA bound {fma_ms:.4f} ms "
+            f"({100 * fma_ms / ms:.1f}%); the forward with lse {fwd_ms:.4f} "
+            f"ms (3xTF32 bound {fwd_bound_ms:.4f} ms)")
+        results[name] = dict(max_abs_err=max(abs_errs),
+                             max_rel_err=max(errs), ms=ms, plain_ms=plain_ms,
+                             bound_ms=bound_ms, bound_by="operations",
+                             library_ms=library_ms, bound_route="3xTF32",
+                             fp32_fma_bound_ms=fma_ms,
+                             autograd_rel_err=max(auto_errs),
+                             library_kernels=lib_kernels,
+                             forward_lse_ms=fwd_ms,
+                             forward_bound_ms=fwd_bound_ms)
+        del q, k, v, g, out, lse
+        torch.cuda.empty_cache()
+    return results
+
+
 def attention_sass(lib_path):
     """Print the counts of the tensor-core (HMMA) opcodes in the SASS of a
     built library (``cuobjdump -sass``); fails when the attention kernel
@@ -943,9 +1086,15 @@ def plain_versions():
     card) for the duration."""
     from sparsebev_tpu_torch.ops import (eva_attention, msmv_onehot, msmv_pack,
                                          msmv_sampling)
+    def attention(q, k, v, with_lse=False):
+        out = eva_attention.eva_attention_plain(q, k, v)
+        return out, (eva_attention.eva_attention_lse_plain(q, k)
+                     if with_lse else None)
+
     routes = (
-        (eva_attention, "_eva_attention_cuda",
-         eva_attention.eva_attention_plain),
+        (eva_attention, "_eva_attention_cuda", attention),
+        (eva_attention, "_eva_attention_backward_cuda",
+         eva_attention.eva_attention_backward_plain),
         (msmv_pack, "_pack_level_cuda", msmv_pack.pack_level_plain),
         (msmv_pack, "_pack_level_pair_cuda", msmv_pack.pack_level_pair_plain),
         (msmv_pack, "_pack_level_bwd_cuda", msmv_pack.pack_level_bwd_plain),
@@ -2136,6 +2285,37 @@ TRAIN_GRAD_PROBES = (
     "img_neck.fpn_convs.0.conv.weight",
     _LAYER + "sampling.sampling_offset.weight",
     _LAYER + "ffn.layers.1.weight", "pts_bbox_head.init_query_bbox.weight")
+# eva02: the last block's q projection, the frozen block 2's MLP output
+# and the frozen patch embed (their gradients count in the clip), a global
+# block's attention output projection, the pyramid's first 1x1 conv, the
+# decoder
+EVA_TRAIN_GRAD_PROBES = (
+    "img_backbone.net.blocks.23.attn.q_proj.weight",
+    "img_backbone.net.blocks.2.mlp.w3.weight",
+    "img_backbone.net.patch_embed.proj.weight",
+    "img_backbone.net.blocks.11.attn.proj.weight",
+    "img_backbone.simfp_2.4.weight",
+    _LAYER + "sampling.sampling_offset.weight",
+    _LAYER + "ffn.layers.1.weight", "pts_bbox_head.init_query_bbox.weight")
+# the EVA02 training step's attention shapes: the 24 images of the first
+# stop_prev_grad = 4 frames carry gradients; global blocks over 4,000
+# tokens a view, windowed ones over 21 padded 16x16 windows a view
+EVA_TRAIN_ATTENTION = dict(glb=(24, 4000), win=(24 * 21, 256))
+# the trunk gate: the EVA02 backbone's parameter gradients over the step's
+# gradient images, kernels against plain versions, same weights, masks and
+# cotangent, in the step's compute dtype (bf16). The attention kernels
+# differ from their plain versions by about 2e-6 of the scale (forward and
+# backward), carried through 24 blocks; the patch embed and the pyramid's
+# convolutions round to bf16, where a trunk value that moves by an ulp can
+# round the other way (one bf16 ulp is 3.9e-3): 1% of each parameter's
+# largest gradient entry. A wrong backward (a missing term, a wrong scale,
+# a dropped tile) moves whole tensors. The same comparison with
+# compute_dtype float32 is printed, not held: its pyramid outputs agree
+# within 6.3e-6 of their scale, but each parameter gradient sums 96,000
+# token contributions of a random cotangent that cancel, which lifts those
+# fp32 differences to 5e-4 - 2.7e-3 of the gradient's largest entry on an
+# H100 (PERF.md, section 6: a 1e-3 stated before that run did not hold)
+TRUNK_GRAD_TOL = 1e-2
 # vov99: a conv of the last stage-4 block, the frozen stage 2's concat BN
 # and stem (their gradients count in the clip), the FPN, the decoder
 VOV_TRAIN_GRAD_PROBES = (
@@ -2251,8 +2431,9 @@ def _train_harness(torch, dev, path=None, probes=TRAIN_GRAD_PROBES):
     step's generator re-seeded (``record`` collects the gradients named in
     ``probes`` just before the clip). Also the element counts of the step's
     packed tables: each level's images (T frames of 6 views) of the FPN's C
-    channels, y-fold (``[M, H, G, W+1, 2Cg]``) or pair (``[M, H, G, W+1,
-    Cg]``)."""
+    channels (an EVA02 backbone's own pyramid has no neck: its
+    ``fpn_out_channels``), y-fold (``[M, H, G, W+1, 2Cg]``) or pair
+    (``[M, H, G, W+1, Cg]``)."""
     from sparsebev_tpu_torch.config import Config
     from sparsebev_tpu_torch.models.detector import build_detector
     from sparsebev_tpu_torch.train import optim, step as tstep
@@ -2262,7 +2443,10 @@ def _train_harness(torch, dev, path=None, probes=TRAIN_GRAD_PROBES):
     cfg = Config.fromfile(config)
     batch = make_train_batch(torch, dev, cfg)
     train_step = tstep.train_step_from_config(cfg)
-    m, c = batch["img"].shape[1], cfg.model["img_neck"]["out_channels"]
+    neck = cfg.model.get("img_neck")
+    c = (neck["out_channels"] if neck is not None
+         else cfg.model["img_backbone"]["fpn_out_channels"])
+    m = batch["img"].shape[1]
     table_numels = {m * h * (w + 1) * c * k for h, w in path["levels"]
                     for k in (1, 2)}
 
@@ -2314,9 +2498,15 @@ def training_phase(torch, dev, flush, bw, fp32_rate, path=None,
     loss), counted launches, one more step under the profiler, the sampling
     backward on one layer's recorded operands, and step 1 again with the
     plain versions. ``compare_remat``: one more step with the decoder's
-    layer remat off, for its peak memory and time. Returns the launch
-    counts of the steps, the sampling backward's numbers on the recorded
-    layer and the step's figures."""
+    layer remat off, for its peak memory and time. An EVA02 backbone adds
+    the attention kernels' launches (3 forward calls a block: with
+    gradients, recomputed by the block remat, detached; one backward). On a
+    path that is not ``exact`` the probed gradients of step 1 are printed,
+    not held (the loss is held on every path), beside a probe: step 1 once
+    more with the attention's output one fp32 ulp off on ``NUDGE_SHARE`` of
+    its entries. Returns the launch counts of the steps, the sampling
+    backward's numbers on the recorded layer and the step's figures."""
+    from sparsebev_tpu_torch.ops import eva_attention as ea
     from sparsebev_tpu_torch.ops import msmv_pack
     from sparsebev_tpu_torch.ops import msmv_sampling as ms
 
@@ -2327,11 +2517,23 @@ def training_phase(torch, dev, flush, bw, fp32_rate, path=None,
         torch, dev, path, probes)
     head = cfg.model["pts_bbox_head"]
     dn = head["query_denoising_groups"] * cfg.max_gt
+    bb = cfg.model["img_backbone"]
+    eva = bb.get("type") == "EVA02"
+    if eva:
+        k = cfg.model.get("stop_prev_grad", 0) * 6
+        backbone = (f"EVA02 backbone: drop path {bb['drop_path_rate']} "
+                    f"(np.linspace over {bb['depth']} blocks), block remat "
+                    f"use_act_checkpoint={bb['use_act_checkpoint']}, "
+                    f"frozen_blocks={bb['frozen_blocks']}, stop_prev_grad="
+                    f"{cfg.model.get('stop_prev_grad', 0)} ({k} of "
+                    f"{batch['img'].shape[1]} images with gradients)")
+    else:
+        backbone = f"backbone with_cp={bb.get('with_cp')}"
     log(f"{label}: {config} (B=1, Q={head['num_query']} + {dn} "
         f"denoising queries, T={head['num_frames']}, "
         f"{tuple(batch['img'].shape[2:4])} images, {head['num_layers']} "
         f"layers, {cfg.model['compute_dtype']} compute / fp32 parameters, "
-        f"backbone with_cp={cfg.model['img_backbone'].get('with_cp')}, "
+        f"{backbone}, "
         f"decoder layer remat on, table_yfold {head.get('table_yfold', True)}"
         f", table_gsplit_pack {head.get('table_gsplit_pack', False)}, "
         f"{int(batch['gt_mask'].sum())} of {cfg.max_gt} ground-truth slots "
@@ -2349,6 +2551,10 @@ def training_phase(torch, dev, flush, bw, fp32_rate, path=None,
         counters.update(pack_pair=msmv_pack.pack_level_pair,
                         pack_pair_bwd=msmv_pack.pack_level_pair_bwd)
         want.update(pack_pair=n_pair, pack_pair_bwd=n_pair)
+    if eva:
+        counters.update(attention=ea.eva_attention,
+                        attention_bwd=ea.eva_attention_backward)
+        want.update(attention=3 * bb["depth"], attention_bwd=bb["depth"])
     held = torch.cuda.memory_allocated(dev)
     state = new_state()
     n_params = sum(p.numel() for p in state.model.parameters())
@@ -2456,10 +2662,43 @@ def training_phase(torch, dev, flush, bw, fp32_rate, path=None,
     del state
     torch.cuda.empty_cache()
     rel = abs(first["loss"] - plain["loss"]) / abs(plain["loss"])
+    exact = path.get("exact", True)
+    nudge = {}
+    if not exact:
+        # the probe: step 1 with the kernels, the attention's output one
+        # fp32 ulp off on NUDGE_SHARE of its entries (the same entries in
+        # every call, the remat's recompute included)
+        every = round(1 / NUDGE_SHARE)
+        attention = ea._eva_attention_cuda
+
+        def nudged(q, k, v, with_lse=False):
+            out, lse = attention(q, k, v, with_lse)
+            flat = out.view(-1)
+            idx = torch.arange(0, flat.numel(), every, device=flat.device)
+            flat[idx] = torch.nextafter(flat[idx],
+                                        torch.full_like(flat[idx], 1e30))
+            return out, lse
+
+        nudge_grads = {}
+        state = new_state()
+        ea._eva_attention_cuda = nudged
+        try:
+            nudge = {k: float(v) for k, v in
+                     run_step(state, nudge_grads).items()}
+        finally:
+            ea._eva_attention_cuda = attention
+        del state
+        torch.cuda.empty_cache()
+    probe = ""
+    if nudge:
+        p_rel = abs(first["loss"] - nudge["loss"]) / abs(first["loss"])
+        probe = (f"; probe (the attention's output one ulp off on "
+                 f"{NUDGE_SHARE:g} of its entries): loss {nudge['loss']:.6f}"
+                 f", {p_rel:.3g} from the kernel step")
     log(f"{label}: step 1 with kernels loss {first['loss']:.6f}, with "
         f"the plain versions {plain['loss']:.6f} (relative difference "
         f"{rel:.3g}, tolerance {TRAIN_LOSS_RTOL:g}); grad norm "
-        f"{first['grad_norm']:.4f} vs {plain['grad_norm']:.4f}")
+        f"{first['grad_norm']:.4f} vs {plain['grad_norm']:.4f}" + probe)
     if not rel <= TRAIN_LOSS_RTOL:
         fail(f"{label}: the kernel step's loss differs from the plain "
              "step's")
@@ -2467,12 +2706,112 @@ def training_phase(torch, dev, flush, bw, fp32_rate, path=None,
         a, b = kernel_grads[k], plain_grads[k]
         scale = b.abs().max().item()
         d = (a - b).abs().max().item()
+        extra = ""
+        if nudge:
+            pd = (nudge_grads[k] - a).abs().max().item()
+            extra = (f"; probe: {pd:.3g} ({pd / scale:.3g} of the scale) "
+                     "from the kernel step")
         log(f"{label}: grad {k}: max|kernel - plain| = {d:.3g} at "
-            f"scale {scale:.3g} (tolerance {TRAIN_GRAD_TOL * scale:.3g})")
-        if not scale > 0 or not d <= TRAIN_GRAD_TOL * scale:
+            f"scale {scale:.3g} ({d / scale:.3g} of it; tolerance "
+            f"{TRAIN_GRAD_TOL:g}){extra}")
+        if exact and (not scale > 0 or not d <= TRAIN_GRAD_TOL * scale):
             fail(f"{label}: gradient of {k} differs between the kernel "
                  "and the plain step")
     return launches, bwd, figures
+
+
+def eva02_trunk_gate(torch, dev, path, compute_dtype=None):
+    """The EVA02 backbone (ViT and pyramid) of ``path``'s config, seeded
+    weights as the training phase builds them, forward and backward over
+    the step's gradient images (``stop_prev_grad`` frames of 6) of seeded
+    N(0, 1) pixels in the compute dtype, drop path on with fixed masks, a seeded
+    cotangent on the five pyramid outputs: once with the kernels, once with
+    the plain versions. Prints the worst share of each block's parameter
+    gradients and the pyramid outputs' gaps; in the config's compute dtype
+    every parameter's gradient must lie within ``TRUNK_GRAD_TOL`` of its
+    largest entry (``compute_dtype`` replaces the config's, and then the
+    comparison is only printed)."""
+    from sparsebev_tpu_torch.config import Config
+    from sparsebev_tpu_torch.models import layers
+    from sparsebev_tpu_torch.models.detector import build_detector
+    from sparsebev_tpu_torch.ops import eva_attention as ea
+    from sparsebev_tpu_torch.utils.device import fp32_precision
+
+    cfg = Config.fromfile(os.path.join(HERE, path["config"]))
+    held = compute_dtype is None
+    if not held:
+        cfg.model["compute_dtype"] = compute_dtype
+    images = cfg.model["stop_prev_grad"] * 6
+    model = build_detector(cfg, device=dev, seed=0)
+    backbone = model.img_backbone
+    model.pts_bbox_head = None
+    h, w = cfg.ida_aug_conf["final_dim"]
+    gen = torch.Generator(device=dev).manual_seed(21)
+    x = torch.randn((images, 3, h, w), generator=gen, device=dev).to(
+        model.compute_dtype)
+    masks = {}
+    for blk in backbone.net.blocks:
+        for dp in (blk.drop_path_attn, blk.drop_path_mlp):
+            if dp.rate > 0:
+                masks[(dp.block, dp.site)] = torch.rand(
+                    images, generator=gen, device=dev) < 1.0 - dp.rate
+    layers.set_drop_path_draws(backbone, lambda b, s, n: masks[(b, s)])
+    cots = []
+
+    def run():
+        backbone.zero_grad(set_to_none=True)
+        with fp32_precision():
+            outs = backbone(x, deterministic=False)
+            if not cots:
+                cots.extend(torch.randn(o.shape, generator=gen, device=dev)
+                            for o in outs)
+            torch.autograd.backward(outs, cots)
+        grads = {k: p.grad for k, p in backbone.named_parameters()}
+        return grads, [o.detach() for o in outs]
+
+    t0 = time.perf_counter()
+    launches = ea.eva_attention.launches, ea.eva_attention_backward.launches
+    kernel_grads, kernel_outs = run()
+    torch.cuda.synchronize()
+    k_s = time.perf_counter() - t0
+    launches = (ea.eva_attention.launches - launches[0],
+                ea.eva_attention_backward.launches - launches[1])
+    t0 = time.perf_counter()
+    with plain_versions():
+        plain_grads, plain_outs = run()
+    torch.cuda.synchronize()
+    p_s = time.perf_counter() - t0
+    label = (f"trunk gate [{path['name']}, {images} images, "
+             f"{cfg.model['compute_dtype']}]")
+    gaps = [((a - b).abs().max() / b.abs().max()).item()
+            for a, b in zip(kernel_outs, plain_outs)]
+    log(f"{label}: {k_s:.1f} s with the kernels ({launches[0]} attention "
+        f"forward, {launches[1]} backward launches), {p_s:.1f} s with the "
+        f"plain versions; pyramid outputs, max|kernel - plain| / scale: "
+        + ", ".join(f"{g:.3g}" for g in gaps))
+    worst, groups = 0.0, {}
+    for k, b in plain_grads.items():
+        a = kernel_grads[k]
+        scale = b.abs().max().item()
+        share = (a - b).abs().max().item() / scale if scale > 0 else (
+            0.0 if a.abs().max().item() == 0 else math.inf)
+        group = (".".join(k.split(".")[:3]) if k.startswith("net.blocks.")
+                 else k.split(".")[0])
+        if share > groups.get(group, (-1.0, ""))[0]:
+            groups[group] = (share, k)
+        worst = max(worst, share)
+    log(f"{label}: worst max|kernel - plain| / scale of each block's "
+        f"parameter gradients ("
+        + (f"tolerance {TRUNK_GRAD_TOL:g}" if held else "printed, not held")
+        + "): "
+        + "; ".join(f"{g} {v:.3g}" for g, (v, _) in groups.items()))
+    name = max(groups.values())[1]
+    log(f"{label}: worst parameter {name}: {worst:.3g} of its scale")
+    del model, backbone, kernel_grads, plain_grads, kernel_outs, plain_outs
+    torch.cuda.empty_cache()
+    if held and not worst <= TRUNK_GRAD_TOL:
+        fail(f"{label}: the backbone's gradients with the kernels differ "
+             f"from the plain versions' ({name}: {worst:.3g} of its scale)")
 
 
 def _counters():
@@ -3038,10 +3377,12 @@ def bringup_train_kernels():
 
 
 def bringup_attention():
-    """The attention kernel alone: build it, print what ptxas reports and
-    the tensor-core opcodes of its SASS, hold it to its plain version at
-    both EVA02 shapes (timed beside SDPA), and check the fp32 conv of the
-    frame pass (``python3 -c "import chip_smoke;
+    """The attention kernels alone: build them, print what ptxas reports
+    and the tensor-core opcodes of the SASS, hold the forward to its plain
+    version at both EVA02 streaming shapes (timed beside SDPA) and the
+    forward with the lse and the backward at the training step's shapes
+    (timed beside SDPA's backward), and check the fp32 conv of the frame
+    pass (``python3 -c "import chip_smoke;
     chip_smoke.bringup_attention()"``)."""
     import torch
     sys.path.insert(0, HERE)
@@ -3056,6 +3397,8 @@ def bringup_attention():
     path = next(p for p in PATHS if p["name"] == "eva02")
     flush = torch.empty(64 * 2**20, dtype=torch.int32, device=dev)
     check_attention(torch, dev, flush, bw, fp32_rate, path)
+    check_attention_backward(torch, dev, flush, bw, fp32_rate,
+                             EVA_TRAIN_ATTENTION)
     del flush
     torch.cuda.empty_cache()
     check_fp32_conv(torch, dev)
@@ -3094,6 +3437,44 @@ def bringup_eva02():
         log(f"{p['name']} stream: launches {launches}; "
             f"{time.perf_counter() - t0:.1f} s")
     del flush
+
+
+def eva02_training(torch, dev, flush, bw, fp32_rate, measured):
+    """Phase 10: the attention backward at the EVA02 step's shapes
+    (``check_attention_backward``), the trunk gate and the training phase of
+    the EVA02 config; its numbers go into ``measured``. Returns the step's
+    launch counts."""
+    path = next(p for p in PATHS if p["name"] == "eva02")
+    measured["attention_bwd"].update(check_attention_backward(
+        torch, dev, flush, bw, fp32_rate, EVA_TRAIN_ATTENTION))
+    eva02_trunk_gate(torch, dev, path)                  # held
+    eva02_trunk_gate(torch, dev, path, "float32")       # printed
+    launches, measured["sampling_bwd"]["eva02 train recorded"], _ = \
+        training_phase(torch, dev, flush, bw, fp32_rate, path,
+                       EVA_TRAIN_GRAD_PROBES)
+    return launches
+
+
+def bringup_eva02_train():
+    """The EVA02 training phase alone: build its five sources, print what
+    ptxas reports for the attention kernels, then phase 10 (``python3 -c
+    "import chip_smoke; chip_smoke.bringup_eva02_train()"``)."""
+    import torch
+    sys.path.insert(0, HERE)
+    from sparsebev_tpu_torch.kernels import build
+    dev = torch.device("cuda", 0)
+    log(nvidia_smi_line())
+    t0 = time.perf_counter()
+    logs = build.build_all(["msmv_pack", "msmv_pack_pair", "msmv_sample",
+                            "msmv_sample_bwd", "eva_attention"])
+    for r in ptxas_report(logs["eva_attention"]):
+        log(f"ptxas[eva_attention]: {r}")
+    bw, fp32_rate, _ = peaks(torch.cuda.get_device_name(0))
+    flush = torch.empty(64 * 2**20, dtype=torch.int32, device=dev)
+    measured = {k: {} for k in KERNELS}
+    launches = eva02_training(torch, dev, flush, bw, fp32_rate, measured)
+    log(f"eva02 train: launches {launches}; "
+        f"{time.perf_counter() - t0:.1f} s")
 
 
 def step_profile(root=HERE):
@@ -3157,6 +3538,10 @@ KERNELS = dict(
     attention=dict(name="eva_attention", route="cuda",
                    source="sparsebev_tpu_torch/csrc/eva_attention.cu",
                    replaces="sparsebev_tpu/models/eva02.py:175"),
+    # jax.grad of the same call (XLA autodiff; no custom VJP in JAX)
+    attention_bwd=dict(name="eva_attention_backward", route="cuda",
+                       source="sparsebev_tpu_torch/csrc/eva_attention.cu",
+                       replaces="sparsebev_tpu/models/eva02.py:175"),
     tap_fold=dict(name="tap_fold_epilogue", route="cuda",
                   source="sparsebev_tpu_torch/csrc/tap_fold.cu",
                   replaces="sparsebev_tpu/ops/msmv_epilogue_pallas.py:73"),
@@ -3371,11 +3756,19 @@ def main() -> int:
         label="vov99 train")
     measured["pack_pair_bwd"] = {"vov99 train": pair_train,
                                  **measured["pack_pair_bwd"]}
-    del flush
     torch.cuda.empty_cache()
     log(f"phase: training (vov99, {TRAIN_STEPS} steps, the plain step, the "
         f"recorded sampling backward and the pair adjoint) took "
         f"{time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    launches["eva02 train"] = eva02_training(torch, dev, flush, bw,
+                                             fp32_rate, measured)
+    del flush
+    torch.cuda.empty_cache()
+    log(f"phase: training (eva02, the attention backward's checks, the "
+        f"trunk gate, {TRAIN_STEPS} steps, the plain step and the probe) "
+        f"took {time.perf_counter() - t0:.1f} s")
 
     log(json.dumps(kernels_line(measured, launches)))
     log(smi)

@@ -128,12 +128,9 @@ class SparseBEV(nn.Module):
         ``[M, H, W, 3]``; returns NHWC pyramids ``[M, H', W', C]`` cast to
         the compute dtype (an EVA02 pyramid is fp32, as in JAX). The
         backbone and neck run under ``fp32_precision``: fp32 convolutions
-        and products in fp32 on CUDA, not TF32."""
-        if train and isinstance(self.img_backbone, EVA02):
-            raise NotImplementedError(
-                "training an EVA02 backbone is not ported yet (drop path, "
-                "block remat, frozen blocks, an attention backward kernel: "
-                "ROADMAP Queue 1 item 13)")
+        and products in fp32 on CUDA, not TF32. An EVA02 backbone runs with
+        ``deterministic=not train`` (drop path in training), as the JAX
+        detector calls it."""
         if self.use_grid_mask and train:
             draws = (aug_draws or {}).get("grid_mask")
             if draws is None:
@@ -142,7 +139,10 @@ class SparseBEV(nn.Module):
             img = grid_mask(img, draws)
         x = img.to(self.compute_dtype).permute(0, 3, 1, 2)  # NCHW view
         with fp32_precision():      # fp32 convs and products, not TF32
-            feats = self.img_backbone(x)
+            if isinstance(self.img_backbone, EVA02):
+                feats = self.img_backbone(x, deterministic=not train)
+            else:
+                feats = self.img_backbone(x)
             if self.img_neck is not None:
                 feats = self.img_neck(feats)
         return [f.permute(0, 2, 3, 1).to(self.compute_dtype).contiguous()
@@ -154,8 +154,9 @@ class SparseBEV(nn.Module):
         ``[B, TN, H', W', C]`` pyramids in the compute dtype. In training
         with ``stop_prev_grad = k > 0`` only the first k frames' features
         carry gradients (the rest run in a second, detached pass; each pass
-        draws its own GridMask, as in the JAX package, unless the draws are
-        passed in)."""
+        draws its own GridMask and, on an EVA02 backbone, its own drop-path
+        masks, as in the JAX package, the gradient pass first, unless the
+        draws are passed in)."""
         b, tn, h, w, _ = img.shape
         if train and self.stop_prev_grad > 0:
             k = self.stop_prev_grad * 6

@@ -31,9 +31,18 @@ The projections and SwiGLU matrices are plain fp32 ``F.linear`` products,
 as JAX leaves them to XLA; torch's default keeps fp32 matmuls out of TF32.
 Window padding is zeros after ``norm1``, and the padded tokens take part in
 the attention unmasked (k = 0, q = the rotated q bias, v = the v bias), as
-in JAX. Drop path, activation checkpointing and block freezing are training
-features: they are accepted and have no effect here (training an EVA02
-backbone is not ported; the detector refuses it).
+in JAX.
+
+Training follows ``ViT.__call__(x, deterministic)``: with ``deterministic``
+False each block applies stochastic depth (``models/layers.py::DropPath``)
+after its attention branch and after its MLP branch, at the block's rate
+from ``np.linspace(0, drop_path_rate, depth)`` (block 0 draws nothing), one
+draw a sample from the step's generator; with ``use_act_checkpoint`` and
+gradients enabled each block is a checkpointed region
+(``layers.py::checkpoint_with_generator``, JAX's
+``nn.remat(EvaBlock)``), whose recompute replays the block's masks. Frozen
+blocks still get gradients: the optimizer gives them lr 0
+(``train/optim.py::eva02_frozen_patterns``), as JAX masks its updates.
 """
 
 from __future__ import annotations
@@ -47,6 +56,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.eva_attention import eva_attention
+from .layers import DropPath, checkpoint_with_generator
 
 LN_EPS = 1e-6
 
@@ -298,8 +308,14 @@ class ResBottleneckBlock(nn.Module):
 
 
 class EvaBlock(nn.Module):
+    """norm1, (windowed) attention, drop path, residual; norm2, SwiGLU, drop
+    path, residual; the optional conv block. ``index`` names the block to
+    its two :class:`DropPath` sites (0 after the attention, 1 after the
+    MLP)."""
+
     def __init__(self, dim: int, num_heads: int, mlp_ratio: float,
-                 window_size: int = 0, use_residual_block: bool = False):
+                 window_size: int = 0, use_residual_block: bool = False,
+                 drop_path_rate: float = 0.0, index: int = 0):
         super().__init__()
         self.window_size = window_size
         self.norm1 = LayerNorm(dim)
@@ -308,8 +324,10 @@ class EvaBlock(nn.Module):
         self.mlp = SwiGLU(dim, int(dim * mlp_ratio))
         self.residual = ResBottleneckBlock(dim) if use_residual_block \
             else None
+        self.drop_path_attn = DropPath(drop_path_rate, index, 0)
+        self.drop_path_mlp = DropPath(drop_path_rate, index, 1)
 
-    def forward(self, x, rope_cos, rope_sin):
+    def forward(self, x, rope_cos, rope_sin, deterministic: bool = True):
         shortcut = x
         y = self.norm1(x)
         if self.window_size > 0:
@@ -318,8 +336,9 @@ class EvaBlock(nn.Module):
         y = self.attn(y, rope_cos, rope_sin)
         if self.window_size > 0:
             y = window_unpartition(y, self.window_size, pad_hw, (h, w))
+        y = self.drop_path_attn(y, deterministic)
         x = shortcut + y        # a bf16 shortcut + the fp32 branch: fp32
-        x = x + self.mlp(self.norm2(x))
+        x = x + self.drop_path_mlp(self.mlp(self.norm2(x)), deterministic)
         if self.residual is not None:
             x = self.residual(x)
         return x
@@ -341,9 +360,10 @@ class PatchEmbed(nn.Module):
 
 class ViT(nn.Module):
     """Plain ViT trunk. Input ``[B, H, W, 3]``, output ``[B, H/ps, W/ps,
-    C]``. ``drop_path_rate`` and ``use_act_checkpoint`` are accepted for
-    the config and unused (inference only); the optimizer reads the
-    config's ``frozen_blocks`` (``train/optim.py::eva02_frozen_patterns``)."""
+    C]``. ``drop_path_rate`` and ``use_act_checkpoint`` act in training
+    (``forward(x, deterministic=False)``; see the module docstring); the
+    optimizer reads the config's ``frozen_blocks``
+    (``train/optim.py::eva02_frozen_patterns``)."""
 
     def __init__(self, img_size: int = 1024,
                  real_img_size: Tuple[int, int] = (256, 704),
@@ -383,11 +403,14 @@ class ViT(nn.Module):
                                  persistent=False)
             self.register_buffer(f"rope_{name}_sin", torch.from_numpy(sin),
                                  persistent=False)
+        self.use_act_checkpoint = use_act_checkpoint
+        dpr = np.linspace(0, drop_path_rate, depth)
         self.blocks = nn.ModuleList([
             EvaBlock(embed_dim, num_heads, mlp_ratio,
                      window_size=(window_size
                                   if i in self.window_block_indexes else 0),
-                     use_residual_block=i in residual_block_indexes)
+                     use_residual_block=i in residual_block_indexes,
+                     drop_path_rate=float(dpr[i]), index=i)
             for i in range(depth)])
         self._resize: Dict[Any, Tuple[torch.Tensor, torch.Tensor]] = {}
 
@@ -410,15 +433,21 @@ class ViT(nn.Module):
             self._resize[key] = mats
         return torch.einsum("hs,bstc,wt->bhwc", mats[0], pos, mats[1])
 
-    def forward(self, x):
+    def forward(self, x, deterministic: bool = True):
         x = self.patch_embed(x)
         if self.pos_embed is not None:
             x = x + self._abs_pos(x.shape[1], x.shape[2]).to(x.dtype)
+        remat = self.use_act_checkpoint and torch.is_grad_enabled()
         for i, blk in enumerate(self.blocks):
             name = "win" if i in self.window_block_indexes else "glb"
-            cos = getattr(self, f"rope_{name}_cos")
-            sin = getattr(self, f"rope_{name}_sin")
-            x = blk(x, cos.to(x.dtype), sin.to(x.dtype))
+            cos = getattr(self, f"rope_{name}_cos").to(x.dtype)
+            sin = getattr(self, f"rope_{name}_sin").to(x.dtype)
+            if remat:
+                x = checkpoint_with_generator(
+                    blk, x, cos, sin, deterministic,
+                    generator=blk.drop_path_attn.generator)
+            else:
+                x = blk(x, cos, sin, deterministic)
         return x
 
 
@@ -482,7 +511,8 @@ class EVA02(SimpleFeaturePyramid):
     and returns the p2..p6 pyramid as NCHW views of channel-last fp32 maps.
     Accepts every field of the JAX dataclass; ``qkv_bias``, ``out_feature``,
     ``xattn``, ``fpn_in_feature``, ``fpn_norm``, ``fpn_square_pad`` and
-    ``pretrained`` are ignored there and here."""
+    ``pretrained`` are ignored there and here. ``deterministic`` (False in
+    training) turns the trunk's drop path on."""
 
     def __init__(self, img_size: int = 1024,
                  real_img_size: Tuple[int, int] = (256, 704),
@@ -520,6 +550,7 @@ class EVA02(SimpleFeaturePyramid):
             pretrain_use_cls_token=pretrain_use_cls_token,
             frozen_blocks=frozen_blocks, dtype=dtype)
 
-    def forward(self, x):
-        feats = super().forward(self.net(x.permute(0, 2, 3, 1)))
+    def forward(self, x, deterministic: bool = True):
+        feats = super().forward(self.net(x.permute(0, 2, 3, 1),
+                                         deterministic))
         return [f.permute(0, 3, 1, 2) for f in feats]

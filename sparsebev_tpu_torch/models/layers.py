@@ -19,7 +19,8 @@ path and the training step, and ``.train()`` / ``.eval()`` must not be able
 to change inference bits behind the caller's back. Draws come from an
 explicit ``torch.Generator`` (``Dropout.generator``, set for a whole model by
 :func:`set_dropout_generator`) so that a step is reproducible from its
-seed; without one they come from the device's global generator.
+seed; without one they come from the device's global generator. The EVA02
+backbone's stochastic depth (:class:`DropPath`) follows the same rules.
 """
 
 from __future__ import annotations
@@ -96,13 +97,55 @@ class Dropout(nn.Module):
         return x * mask.to(x.dtype) / keep
 
 
+class DropPath(nn.Module):
+    """Stochastic depth on the batch dim (``sparsebev_tpu/models/eva02.py::
+    drop_path``): one Bernoulli(1 - ``rate``) draw a sample, ``x * mask /
+    (1 - rate)``; the identity when ``deterministic`` or at rate 0 (no
+    draw). Draws come from ``generator`` (see :func:`set_dropout_generator`)
+    unless ``draws`` is set (:func:`set_drop_path_draws`): then
+    ``draws(block, site, batch)`` returns the ``[batch]`` mask (bool or 0/1)
+    of this site, ``block`` and ``site`` given at construction."""
+
+    def __init__(self, rate: float = 0.0, block: int = 0, site: int = 0):
+        super().__init__()
+        self.rate = float(rate)
+        self.block = block
+        self.site = site
+        self.generator: Optional[torch.Generator] = None
+        self.draws = None
+
+    def forward(self, x, deterministic: bool = True):
+        if deterministic or self.rate <= 0.0:
+            return x
+        keep = 1.0 - self.rate
+        n = x.shape[0]
+        if self.draws is not None:
+            mask = torch.as_tensor(self.draws(self.block, self.site, n),
+                                   device=x.device)
+        else:
+            mask = torch.rand((n,), generator=self.generator,
+                              device=x.device) < keep
+        mask = mask.to(x.dtype).reshape((n,) + (1,) * (x.dim() - 1))
+        return x * mask / keep
+
+
 def set_dropout_generator(module: nn.Module,
                           generator: Optional[torch.Generator]) -> None:
-    """Point every :class:`Dropout` under ``module`` at ``generator`` (on the
-    tensors' device; ``None`` returns them to the global generator)."""
+    """Point every :class:`Dropout` and :class:`DropPath` under ``module``
+    at ``generator`` (on the tensors' device; ``None`` returns them to the
+    global generator)."""
     for m in module.modules():
-        if isinstance(m, Dropout):
+        if isinstance(m, (Dropout, DropPath)):
             m.generator = generator
+
+
+def set_drop_path_draws(module: nn.Module, draws) -> None:
+    """Give every :class:`DropPath` under ``module`` the mask function
+    ``draws(block, site, batch)`` in place of its generator's draws (None:
+    draw)."""
+    for m in module.modules():
+        if isinstance(m, DropPath):
+            m.draws = draws
 
 
 def dropout_generator(module: nn.Module) -> Optional[torch.Generator]:

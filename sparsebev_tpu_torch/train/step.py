@@ -18,7 +18,7 @@ from torch import nn
 
 from ..losses import (compute_detection_loss, compute_dn_loss, draw_dn_noise,
                       prepare_dn_inputs)
-from ..models.layers import set_dropout_generator
+from ..models.layers import set_drop_path_draws, set_dropout_generator
 from ..utils.device import fp32_precision
 from .optim import clip_by_global_norm
 
@@ -49,9 +49,10 @@ def make_train_step(num_classes: int, code_weights: Sequence[float],
     ``img [B, T*6, H, W, 3]``, ``lidar2img [B, T*6, 4, 4]``, ``time_diff
     [B, T]``, ``gt_boxes [B, M, 9]``, ``gt_labels [B, M]``, ``gt_mask
     [B, M]``. ``generator`` (on that device) seeds the denoising noise, the
-    augmentations and the dropout of this step; ``draws`` may hold ``dn``
-    (see ``draw_dn_noise``) and ``aug`` (see ``SparseBEV.forward``) to
-    replace them. metrics: ``loss``, ``grad_norm`` (the global norm BEFORE
+    augmentations, the dropout and the backbone's drop path of this step;
+    ``draws`` may hold ``dn`` (see ``draw_dn_noise``), ``aug`` (see
+    ``SparseBEV.forward``) and ``drop_path`` (a mask function, see
+    ``models/layers.py::DropPath``) to replace them. metrics: ``loss``, ``grad_norm`` (the global norm BEFORE
     the clip, frozen parameters included) and every loss of the dict, as
     0-d tensors on the device (reading one synchronizes)."""
 
@@ -74,6 +75,7 @@ def make_train_step(num_classes: int, code_weights: Sequence[float],
 
         model.aug_generator = generator
         set_dropout_generator(model, generator)
+        set_drop_path_draws(model, draws.get("drop_path"))
         preds = model(batch["img"], batch["lidar2img"], batch["time_diff"],
                       dn_inputs=dn_inputs, train=True,
                       aug_draws=draws.get("aug"))

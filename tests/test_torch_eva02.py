@@ -27,6 +27,7 @@ from sparsebev_tpu.train import optim as joptim
 from sparsebev_tpu.utils.checkpoint_io import port_torch_params
 
 from sparsebev_tpu_torch.models import eva02 as teva
+from sparsebev_tpu_torch.models import layers as tlayers
 from sparsebev_tpu_torch.models.detector import build_detector
 from sparsebev_tpu_torch.ops import eva_attention as tatt
 from sparsebev_tpu_torch.train import optim as toptim
@@ -195,6 +196,56 @@ def test_attention_cuda_branch_refuses_other_devices():
         tatt.eva_attention_plain(q, q[:, :2], q)
 
 
+@pytest.mark.parametrize("n,chunked", [(256, False), (600, True),
+                                       (2100, True)])
+def test_attention_backward_plain_matches_jax_vjp(n, chunked):
+    """dq, dk, dv of the plain backward, from the plain forward's output and
+    log-sum-exp, against ``jax.vjp`` of ``jax.nn.dot_product_attention``
+    (N = 256, a window's tokens) and of ``_chunked_attention`` (N = 600:
+    two query chunks in JAX; 2100: the port's plain versions chunk too),
+    fp32, within FP32_TOL of each gradient's scale."""
+    rng = np.random.RandomState(n)
+    q, k, v = _qkv(rng, 1, n, 2, 64, scale=2.0)
+    g = rng.randn(*q.shape).astype(np.float32)
+    fn = jeva._chunked_attention if chunked else jax.nn.dot_product_attention
+    _, vjp = jax.vjp(fn, *map(jnp.asarray, (q, k, v)))
+    want = vjp(jnp.asarray(g))
+    tq, tk, tv, tg = map(torch.from_numpy, (q, k, v, g))
+    out = tatt.eva_attention_plain(tq, tk, tv)
+    lse = tatt.eva_attention_lse_plain(tq, tk)
+    assert lse.shape == (1, 2, n) and lse.dtype == torch.float32
+    got = tatt.eva_attention_backward_plain(tq, tk, tv, out, lse, tg)
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        _close(a.numpy(), b, FP32_TOL, f"{name} N={n}")
+
+
+def test_attention_function_on_cpu_equals_autograd_of_plain():
+    """``EvaAttentionFunction`` (the kernels' autograd route) on CPU
+    tensors: its forward is the plain forward, bit for bit, and its
+    backward (the explicit formula from the log-sum-exp) agrees with
+    autograd of the plain forward within FP32_TOL of each gradient's
+    scale; ``eva_attention`` on the CPU stays the plain forward."""
+    rng = np.random.RandomState(11)
+    q, k, v = (torch.from_numpy(a).requires_grad_()
+               for a in _qkv(rng, 2, 37, 2, 64, scale=2.0))
+    g = torch.from_numpy(rng.randn(2, 37, 2, 64).astype(np.float32))
+    out = tatt.EvaAttentionFunction.apply(q, k, v)
+    got = torch.autograd.grad(out, (q, k, v), g)
+    ref = tatt.eva_attention(q, k, v)
+    assert torch.equal(out, ref)
+    assert type(ref.grad_fn).__name__ != "EvaAttentionFunctionBackward"
+    want = torch.autograd.grad(ref, (q, k, v), g)
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        _close(a.numpy(), b.numpy(), FP32_TOL, name)
+
+
+def test_attention_backward_cuda_branch_refuses_other_devices():
+    q = torch.zeros(1, 4, 16, 64)
+    lse = torch.zeros(1, 16, 4)
+    with pytest.raises(ValueError, match="no kernel for device"):
+        tatt._eva_attention_backward_cuda(q, q, q, q, lse, q)
+
+
 # -------------------------------------------------------------- modules --
 
 def _tokens(rng, b, h, w, c=64):
@@ -288,6 +339,91 @@ def test_vit_matches_jax(pair):
                             method=jeva.ViT._abs_pos)
     with torch.no_grad():
         _close(tm.net._abs_pos(3, 5).numpy(), jpos, FP32_TOL, "abs pos")
+
+
+# ------------------------------------------------ drop path and the remat --
+
+def _vit_kw():
+    keys = ("img_size", "real_img_size", "patch_size", "embed_dim", "depth",
+            "num_heads", "window_size", "window_block_indexes",
+            "residual_block_indexes", "pretrain_img_size")
+    return {k: KW[k] for k in keys}
+
+
+def test_drop_path_rates_by_block_match_jax(pair):
+    """Each block's two sites take JAX's ``np.linspace(0, rate, depth)``
+    entry (block 0: 0)."""
+    params, _ = pair
+    bound = jeva.ViT(drop_path_rate=0.3, **_vit_kw()).bind(
+        {"params": params["vit"]})
+    want = [blk.drop_path_rate for blk in bound.blocks]
+    vit = teva.ViT(drop_path_rate=0.3, **_vit_kw())
+    for blk, rate in zip(vit.blocks, want):
+        assert blk.drop_path_attn.rate == blk.drop_path_mlp.rate == rate
+    assert want[0] == 0.0 and want[-1] == 0.3
+
+
+def test_drop_path_one_mask_per_image_and_identity_when_deterministic():
+    """One Bernoulli draw an image: each image is 0 or ``x / keep`` (JAX's
+    ``x * mask / keep``) whole; the identity, with no draw, when
+    deterministic or at rate 0."""
+    x = torch.randn(64, 3, 5, 8, generator=torch.Generator().manual_seed(0))
+    dp = tlayers.DropPath(0.25)
+    dp.generator = torch.Generator().manual_seed(1)
+    before = dp.generator.get_state()
+    assert dp(x) is x and dp(x, deterministic=True) is x
+    assert torch.equal(dp.generator.get_state(), before)
+    y = dp(x, deterministic=False)
+    kept = (y != 0).flatten(1).any(1)
+    assert 0 < int(kept.sum()) < 64
+    mask = kept.float().reshape(64, 1, 1, 1)
+    assert torch.equal(y, x * mask / 0.75)
+    zero_rate = tlayers.DropPath(0.0)
+    zero_rate.generator = dp.generator
+    state = dp.generator.get_state()
+    assert zero_rate(x, deterministic=False) is x
+    assert torch.equal(dp.generator.get_state(), state)
+    # the injected masks replace the draw
+    dp.draws = lambda blk, site, n: torch.arange(n) % 2 == 0
+    y = dp(x, deterministic=False)
+    assert torch.equal(y[1::2], torch.zeros_like(y[1::2]))
+    assert torch.equal(y[0::2], x[0::2] / 0.75)
+
+
+def test_block_remat_replays_drop_path_masks(pair):
+    """The trunk with the block remat (``use_act_checkpoint``) and without,
+    same weights, same generator seed, drop path on: the outputs, the
+    input's and every parameter's gradient are bit-equal (the recompute
+    replays each block's masks from the generator's state at its first
+    run), the generator ends in the same state, and the masks did drop."""
+    params, _ = pair
+    sd = state_dict_from_jax({"backbone": params}, {})
+    prefix = "img_backbone.net."
+    weights = {k[len(prefix):]: v for k, v in sd.items()
+               if k.startswith(prefix)}
+    x = torch.from_numpy(_image(np.random.RandomState(12)))
+    g = torch.randn(2, 3, 5, 64, generator=torch.Generator().manual_seed(2))
+    runs = []
+    for remat in (True, False):
+        vit = teva.ViT(drop_path_rate=0.9, use_act_checkpoint=remat,
+                       **_vit_kw())
+        vit.load_state_dict(weights, strict=True)
+        gen = torch.Generator().manual_seed(5)
+        tlayers.set_dropout_generator(vit, gen)
+        xi = x.clone().requires_grad_()
+        out = vit(xi, deterministic=False)
+        out.backward(g)
+        runs.append((out.detach(), xi.grad,
+                     {k: p.grad for k, p in vit.named_parameters()},
+                     gen.get_state()))
+    (o1, x1, p1, s1), (o2, x2, p2, s2) = runs
+    assert torch.equal(o1, o2) and torch.equal(x1, x2)
+    assert torch.equal(s1, s2)
+    for k in p2:
+        assert torch.equal(p1[k], p2[k]), k
+    with torch.no_grad():
+        det = vit(x, deterministic=True)
+    assert not torch.equal(det, o2)
 
 
 def test_simple_feature_pyramid_matches_jax(pair):
@@ -401,13 +537,38 @@ def test_load_pretrained_matches_port_torch_params():
         assert torch.equal(own[k], v), k
 
 
-def test_train_true_raises_not_implemented():
-    model = build_detector(_detector_cfg(), device="cpu", seed=0)
-    img = torch.zeros(1, 12, *IMG_HW, 3)
+def test_train_true_runs_and_draws_drop_path():
+    """``train=True`` on an EVA02 detector runs (on the CPU, through the
+    plain versions): with ``stop_prev_grad=1`` the gradient pass (6 images)
+    draws each drop-path site of blocks 1.. first, the detached pass (6
+    more) after it, block 0 (rate 0) never; the outputs are finite and the
+    gradient reaches block 0, frozen or not."""
+    cfg = _detector_cfg(residual=())
+    cfg["model"]["img_backbone"].update(drop_path_rate=0.3,
+                                         use_act_checkpoint=True)
+    cfg["model"]["stop_prev_grad"] = 1
+    model = build_detector(cfg, device="cpu", seed=0)
+    gen = torch.Generator().manual_seed(3)
+    calls = []
+
+    def draws(blk, site, n):
+        calls.append((blk, site, n))
+        return torch.rand(n, generator=gen) < 0.7
+
+    tlayers.set_drop_path_draws(model, draws)
+    img = torch.rand(1, 12, *IMG_HW, 3, generator=gen) * 255
     l2i = torch.eye(4).expand(1, 12, 4, 4)
-    td = torch.zeros(1, 2)
-    with pytest.raises(NotImplementedError, match="EVA02"):
-        model(img, l2i, td, train=True)
+    td = torch.tensor([[0.0, 0.5]])
+    preds = model(img, l2i, td, train=True)
+    sites = [(blk, s) for blk in (1, 2) for s in (0, 1)]
+    assert calls == [(b, s, 6) for b, s in sites] * 2
+    out = preds["all_bbox_preds"]
+    assert bool(torch.isfinite(out).all())
+    out.sum().backward()
+    grad = model.img_backbone.net.blocks[0].attn.q_proj.weight.grad
+    assert grad is not None and float(grad.abs().max()) > 0
+    # the recompute of the checkpointed blocks drew their masks again
+    assert len(calls) == 8 + 4
 
 
 def test_bf16_detector_casts_the_pyramid():

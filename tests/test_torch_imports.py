@@ -140,7 +140,9 @@ def test_cuda_sources_declare_their_tpu_kernel_and_bound(src):
         # Pallas kernel
         assert "Replaces: sparsebev_tpu/models/eva02.py" in text
         assert "int eva_attention_forward(" in text
-        assert text.count("__global__") == 1
+        # the forward, and the backward's D, dK / dV and dQ kernels
+        assert "int eva_attention_backward(" in text
+        assert text.count("__global__") == 4
         # both products on the tensor cores in TF32, K / V by cp.async
         assert "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32" in text
         assert "cp.async.cg.shared.global" in text

@@ -357,3 +357,102 @@ def test_attention_1xtf32_replay_misses_the_tolerance(n):
     """One TF32 product a k-step (plain TF32) lands outside the same
     tolerance: the test tells the two routes apart."""
     assert _replay_error(n, 1, "plain") > 10 * ATTENTION_TOL
+
+
+# ----------------------------------- the attention backward kernels' order --
+
+def _score(a, b, products):
+    """A score product of the kernels, ``a [rows, 64] @ b [cols, 64]^T``:
+    hi*hi and the two small products in two accumulators, added once."""
+    zeros = torch.zeros(a.shape[0], b.shape[0])
+    if products == 3:
+        big, small = _products(zeros, a, b.T, _dim_groups(a.shape[1]), 3,
+                               small=zeros.clone())
+        return big + small
+    return _products(zeros, a, b.T, _dim_groups(a.shape[1]), 1)
+
+
+def _step_sum(p, b, products):
+    """A 32-row step of a sequence-summed product, ``p [rows, 32] @ b [32,
+    64]``, in a fresh accumulator, contracted in the permuted order of the
+    C-fragment trick (column t is row 2t of b, t + 4 row 2t + 1)."""
+    return _products(torch.zeros(p.shape[0], b.shape[1]), p, b,
+                     [[i for i in g] for g in _key_groups(0, STEP)],
+                     products)
+
+
+def _replay_attention_backward(q, k, v, o, lse, dout, products=3):
+    """csrc/eva_attention.cu's backward for one head, ``[N, 64]`` fp32,
+    ``lse`` ``[N]``: D = rowsum(dO o); the dK / dV kernel over 32-query
+    steps (queries past N at lse = +inf, D = 0): S^T = k q^T, P^T =
+    exp(S^T / 8 - lse), dv += P^T dO, dP^T = v dO^T, dS^T = P^T (dP^T - D),
+    dk += dS^T q; the dQ kernel over 32-key steps (keys past N at P = 0):
+    S = q k^T, P, dP = dO v^T, dS, dq += dS k; each step's sum added to the
+    running one in fp32; dq and dk times 1/8 at the end."""
+    n, hd = q.shape
+    rows = -(-n // KEYS) * KEYS
+    pad = (lambda x, fill=0.0: torch.cat(
+        [x, torch.full((rows - n,) + x.shape[1:], fill)]))
+    qp, kp, vp, gp = (pad(x) for x in (q, k, v, dout))
+    delta = (dout * o).sum(-1)
+    lse_p, delta_p = pad(lse, float("inf")), pad(delta)
+    dk = torch.zeros(rows, hd)
+    dv = torch.zeros(rows, hd)
+    dq = torch.zeros(rows, hd)
+    for i0 in range(0, rows, STEP):
+        qs, gs = qp[i0:i0 + STEP], gp[i0:i0 + STEP]
+        pt = torch.exp(_score(kp, qs, products) * 0.125 - lse_p[i0:i0 + STEP])
+        dv = dv + _step_sum(pt, gs, products)
+        dst = pt * (_score(vp, gs, products) - delta_p[i0:i0 + STEP])
+        dk = dk + _step_sum(dst, qs, products)
+    for j0 in range(0, rows, STEP):
+        ks, vs = kp[j0:j0 + STEP], vp[j0:j0 + STEP]
+        p = torch.exp(_score(qp, ks, products) * 0.125 - lse_p[:, None])
+        p[:, max(n - j0, 0):] = 0.0
+        ds = p * (_score(gp, vs, products) - delta_p[:, None])
+        dq = dq + _step_sum(ds, ks, products)
+    return dq[:n] * 0.125, dk[:n] * 0.125, dv[:n]
+
+
+def _backward_replay_errors(n, products, reference):
+    from sparsebev_tpu_torch.ops.eva_attention import (
+        eva_attention_backward_plain, eva_attention_lse_plain,
+        eva_attention_plain)
+    rng = np.random.RandomState(n + 1)
+    q, k, v, g = (torch.from_numpy(rng.randn(1, n, 1, 64).astype(np.float32))
+                  for _ in range(4))
+    out = eva_attention_plain(q, k, v)
+    lse = eva_attention_lse_plain(q, k)
+    if reference == "plain":
+        want = eva_attention_backward_plain(q, k, v, out, lse, g)
+        want = [w.numpy()[0, :, 0] for w in want]
+    else:
+        import jax
+        import jax.numpy as jnp
+        _, vjp = jax.vjp(jax.nn.dot_product_attention,
+                         *(jnp.asarray(x.numpy()) for x in (q, k, v)))
+        want = [np.asarray(w)[0, :, 0] for w in vjp(jnp.asarray(g.numpy()))]
+    got = _replay_attention_backward(
+        *(x[0, :, 0] for x in (q, k, v, out)), lse[0, 0], g[0, :, 0],
+        products=products)
+    return [float(np.abs(a.numpy() - b).max()) / float(np.abs(b).max())
+            for a, b in zip(got, want)]
+
+
+@pytest.mark.parametrize("reference", ["plain", "jax"])
+@pytest.mark.parametrize("n", [200, 300])
+def test_attention_backward_3xtf32_replay_within_the_card_tolerance(
+        n, reference):
+    """The backward kernels' order in 3xTF32: dq, dk and dv each within the
+    tolerance the card holds the kernel to, of the plain version and of
+    ``jax.vjp`` of ``jax.nn.dot_product_attention`` (a ragged last tile at
+    both N)."""
+    from sparsebev_tpu_torch.ops.eva_attention import ATTENTION_BWD_TOL
+    assert max(_backward_replay_errors(n, 3, reference)) <= ATTENTION_BWD_TOL
+
+
+def test_attention_backward_1xtf32_replay_misses_the_tolerance():
+    """One TF32 product a k-step lands outside the same tolerance."""
+    from sparsebev_tpu_torch.ops.eva_attention import ATTENTION_BWD_TOL
+    assert min(_backward_replay_errors(200, 1, "plain")) > \
+        10 * ATTENTION_BWD_TOL
