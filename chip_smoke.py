@@ -140,8 +140,10 @@ prints its wall time):
      log-sum-exp and the attention backward kernel at the step's two
      shapes (24 x 4000 tokens, 504 windows of 256) against their plain
      versions and autograd of the plain forward within
-     ``ATTENTION_BWD_TOL``, timed beside their bounds and the backward of
-     ``F.scaled_dot_product_attention``; then the trunk gate (the backbone's
+     ``ATTENTION_BWD_TOL``, two backward calls bit-equal, timed beside
+     their bounds and the backward of ``F.scaled_dot_product_attention``
+     (the backward's D pass, dK / dV and dQ kernels apart too); then the
+     trunk gate (the backbone's
      parameter gradients over the 24 images with the kernels against the
      plain versions within ``TRUNK_GRAD_TOL`` in the step's bf16; the same
      with an fp32 compute dtype printed); then the step as in phase 6, with
@@ -220,8 +222,7 @@ PATHS = (
          gsplit=(False, False, False, True, False), t=15, q=1600, p=8),
 )
 # sources whose ptxas report is printed per kernel
-PTXAS_REPORTS = ("msmv_sample", "msmv_sample_bwd", "msmv_onehot", "mixing",
-                 "eva_attention")
+PTXAS_REPORTS = ("msmv_sample", "msmv_sample_bwd", "msmv_onehot", "mixing")
 # the plain versions issue up to ~100 small launches per call: keep the
 # card busy long enough (~20 ms) that all of them are queued before it idles
 PLAIN_BUSY_CYCLES = 40_000_000
@@ -693,6 +694,39 @@ def check_attention(torch, dev, flush, bw, fp32_rate, path):
     return results
 
 
+# the backward's kernels, by the name each carries in a profiler trace
+BACKWARD_KERNELS = dict(eva_attention_delta_kernel="D pass",
+                        eva_attention_dkdv_kernel="dK / dV",
+                        eva_attention_dq_kernel="dQ")
+
+
+def backward_kernel_ms(torch, fn, flush, reps=5, tries=3):
+    """Device ms of each kernel that one call of ``fn`` launches (the
+    attention backward's D pass, dK / dV and dQ), the mean over ``reps``
+    calls under torch.profiler, the L2 flushed before each call. The
+    profiler now and then records none of a call's kernels: a trace that
+    lacks one is taken again, at most ``tries`` times; a kernel missing
+    from every trace is left out."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    out = {}
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                flush.zero_()
+                torch.cuda._sleep(2_000_000)
+                fn()
+            torch.cuda.synchronize()
+        out = {label: _dev_us(e) / e.count / 1e3
+               for e in prof.key_averages()
+               for kernel, label in BACKWARD_KERNELS.items()
+               if kernel in e.key and e.count == reps and _dev_us(e) > 0}
+        if len(out) == len(BACKWARD_KERNELS):
+            break
+    return out
+
+
 def check_attention_backward(torch, dev, flush, bw, fp32_rate, shapes):
     """The attention backward kernel at the training step's shapes
     (``shapes``: label -> (batch, tokens); fp32 q, k, v and dO from
@@ -706,8 +740,9 @@ def check_attention_backward(torch, dev, flush, bw, fp32_rate, shapes):
     TF32 products each at the dense TF32 rate, and one fp32-FMA product
     each) and beside the backward of ``F.scaled_dot_product_attention``
     (fp32) on the same tensors, whose kernels are named from a profiler
-    trace; the forward with the lse is timed too. Returns one result per
-    shape."""
+    trace; the forward with the lse is timed too, and the backward's three
+    kernels apart (``backward_kernel_ms``). Two calls on the same inputs
+    must give the same bits. Returns one result per shape."""
     import torch.nn.functional as F
     from sparsebev_tpu_torch.ops import eva_attention as ea
     gen = torch.Generator(device=dev).manual_seed(6)
@@ -758,10 +793,19 @@ def check_attention_backward(torch, dev, flush, bw, fp32_rate, shapes):
         if not max(errs + auto_errs) <= ea.ATTENTION_BWD_TOL:
             fail(f"the attention backward kernel differs from its plain "
                  f"version ({name})")
-        del got, plain, auto
+        again = ea._eva_attention_backward_cuda(q, k, v, out, lse, g)
+        if not all(_bit_equal(torch, a, b) for a, b in zip(got, again)):
+            fail(f"two calls of the attention backward on the same inputs "
+                 f"differ ({name})")
+        log(f"attention backward [{name}]: two calls on the same inputs "
+            "are bit-equal")
+        del got, plain, auto, again
         torch.cuda.empty_cache()
         ms = time_ms(torch, lambda: ea._eva_attention_backward_cuda(
             q, k, v, out, lse, g), 10, flush)
+        parts = backward_kernel_ms(
+            torch, lambda: ea._eva_attention_backward_cuda(
+                q, k, v, out, lse, g), flush)
         fwd_ms = time_ms(torch, lambda: ea._eva_attention_cuda(
             q, k, v, with_lse=True), 10, flush)
         plain_ms = time_ms(torch, lambda: ea.eva_attention_backward_plain(
@@ -803,6 +847,11 @@ def check_attention_backward(torch, dev, flush, bw, fp32_rate, shapes):
             f"of the bound; the fp32-FMA bound {fma_ms:.4f} ms "
             f"({100 * fma_ms / ms:.1f}%); the forward with lse {fwd_ms:.4f} "
             f"ms (3xTF32 bound {fwd_bound_ms:.4f} ms)")
+        log(f"attention backward [{name}]: by kernel (profiler, L2 flushed, "
+            "mean of 5 calls): " + ", ".join(
+                f"{k} " + (f"{parts[k]:.4f} ms" if k in parts
+                           else "not measured")
+                for k in BACKWARD_KERNELS.values()))
         results[name] = dict(max_abs_err=max(abs_errs),
                              max_rel_err=max(errs), ms=ms, plain_ms=plain_ms,
                              bound_ms=bound_ms, bound_by="operations",
@@ -811,17 +860,40 @@ def check_attention_backward(torch, dev, flush, bw, fp32_rate, shapes):
                              autograd_rel_err=max(auto_errs),
                              library_kernels=lib_kernels,
                              forward_lse_ms=fwd_ms,
-                             forward_bound_ms=fwd_bound_ms)
+                             forward_bound_ms=fwd_bound_ms,
+                             kernel_ms=parts)
         del q, k, v, g, out, lse
         torch.cuda.empty_cache()
     return results
 
 
-def attention_sass(lib_path):
-    """Print the counts of the tensor-core (HMMA) opcodes in the SASS of a
-    built library (``cuobjdump -sass``); fails when the attention kernel
-    holds no TF32 HMMA."""
+def sass_by_function(text):
+    """Tensor-core opcode counts (HMMA, HGMMA) per function of
+    ``cuobjdump -sass`` output, keyed by the mangled name of each
+    ``Function :`` section."""
     import collections
+    counts, fn = {}, None
+    for line in text.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            fn = m.group(1)
+            counts[fn] = collections.Counter()
+        elif fn is not None:
+            counts[fn].update(re.findall(r"\b(HG?MMA\.[\w.]+)", line))
+    return counts
+
+
+# the attention kernels whose SASS is checked: the forward on TF32 mma.sync
+# (HMMA), the backward's two on TF32 wgmma (HGMMA and no HMMA)
+ATTENTION_SASS = dict(eva_attention_kernel="HMMA",
+                      eva_attention_dkdv_kernel="HGMMA",
+                      eva_attention_dq_kernel="HGMMA")
+
+
+def attention_sass(lib_path):
+    """Print the tensor-core opcode counts of each attention kernel in the
+    SASS of a built library (``cuobjdump -sass``); fails unless the forward
+    holds TF32 HMMA and each backward kernel TF32 HGMMA and no HMMA."""
     from sparsebev_tpu_torch.kernels import build
     tool = os.path.join(os.path.dirname(os.path.realpath(build.find_nvcc())),
                         "cuobjdump")
@@ -829,13 +901,40 @@ def attention_sass(lib_path):
                          text=True, timeout=300)
     if out.returncode != 0:
         fail(f"cuobjdump -sass failed: {out.stderr.strip()[:400]}")
-    counts = collections.Counter(re.findall(r"\b(HMMA\.[\w.]+)",
-                                            out.stdout))
-    log(f"sass[eva_attention]: {os.path.basename(lib_path)}: "
-        + (", ".join(f"{k} x {v}" for k, v in sorted(counts.items()))
-           or "no HMMA"))
-    if not any("TF32" in k for k in counts):
-        fail("the attention kernel's SASS holds no TF32 HMMA")
+    by_fn = sass_by_function(out.stdout)
+    for kernel, want in ATTENTION_SASS.items():
+        found = [c for f, c in by_fn.items()
+                 if re.search(rf"\d{kernel}E", f)]
+        if len(found) != 1:
+            fail(f"the SASS holds {len(found)} functions named {kernel}")
+        counts = found[0]
+        log(f"sass[eva_attention]: {kernel}: "
+            + (", ".join(f"{k} x {v}" for k, v in sorted(counts.items()))
+               or "no tensor-core opcode"))
+        tf32 = [k for k in counts
+                if k.startswith(want + ".") and "TF32" in k]
+        if not tf32:
+            fail(f"{kernel}'s SASS holds no TF32 {want}")
+        if want == "HGMMA" and any(k.startswith("HMMA.") for k in counts):
+            fail(f"{kernel}'s SASS holds HMMA beside its wgmma products")
+
+
+def attention_ptxas(text):
+    """Print what ptxas reports for each attention kernel (registers,
+    spills, static shared memory) beside its dynamic shared memory; fails
+    if either backward kernel spills."""
+    from sparsebev_tpu_torch.ops import eva_attention as ea
+    dynamic = ea.kernel_smem_bytes()
+    for r in ptxas_report(text):
+        log(f"ptxas[eva_attention]: {r['kernel']}: {r['regs']} registers, "
+            f"spills {r['spill_stores']} / {r['spill_loads']} bytes (stores "
+            f"/ loads), {r['stack']} bytes stack frame, {r['smem']} bytes "
+            f"static and {dynamic.get(r['kernel'], 0)} bytes dynamic shared "
+            "memory")
+        if r["kernel"] in ("eva_attention_dkdv_kernel",
+                           "eva_attention_dq_kernel") and \
+                (r["spill_stores"] or r["spill_loads"]):
+            fail(f"{r['kernel']} spills registers")
 
 
 # the fp32 conv against the CPU: fp32 sums of C_in * 9 = 2,304 products in
@@ -3378,11 +3477,13 @@ def bringup_train_kernels():
 
 def bringup_attention():
     """The attention kernels alone: build them, print what ptxas reports
-    and the tensor-core opcodes of the SASS, hold the forward to its plain
-    version at both EVA02 streaming shapes (timed beside SDPA) and the
-    forward with the lse and the backward at the training step's shapes
-    (timed beside SDPA's backward), and check the fp32 conv of the frame
-    pass (``python3 -c "import chip_smoke;
+    (failing if a backward kernel spills) and each kernel's tensor-core
+    opcodes in the SASS (TF32 HMMA in the forward, TF32 HGMMA and no HMMA in
+    the backward's two), hold the forward to its plain version at both
+    EVA02 streaming shapes (timed beside SDPA) and the forward with the lse
+    and the backward at the training step's shapes (bit-equal twice, timed
+    beside SDPA's backward, its three kernels apart), and check the fp32
+    conv of the frame pass (``python3 -c "import chip_smoke;
     chip_smoke.bringup_attention()"``)."""
     import torch
     sys.path.insert(0, HERE)
@@ -3390,8 +3491,7 @@ def bringup_attention():
     dev = torch.device("cuda", 0)
     log(nvidia_smi_line())
     logs = build.build_all(["msmv_pack", "msmv_pack_pair", "eva_attention"])
-    for r in ptxas_report(logs["eva_attention"]):
-        log(f"ptxas[eva_attention]: {r}")
+    attention_ptxas(logs["eva_attention"])
     attention_sass(build.library_path("eva_attention"))
     bw, fp32_rate, _ = peaks(torch.cuda.get_device_name(0))
     path = next(p for p in PATHS if p["name"] == "eva02")
@@ -3419,8 +3519,7 @@ def bringup_eva02():
     log(nvidia_smi_line())
     logs = build.build_all(["msmv_pack", "msmv_pack_pair", "msmv_sample",
                             "eva_attention"])
-    for r in ptxas_report(logs["eva_attention"]):
-        log(f"ptxas[eva_attention]: {r}")
+    attention_ptxas(logs["eva_attention"])
     bw, fp32_rate, _ = peaks(name)
     path = next(p for p in PATHS if p["name"] == "eva02")
     flush = torch.empty(64 * 2**20, dtype=torch.int32, device=dev)
@@ -3467,14 +3566,91 @@ def bringup_eva02_train():
     t0 = time.perf_counter()
     logs = build.build_all(["msmv_pack", "msmv_pack_pair", "msmv_sample",
                             "msmv_sample_bwd", "eva_attention"])
-    for r in ptxas_report(logs["eva_attention"]):
-        log(f"ptxas[eva_attention]: {r}")
+    attention_ptxas(logs["eva_attention"])
     bw, fp32_rate, _ = peaks(torch.cuda.get_device_name(0))
     flush = torch.empty(64 * 2**20, dtype=torch.int32, device=dev)
     measured = {k: {} for k in KERNELS}
     launches = eva02_training(torch, dev, flush, bw, fp32_rate, measured)
     log(f"eva02 train: launches {launches}; "
         f"{time.perf_counter() - t0:.1f} s")
+
+
+def backward_ab(other, reps=10):
+    """The attention backward of this checkout against the one of the
+    checkout at ``other`` (another commit unpacked with ``git archive``
+    into a gitignored directory), on one card at the training step's two
+    shapes: both held to the plain version, then timed in turns (other,
+    this, this, other; CUDA events, L2 flushed, median of ``reps`` calls
+    each) (``python3 -c "import chip_smoke;
+    chip_smoke.backward_ab('outputs/parent')"``)."""
+    import ctypes
+    import torch
+    sys.path.insert(0, HERE)
+    from sparsebev_tpu_torch.kernels import build
+    from sparsebev_tpu_torch.ops import eva_attention as ea
+    dev = torch.device("cuda", 0)
+    log(f"backward_ab [{other}]: {nvidia_smi_line()}")
+    src = os.path.join(os.path.abspath(other),
+                       "sparsebev_tpu_torch/csrc/eva_attention.cu")
+    lib_path = os.path.join(build.BUILD_DIR, "libeva_attention_other.so")
+    os.makedirs(build.BUILD_DIR, exist_ok=True)
+    out = subprocess.run([build.find_nvcc(), *build.NVCC_FLAGS, "-o",
+                          lib_path, src], capture_output=True, text=True,
+                         timeout=600)
+    if out.returncode != 0:
+        fail(f"nvcc failed for {src}:\n{out.stdout}{out.stderr}")
+    lib = ctypes.CDLL(lib_path)
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    lib.eva_attention_backward.argtypes = [vp] * 10 + [ci] * 4 + [vp]
+    lib.eva_attention_backward.restype = ci
+    scratch = getattr(lib, "eva_attention_backward_scratch", None)
+    if scratch is not None:
+        scratch.argtypes, scratch.restype = [ci], ci
+
+    def other_backward(q, k, v, o, lse, g):
+        b, n, heads, hd = q.shape
+        grads = [torch.empty_like(q) for _ in range(3)]
+        # the scratch a (batch, head): [n] floats of D before the wgmma
+        # redesign, the library's own count since
+        per = scratch(n) if scratch is not None else n
+        tmp = torch.empty(b * heads * per, dtype=torch.float32, device=dev)
+        rc = lib.eva_attention_backward(
+            *(x.data_ptr() for x in (q, k, v, o, lse, g, *grads)),
+            tmp.data_ptr(), b, n, heads, hd,
+            torch.cuda.current_stream().cuda_stream)
+        if rc != 0:
+            fail(f"the other checkout's backward returned CUDA error {rc}")
+        return grads
+
+    flush = torch.empty(64 * 2**20, dtype=torch.int32, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(6)
+    for key, (b, n) in EVA_TRAIN_ATTENTION.items():
+        q, k, v, g = (torch.randn((b, n, 16, 64), generator=gen, device=dev)
+                      for _ in range(4))
+        out, lse = ea._eva_attention_cuda(q, k, v, with_lse=True)
+        plain = ea.eva_attention_backward_plain(q, k, v, out, lse, g)
+        errs = {}
+        for label, fn in (("other", other_backward),
+                          ("this", ea._eva_attention_backward_cuda)):
+            got = fn(q, k, v, out, lse, g)
+            errs[label] = max(((a - p_).abs().max() / p_.abs().max()).item()
+                              for a, p_ in zip(got, plain))
+            del got
+        del plain
+        if not max(errs.values()) <= ea.ATTENTION_BWD_TOL:
+            fail(f"backward_ab [{key}]: a backward differs from the plain "
+                 f"version: {errs}")
+        runs = [(label, time_ms(torch, lambda fn=fn: fn(q, k, v, out, lse, g),
+                                reps, flush))
+                for label, fn in (("other", other_backward),
+                                  ("this", ea._eva_attention_backward_cuda),
+                                  ("this", ea._eva_attention_backward_cuda),
+                                  ("other", other_backward))]
+        log(f"backward_ab [{key}] B={b} N={n}: max|x - plain| / scale: "
+            f"other {errs['other']:.3g}, this {errs['this']:.3g}; ms: "
+            + ", ".join(f"{label} {ms:.4f}" for label, ms in runs))
+        del q, k, v, g, out, lse
+        torch.cuda.empty_cache()
 
 
 def step_profile(root=HERE):
@@ -3644,6 +3820,9 @@ def main() -> int:
         f"built in {time.perf_counter() - t0:.1f} s")
     attention_sass(build.library_path("eva_attention"))
     for src, text in logs.items():
+        if src == "eva_attention":
+            attention_ptxas(text)
+            continue
         if src in PTXAS_REPORTS:
             for r in ptxas_report(text):
                 log(f"ptxas[{src}]: {r['kernel']}: {r['regs']} registers, "

@@ -56,8 +56,8 @@ ATTENTION_TOL = 1e-5
 # log-sum-exp, and dS = P (dP - D) cancelling where dP is near the row's D,
 # which lifts the products' rounding against the gradient's scale; twice
 # the forward's tolerance (a CPU replay of the kernels' order lands within
-# 2.1e-6 of each gradient's scale at N = 200 and 300, one TF32 product a
-# k-step 6e-4 - 1e-3 away: tests/test_torch_kernel_layouts.py)
+# 3.1e-6 of each gradient's scale at N = 200 and 300, one TF32 product a
+# k-step 2.7e-3 - 3.7e-3 away: tests/test_torch_kernel_layouts.py)
 ATTENTION_BWD_TOL = 2e-5
 
 
@@ -192,8 +192,21 @@ def _lib():
         lib.eva_attention_forward.restype = ci
         lib.eva_attention_backward.argtypes = [vp] * 10 + [ci] * 4 + [vp]
         lib.eva_attention_backward.restype = ci
+        for fn in (lib.eva_attention_backward_scratch,
+                   lib.eva_attention_smem_bytes):
+            fn.argtypes = [ci]
+            fn.restype = ci
         _SIGNATURE_SET = True
     return lib
+
+
+def kernel_smem_bytes():
+    """Dynamic shared memory of each kernel of ``csrc/eva_attention.cu``,
+    bytes, by kernel name (builds the library)."""
+    lib = _lib()
+    names = ("eva_attention_kernel", "eva_attention_dkdv_kernel",
+             "eva_attention_dq_kernel")
+    return {k: lib.eva_attention_smem_bytes(i) for i, k in enumerate(names)}
 
 
 def _check_cuda(op, tensors, shape):
@@ -239,7 +252,7 @@ def _eva_attention_cuda(q, k, v, with_lse=False):
 
 def _eva_attention_backward_cuda(q, k, v, o, lse, dout):
     """One call of the backward entry (three kernels: D, dK / dV, dQ), its
-    D scratch allocated here."""
+    lse / D scratch allocated here."""
     _check(q, k, v)
     b, n, heads, hd = q.shape
     if tuple(o.shape) != tuple(q.shape) or \
@@ -249,14 +262,16 @@ def _eva_attention_backward_cuda(q, k, v, o, lse, dout):
                          f"{tuple(q.shape)} and lse {(b, heads, n)}")
     _check_cuda("eva_attention_backward", (q, k, v, o, lse, dout), q.shape)
     dq, dk, dv = (torch.empty_like(q) for _ in range(3))
-    delta = torch.empty((b, heads, n), dtype=torch.float32, device=q.device)
     lib = _lib()
+    # each 32-query tile's lse and D, as the D kernel lays them out
+    lsed = torch.empty(b * heads * lib.eva_attention_backward_scratch(n),
+                       dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = lib.eva_attention_backward(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
             lse.data_ptr(), dout.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-            dv.data_ptr(), delta.data_ptr(), b, n, heads, hd, stream)
+            dv.data_ptr(), lsed.data_ptr(), b, n, heads, hd, stream)
     build.check(lib, "eva_attention", rc)
     eva_attention_backward.launches += 1
     return dq, dk, dv

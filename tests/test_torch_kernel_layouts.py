@@ -238,14 +238,18 @@ def _mma(acc, a, b):
                        torch.nextafter(out, torch.zeros_like(out)), out)
 
 
-def _products(acc, a, b, groups, products, small=None):
+def _products(acc, a, b, groups, products, small=None, a_hi=_tf32_rna,
+              b_hi=_tf32_rna):
     """acc += a @ b over the contraction ``groups`` (8 indices each, one
     k-step): three TF32 products a k-step (lo*hi, hi*lo, hi*hi) or one. With
     ``small`` the two small products go into that accumulator instead;
-    returns ``(acc, small)`` then."""
+    returns ``(acc, small)`` then. ``a_hi`` / ``b_hi``: each operand's hi
+    (rounded to nearest as the kernels split registers, or
+    :func:`_tf32_read` where a raw fp32 tile is the hi operand); lo is the
+    rest, read by the tensor cores as its top 19 bits."""
     for idx in groups:
         ak, bk = a[:, idx], b[idx, :]
-        ah, bh = _tf32_rna(ak), _tf32_rna(bk)
+        ah, bh = a_hi(ak), b_hi(bk)
         if products == 3:
             if small is None:
                 acc = _mma(acc, ak - ah, bh)
@@ -361,36 +365,51 @@ def test_attention_1xtf32_replay_misses_the_tolerance(n):
 
 # ----------------------------------- the attention backward kernels' order --
 
+STREAM = 32             # rows of a tile the backward kernels stream
+OWN = 64                # own rows of a consumer warpgroup
+
+
+def _dim_steps(depth):
+    """The contraction indices of each wgmma k-step: 8 consecutive ones
+    (the head dim of a score product; the streamed rows of a
+    sequence-summed one, whose permuted order inside a k-step changes no
+    product sum)."""
+    return [list(range(8 * kk, 8 * kk + 8)) for kk in range(depth // 8)]
+
+
 def _score(a, b, products):
-    """A score product of the kernels, ``a [rows, 64] @ b [cols, 64]^T``:
-    hi*hi and the two small products in two accumulators, added once."""
+    """A score product of the backward kernels, ``a [rows, 64] @ b [cols,
+    64]^T``: each operand's raw fp32 values are its hi (the tensor cores
+    read their top 19 bits), lo = x - trunc(x); hi*hi and the two small
+    products in two accumulators, added once."""
     zeros = torch.zeros(a.shape[0], b.shape[0])
+    steps = _dim_steps(a.shape[1])
     if products == 3:
-        big, small = _products(zeros, a, b.T, _dim_groups(a.shape[1]), 3,
-                               small=zeros.clone())
+        big, small = _products(zeros, a, b.T, steps, 3, small=zeros.clone(),
+                               a_hi=_tf32_read, b_hi=_tf32_read)
         return big + small
-    return _products(zeros, a, b.T, _dim_groups(a.shape[1]), 1)
+    return _products(zeros, a, b.T, steps, 1, a_hi=_tf32_read,
+                     b_hi=_tf32_read)
 
 
 def _step_sum(p, b, products):
     """A 32-row step of a sequence-summed product, ``p [rows, 32] @ b [32,
-    64]``, in a fresh accumulator, contracted in the permuted order of the
-    C-fragment trick (column t is row 2t of b, t + 4 row 2t + 1)."""
+    64]``, in a fresh accumulator: p from registers (split to nearest), b's
+    transposed tile raw as hi."""
     return _products(torch.zeros(p.shape[0], b.shape[1]), p, b,
-                     [[i for i in g] for g in _key_groups(0, STEP)],
-                     products)
+                     _dim_steps(p.shape[1]), products, b_hi=_tf32_read)
 
 
 def _replay_attention_backward(q, k, v, o, lse, dout, products=3):
     """csrc/eva_attention.cu's backward for one head, ``[N, 64]`` fp32,
     ``lse`` ``[N]``: D = rowsum(dO o); the dK / dV kernel over 32-query
-    steps (queries past N at lse = +inf, D = 0): S^T = k q^T, P^T =
-    exp(S^T / 8 - lse), dv += P^T dO, dP^T = v dO^T, dS^T = P^T (dP^T - D),
-    dk += dS^T q; the dQ kernel over 32-key steps (keys past N at P = 0):
-    S = q k^T, P, dP = dO v^T, dS, dq += dS k; each step's sum added to the
-    running one in fp32; dq and dk times 1/8 at the end."""
+    tiles (queries past N at lse = +inf, D = 0): S^T = k q^T,
+    P^T = exp(S^T / 8 - lse), dP^T = v dO^T, dS^T = P^T (dP^T - D),
+    dv += P^T dO, dk += dS^T q; the dQ kernel over 32-key tiles (keys past
+    N at P = 0): S = q k^T, P, dP = dO v^T, dS, dq += dS k; each tile's sum
+    added to the running one in fp32; dq and dk times 1/8 at the end."""
     n, hd = q.shape
-    rows = -(-n // KEYS) * KEYS
+    rows = -(-n // OWN) * OWN
     pad = (lambda x, fill=0.0: torch.cat(
         [x, torch.full((rows - n,) + x.shape[1:], fill)]))
     qp, kp, vp, gp = (pad(x) for x in (q, k, v, dout))
@@ -399,14 +418,15 @@ def _replay_attention_backward(q, k, v, o, lse, dout, products=3):
     dk = torch.zeros(rows, hd)
     dv = torch.zeros(rows, hd)
     dq = torch.zeros(rows, hd)
-    for i0 in range(0, rows, STEP):
-        qs, gs = qp[i0:i0 + STEP], gp[i0:i0 + STEP]
-        pt = torch.exp(_score(kp, qs, products) * 0.125 - lse_p[i0:i0 + STEP])
+    for i0 in range(0, rows, STREAM):
+        qs, gs = qp[i0:i0 + STREAM], gp[i0:i0 + STREAM]
+        pt = torch.exp(_score(kp, qs, products) * 0.125
+                       - lse_p[i0:i0 + STREAM])
+        dst = pt * (_score(vp, gs, products) - delta_p[i0:i0 + STREAM])
         dv = dv + _step_sum(pt, gs, products)
-        dst = pt * (_score(vp, gs, products) - delta_p[i0:i0 + STEP])
         dk = dk + _step_sum(dst, qs, products)
-    for j0 in range(0, rows, STEP):
-        ks, vs = kp[j0:j0 + STEP], vp[j0:j0 + STEP]
+    for j0 in range(0, rows, STREAM):
+        ks, vs = kp[j0:j0 + STREAM], vp[j0:j0 + STREAM]
         p = torch.exp(_score(qp, ks, products) * 0.125 - lse_p[:, None])
         p[:, max(n - j0, 0):] = 0.0
         ds = p * (_score(gp, vs, products) - delta_p[:, None])
@@ -443,10 +463,11 @@ def _backward_replay_errors(n, products, reference):
 @pytest.mark.parametrize("n", [200, 300])
 def test_attention_backward_3xtf32_replay_within_the_card_tolerance(
         n, reference):
-    """The backward kernels' order in 3xTF32: dq, dk and dv each within the
-    tolerance the card holds the kernel to, of the plain version and of
-    ``jax.vjp`` of ``jax.nn.dot_product_attention`` (a ragged last tile at
-    both N)."""
+    """The backward kernels' order in 3xTF32 (wgmma k-steps, the raw
+    values as truncated hi operands, 32-row steps in fresh accumulators):
+    dq, dk and dv each within the tolerance the card holds the kernel to,
+    of the plain version and of ``jax.vjp`` of
+    ``jax.nn.dot_product_attention`` (a ragged last tile at both N)."""
     from sparsebev_tpu_torch.ops.eva_attention import ATTENTION_BWD_TOL
     assert max(_backward_replay_errors(n, 3, reference)) <= ATTENTION_BWD_TOL
 
@@ -456,3 +477,136 @@ def test_attention_backward_1xtf32_replay_misses_the_tolerance():
     from sparsebev_tpu_torch.ops.eva_attention import ATTENTION_BWD_TOL
     assert min(_backward_replay_errors(200, 1, "plain")) > \
         10 * ATTENTION_BWD_TOL
+
+
+# ------------------------------- the backward kernels' shared-memory tiles --
+# csrc/eva_attention.cu's operand tiles, K-major with the 128-byte swizzle:
+# halves of 32 fp32 values a row (an own tile: 64 rows x 64 values, two
+# halves; a streamed tile: 32 rows x 64 values, two halves; a transposed
+# tile: 64 head-dim rows x 32 streamed rows, one half), each row 128 bytes
+# whose 16-byte chunk c sits at c ^ (row % 8). The maps below restate the
+# source's sw_off, kstep / tile_desc (leading offset 1, 8-row groups 1024
+# bytes apart), sum3's head-dim halves, the TMA boxes, build_t's parts
+# and split_rows' order.
+
+
+def _swizzle(byte):
+    """The 128-byte swizzle on a shared-memory byte address (a tile at a
+    1024-byte boundary): bits 4-6 ^= bits 7-9."""
+    return byte ^ (((byte >> 7) & 7) << 4)
+
+
+def _sw_off(rows, r, k):
+    """The source's sw_off<rows>: float offset of value k of row r."""
+    return (k >> 5) * (rows * 32) + r * 32 + \
+        ((((k >> 2) & 7) ^ (r & 7)) << 2) + (k & 3)
+
+
+def _tma_byte(rows, r, c):
+    """Where TMA puts value c of row r of a tile (box c // 32 of rows x 32
+    values, rows of 128 bytes, swizzled)."""
+    return _swizzle((c // 32) * rows * 128 + r * 128 + (c % 32) * 4)
+
+
+def _desc_byte(rows, kk, r, k, first_row=0):
+    """Where wgmma reads element (row r, column k) of k-step kk through the
+    descriptor of a tile of ``rows`` rows started at row ``first_row``:
+    start = (kk // 4) * rows * 128 + (kk % 4) * 32 (+ first_row * 128),
+    then the canonical K-major layout ((8, n), 2) : ((128 B, SBO = 1024 B),
+    16 B) and the swizzle."""
+    start = (kk // 4) * rows * 128 + (kk % 4) * 32 + first_row * 128
+    return _swizzle(start + (r % 8) * 128 + (r // 8) * 1024 + (k // 4) * 16
+                    + (k % 4) * 4)
+
+
+def _kpos(s):
+    """K position of streamed row s in a transposed tile."""
+    return (s & ~7) | ((s & 1) << 2) | ((s >> 1) & 3)
+
+
+def _build_t_parts():
+    """build_t's 128 parts: (streamed rows, first head dim, first K
+    position of the transposed chunks)."""
+    out = []
+    for f in range(128):
+        e = (f & 3) | ((f >> 1) & 12)
+        g8 = ((f >> 2) & 1) | ((f >> 4) & 2)
+        par = (f >> 6) & 1
+        out.append(([8 * g8 + 2 * u + par for u in range(4)], 4 * e,
+                    8 * g8 + 4 * par))
+    return out
+
+
+@pytest.mark.parametrize("rows", [OWN, STREAM])
+@pytest.mark.parametrize("half", [0, 1])
+def test_thread_tiles_match_tma_placement(rows, half):
+    """The threads' store map (sw_off) puts every value where TMA puts it,
+    once: a lo tile lines up with its raw tile element by element."""
+    cols = range(32 * half, 32 * half + 32)
+    offs = {(r, c): _sw_off(rows, r, c) for r in range(rows) for c in cols}
+    assert all(4 * o == _tma_byte(rows, r, c) for (r, c), o in offs.items())
+    assert sorted(offs.values()) == list(
+        range(rows * 32 * half, rows * 32 * (half + 1)))
+
+
+@pytest.mark.parametrize("rows", [OWN, STREAM])
+@pytest.mark.parametrize("kk", range(8))
+def test_descriptor_reads_what_the_threads_store(rows, kk):
+    """k-step kk of a descriptor reads, at (row r, column k), the value the
+    threads (and TMA) stored as value 8kk + k of row r."""
+    for r in range(rows):
+        for k in range(8):
+            assert _desc_byte(rows, kk, r, k) == 4 * _sw_off(rows, r,
+                                                            8 * kk + k)
+
+
+def test_transpose_build_covers_each_element_once():
+    """build_t reads each raw element of a streamed tile once and writes it
+    once to its lo tile (the same offset) and once to the transposed tiles,
+    at (row d, K position of its streamed row), where sum3's descriptors
+    read it (head dims 32m .. 32m + 31 from row 32m on)."""
+    raw, trans = [], []
+    for rows, d0, kp in _build_t_parts():
+        for u, s in enumerate(rows):
+            assert _kpos(s) == kp + u
+            for j in range(4):
+                raw.append(_sw_off(STREAM, s, d0 + j))
+                trans.append((_sw_off(OWN, d0 + j, kp + u), (s, d0 + j)))
+    assert sorted(raw) == list(range(STREAM * 64))
+    assert sorted(o for o, _ in trans) == list(range(OWN * STREAM))
+    for off, (s, d) in trans:
+        kk, k = divmod(_kpos(s), 8)
+        m, r = divmod(d, 32)
+        assert _desc_byte(OWN, kk, r, k, first_row=32 * m) == 4 * off
+
+
+@pytest.mark.parametrize("kk", range(4))
+def test_accumulator_to_a_fragment_order(kk):
+    """split_rows: accumulator register 4kk + c of lane (g, t) holds column
+    8kk + 2t + (c & 1); it goes to A register (0, 2, 1, 3)[c], whose K
+    column is t (registers 0, 1) or t + 4 (2, 3); that K column of the
+    transposed B tile holds the same streamed row."""
+    a_reg = (0, 2, 1, 3)
+    for t in range(4):
+        cols = {}
+        for c in range(4):
+            seq = 8 * kk + 2 * t + (c & 1)
+            k_col = t if a_reg[c] < 2 else t + 4
+            assert _kpos(seq) == 8 * kk + k_col
+            cols.setdefault(k_col, set()).add(c >> 1)   # rows g, g + 8
+        assert cols == {t: {0, 1}, t + 4: {0, 1}}
+
+
+def test_own_fragments_cover_the_tile():
+    """load_frags: the raw A fragments of the 4 warps x 32 lanes cover each
+    (row, head dim) of an own tile once, k-step kk holding dims
+    8kk .. 8kk + 7 at A columns t and t + 4."""
+    seen = set()
+    for warp in range(4):
+        for lane in range(32):
+            r, t = 16 * warp + (lane >> 2), lane & 3
+            for kk in range(8):
+                for rr, col in ((r, t), (r + 8, t), (r, t + 4),
+                                (r + 8, t + 4)):
+                    seen.add((rr, 8 * kk + col))
+    assert seen == {(r, d) for r in range(OWN) for d in range(64)}
