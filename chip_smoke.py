@@ -33,7 +33,14 @@ prints its wall time):
      eva02 shapes; then a ResNet-50 stage conv recorded on an fp32 frame
      pass of the r50 config with the process-wide cuDNN TF32 flag on,
      against the CPU in fp64 within ``CONV_FP32_TOL`` of its scale (the
-     error TF32 would give is printed);
+     error TF32 would give is printed; the packs and the sampling op at the
+     r101 shapes (5 y-fold levels from 128x352, a group-split L2); the
+     sampling kernel's e4m3 route (``check_sampling_e4m3``): the vov99
+     fp8l0 ring (y-fold e4m3 L0, fp32 output), an e4m3 pair L0 beside the
+     group-split L3 (fp32 output) and r50 with e4m3 on L1 only (bf16
+     output), each bit for bit against its plain version and twice
+     bit-equal, timed beside its bound (each level at its own item size)
+     and beside the same values as bf16 tables;
   4. streaming inference at full width with seeded random weights, one new
      frame per sample of a synthetic 6-camera stream, for each path:
      ``configs/r50_nuimg_704x256.py`` (12 samples, T=8, 704x256) and
@@ -43,7 +50,11 @@ prints its wall time):
      ViT-L, 16 windowed and 8 global blocks, its own pyramid, P=8; 24
      attention launches a new frame), and the EVA02 config again with
      ``compute_dtype="float32"`` (4 samples, an fp32 ring of about 10.6
-     GB; its ring held to ``RING_FP32_TOL``). The kernel launch counts are
+     GB; its ring held to ``RING_FP32_TOL``), the vov99 config with every
+     level y-fold and ``table_fp8`` on level 0 ("vov99 fp8l0", 8 samples,
+     an e4m3 L0 ring; its e4m3 sampling launches counted apart and held
+     above 0) and ``configs/r101_nuimg_1408x512.py`` (10 samples: ResNet-101
+     at 1408x512, 5 levels, a 5.9 GB ring). The kernel launch counts are
      reset just before each path's run and read just after it; the outputs
      must be finite and match a second run of the same stream that uses the
      plain versions (on the EVA02 paths the ring and the head replayed over
@@ -51,7 +62,9 @@ prints its wall time):
      first sample's T frame passes back to back. One more sample of the r50
      and vov99 streams records the inputs of the next phase: an
      ``AdaptiveMixing`` call's operands (a forward hook), and at r50 one
-     sampling call's points and the sample's T frames of FPN maps;
+     sampling call's points and the sample's T frames of FPN maps. Then the
+     port's ``tools/fp8_drift.py`` at vov99 (4 samples through a bf16 ring,
+     then through a y-fold fp8-L0 ring): its JSON line, printed, not held;
   5. the hybrid sampling path (``set_sampling_impl("hybrid")``,
      ``pack_mlvl_feats`` and slice-major ``msmv_sampling``) at r50 full
      width on those maps and points, with bf16 and fp32 features: bit for
@@ -132,7 +145,12 @@ prints its wall time):
      y-fold and group-split levels), step 1 again with the plain versions;
      then the pair adjoint at the step's shape (90 images of level 0)
      against its plain version and the permute-copy call;
- 10. the training step of ``configs/vit_eva02_1600x640_trainval_future.py``
+ 10. the training step of ``configs/r101_nuimg_1408x512.py`` at full width
+     (B=1, 900 + 640 denoising queries, T=8: 48 images of 1408x512,
+     ``with_cp`` over the 33 bottlenecks, the decoder's layer remat) as in
+     phase 6 (5 packs, 6 sampling calls, 6 sampling backwards and 5 pack
+     adjoints a step; peak memory), then the pack adjoint at its 5 levels;
+ 11. the training step of ``configs/vit_eva02_1600x640_trainval_future.py``
      at full width (B=1, 1600 + 640 denoising queries, T=15: 90 images of
      1600x640, of which the first ``stop_prev_grad`` = 4 frames, 24
      images, carry gradients; EVA02 ViT-L with drop path 0.3, the block
@@ -151,7 +169,7 @@ prints its wall time):
      recomputed, detached; 24 backward), step 1's loss held to the plain
      versions' and its probed gradients printed beside a one-ulp probe
      (the seeded head amplifies any change past their tolerance);
- 11. a ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and last
+ 12. a ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and last
      ``{"ok": true, "device": {...}}``.
 
 Needs one CUDA card (it uses ``cuda:0`` alone); imports nothing of JAX.
@@ -191,6 +209,20 @@ PATHS = (
          levels=[(160, 400), (80, 200), (40, 100), (20, 50), (10, 25)],
          yfold=(False, True, True, True, True),
          gsplit=(False, False, False, True, False), t=15, q=1600, p=4),
+    # the vov99 config with bench.py's fp8-L0 overrides: every level
+    # y-fold, level 0's ring in e4m3 (as many bytes as the bf16 pair ring),
+    # the sampling output fp32. Its kernels give their plain versions' bits
+    # (the e4m3 route is checked in phase 3 by check_sampling_e4m3), so the
+    # path is held end to end like vov99; no mixing capture.
+    dict(name="vov99 fp8l0",
+         config="configs/vov99_dd3d_1600x640_trainval_future.py",
+         head_overrides=dict(table_yfold=(True,) * 5,
+                             table_fp8=(True, False, False, False, False)),
+         samples=8, kernels=("pack", "sampling", "sampling_e4m3"),
+         checks=("pack",), capture=False,
+         levels=[(160, 400), (80, 200), (40, 100), (20, 50), (10, 25)],
+         yfold=(True,) * 5,
+         gsplit=(False, False, False, True, False), t=15, q=1600, p=4),
     # vov99's levels and packs (checked there); P=8, and no mixing run:
     # its in-points (P * T = 120) take neither mixing kernel's fast route.
     # Not ``exact``: the attention kernel is not bit-equal to its plain
@@ -220,6 +252,14 @@ PATHS = (
          levels=[(160, 400), (80, 200), (40, 100), (20, 50), (10, 25)],
          yfold=(False, True, True, True, True),
          gsplit=(False, False, False, True, False), t=15, q=1600, p=8),
+    # ResNet-101 at 1408x512 (with_cp over its 33 bottlenecks in training),
+    # five y-fold levels with a group-split L2; every kernel bit-exact, so
+    # held end to end; no mixing capture
+    dict(name="r101", config="configs/r101_nuimg_1408x512.py", samples=10,
+         kernels=("pack", "sampling"), capture=False,
+         levels=[(128, 352), (64, 176), (32, 88), (16, 44), (8, 22)],
+         yfold=(True,) * 5, gsplit=(False, False, True, False, False), t=8,
+         q=900, p=4),
 )
 # sources whose ptxas report is printed per kernel
 PTXAS_REPORTS = ("msmv_sample", "msmv_sample_bwd", "msmv_onehot", "mixing")
@@ -262,14 +302,20 @@ def nvidia_smi_line() -> str:
 
 def _template_args(mangled: str) -> str:
     """Readable form of the template arguments these kernels use, from
-    their Itanium mangling: ``f``, ``<n><name>``, ``Li<n>E``, ``Lb<0|1>E``."""
-    out, rest = [], mangled
+    their Itanium mangling: ``f``, ``<n><name>``, ``Li<n>E``, ``Lb<0|1>E``,
+    and a substitution ``S<n>_`` (here always the type named just before
+    it)."""
+    out, rest, named = [], mangled, None
     while rest:
-        m = re.match(r"f|Li(\d+)E|Lb([01])E|(\d+)", rest)
+        m = re.match(r"f|Li(\d+)E|Lb([01])E|(\d+)|S\d*_", rest)
         if not m:
             return mangled
         rest = rest[m.end():]
-        if m.group(0) == "f":
+        if m.group(0).startswith("S"):
+            if named is None:
+                return mangled
+            out.append(named)
+        elif m.group(0) == "f":
             out.append("float")
         elif m.group(1):
             out.append(m.group(1))
@@ -277,7 +323,8 @@ def _template_args(mangled: str) -> str:
             out.append("true" if m.group(2) == "1" else "false")
         else:
             n = int(m.group(3))
-            out.append(rest[:n])
+            named = rest[:n]
+            out.append(named)
             rest = rest[n:]
     return ", ".join(out)
 
@@ -337,10 +384,15 @@ def time_ms(torch, fn, reps: int, flush, busy_cycles=2_000_000) -> float:
 
 # ------------------------------------------------------------- phase 3 --
 
+def _int_view(torch, t):
+    """The bits of ``t`` as integers of its item size."""
+    return t.view({1: torch.uint8, 2: torch.int16, 4: torch.int32}[
+        t.element_size()])
+
+
 def _bit_equal(torch, got, want):
-    if got.dtype == torch.bfloat16:
-        return torch.equal(got.view(torch.int16), want.view(torch.int16))
-    return torch.equal(got.view(torch.int32), want.view(torch.int32))
+    return got.dtype == want.dtype and torch.equal(_int_view(torch, got),
+                                                   _int_view(torch, want))
 
 
 def check_pack(torch, dev, flush, bw, path):
@@ -456,24 +508,21 @@ def _piece_counts(torch, packed, loc, sw):
     return counts
 
 
-def _touched_pieces(torch, packed, loc, sw):
-    """How many table pieces of C channels these points touch with a
-    nonzero tap weight, each piece counted once."""
-    return sum(int((n > 0).sum())
-               for n in _piece_counts(torch, packed, loc, sw))
-
-
 def _needed_bytes(torch, packed, loc, sw):
     """Bytes the sampling forward must move for THESE inputs: every table
     piece of C channels that carries a nonzero tap weight, read once, plus
     the inputs and the output. Also returns the fp32 operations of the
     fold."""
+    from sparsebev_tpu_torch.ops.msmv_sampling import table_acc_dtype
     k = loc[..., 0].numel()
     c = packed.channels
-    itemsize = packed.tables[0].element_size()
-    table_bytes = _touched_pieces(torch, packed, loc, sw) * c * itemsize
+    # each level at its own item size (an e4m3 level: 1 byte), the output at
+    # the accumulator's (fp32 when level 0 is e4m3)
+    table_bytes = sum(int((n > 0).sum()) * c * t.element_size() for n, t in
+                      zip(_piece_counts(torch, packed, loc, sw),
+                          packed.tables))
     io_bytes = (loc.numel() + sw.numel()) * 4 + packed.slice_map.numel() * 4 \
-        + k * c * itemsize
+        + k * c * table_acc_dtype(packed).itemsize
     flops = k * len(packed.level_shapes) * c * 12
     return table_bytes + io_bytes, flops
 
@@ -511,8 +560,8 @@ def _time_sampling(torch, flush, bw, fp32_rate, packed, loc, sw, label):
     nbytes, flops = _needed_bytes(torch, packed, loc, sw)
     bound_ms = max(nbytes / bw, flops / fp32_rate) * 1e3
     bound_by = "bytes" if nbytes / bw >= flops / fp32_rate else "operations"
-    windows = loc[..., 0].numel() * len(packed.level_shapes) * 4 \
-        * packed.channels * packed.tables[0].element_size()
+    windows = loc[..., 0].numel() * 4 * packed.channels * sum(
+        t.element_size() for t in packed.tables)
     log(f"sampling [{label}: {ms:.4f} ms (plain {plain_ms:.4f} ms), bound "
         f"{bound_ms:.4f} ms by {bound_by} ({nbytes / 1e6:.1f} MB needed by "
         f"these inputs; {windows / 1e6:.1f} MB of windows if none were "
@@ -520,6 +569,29 @@ def _time_sampling(torch, flush, bw, fp32_rate, packed, loc, sw, label):
         "windows are shared within a (query, slice))")
     return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                 bound_by=bound_by, library_ms=None)
+
+
+SAMPLING_SLOTS, SAMPLING_VIEWS, SAMPLING_GROUPS, SAMPLING_CG = 16, 6, 4, 64
+
+
+def _sampling_inputs(torch, dev, path, gen):
+    """Uniform points over ``path``'s T frames (Q, S = T * G, P) of a
+    16-slot ring, softmax level weights, and the decoder's (g, t) slice
+    order over ring slots of frames t = 0..T-1."""
+    n, g = SAMPLING_VIEWS, SAMPLING_GROUPS
+    t, q, p = path["t"], path["q"], path["p"]
+    s = t * g
+    loc = torch.stack([
+        torch.rand((q, s, p), generator=gen, device=dev) * 1.04 - 0.02,
+        torch.rand((q, s, p), generator=gen, device=dev) * 1.04 - 0.02,
+        torch.randint(0, n, (q, s, p), generator=gen, device=dev) / (n - 1),
+    ], -1).contiguous()
+    sw = torch.softmax(torch.randn((q, s, p, len(path["levels"])),
+                                   generator=gen, device=dev), -1).contiguous()
+    slot_of_t = (torch.arange(20, 20 - t, -1, device=dev) % SAMPLING_SLOTS)
+    slice_map = (slot_of_t[None, :] * g
+                 + torch.arange(g, device=dev)[:, None]).reshape(s)
+    return loc, sw, slice_map
 
 
 def check_sampling(torch, dev, flush, bw, fp32_rate, path):
@@ -530,20 +602,10 @@ def check_sampling(torch, dev, flush, bw, fp32_rate, path):
         PackedFeatures, msmv_sampling, msmv_sampling_plain)
     gen = torch.Generator(device=dev).manual_seed(2)
     levels, yfold, gsplit = path["levels"], path["yfold"], path["gsplit"]
-    slots, n, g, cg = 16, 6, 4, 64
-    t, q, p = path["t"], path["q"], path["p"]
-    s = t * g
-    loc = torch.stack([
-        torch.rand((q, s, p), generator=gen, device=dev) * 1.04 - 0.02,
-        torch.rand((q, s, p), generator=gen, device=dev) * 1.04 - 0.02,
-        torch.randint(0, n, (q, s, p), generator=gen, device=dev) / (n - 1),
-    ], -1).contiguous()
-    sw = torch.softmax(torch.randn((q, s, p, len(levels)), generator=gen,
-                                   device=dev), -1).contiguous()
-    # the decoder's (g, t) slice order over ring slots of frames t = 0..T-1
-    slot_of_t = (torch.arange(20, 20 - t, -1, device=dev) % slots)
-    slice_map = (slot_of_t[None, :] * g
-                 + torch.arange(g, device=dev)[:, None]).reshape(s)
+    slots, n, g, cg = (SAMPLING_SLOTS, SAMPLING_VIEWS, SAMPLING_GROUPS,
+                       SAMPLING_CG)
+    s = path["t"] * g
+    loc, sw, slice_map = _sampling_inputs(torch, dev, path, gen)
     orders = [gsplit] + ([(False,) * len(levels)] if any(gsplit) else [])
     result = {}
     err = 0.0
@@ -591,6 +653,81 @@ def check_sampling(torch, dev, flush, bw, fp32_rate, path):
         torch.cuda.empty_cache()
     result["max_abs_err"] = err
     return result
+
+
+# the e4m3 route of the sampling kernel (phase 3): label, the path whose
+# shapes it takes, and the e4m3 levels. (a) the vov99 fp8l0 ring: y-fold
+# e4m3 L0, fp32 output; (b) the vov99 ring with an e4m3 pair L0 and the
+# group-split L3 (the group-major order), fp32 output; (c) r50 with e4m3 on
+# L1 only, bf16 output
+E4M3_CHECKS = (
+    ("vov99 fp8l0", "vov99 fp8l0", (True, False, False, False, False)),
+    ("vov99 pair e4m3 L0", "vov99", (True, False, False, False, False)),
+    ("r50 e4m3 L1", "r50", (False, True, False, False)),
+)
+
+
+def check_sampling_e4m3(torch, dev, flush, bw, fp32_rate):
+    """The sampling kernel with e4m3 levels (``E4M3_CHECKS``) on a 16-slot
+    ring of seeded tables: bit for bit against its plain version, and twice
+    bit-equal on the same inputs; timed beside its bound (each level's bytes
+    at its own item size) and beside the same call with every level bf16
+    (the e4m3 tables upcast: the same values, the bf16 route). Returns the
+    numbers by label."""
+    from sparsebev_tpu_torch.ops.msmv_sampling import (
+        E4M3, PackedFeatures, msmv_sampling, msmv_sampling_plain,
+        table_acc_dtype)
+    out = {}
+    for label, pname, fp8 in E4M3_CHECKS:
+        path = next(p for p in PATHS if p["name"] == pname)
+        gen = torch.Generator(device=dev).manual_seed(4)
+        levels, yfold, gsplit = path["levels"], path["yfold"], path["gsplit"]
+        n, g, cg = SAMPLING_VIEWS, SAMPLING_GROUPS, SAMPLING_CG
+        s = path["t"] * g
+        loc, sw, slice_map = _sampling_inputs(torch, dev, path, gen)
+        tables = []
+        for (h, w), yf, f8 in zip(levels, yfold, fp8):
+            t = torch.randn((SAMPLING_SLOTS * n * h * g, w + 1,
+                             (2 if yf else 1) * cg), generator=gen,
+                            device=dev, dtype=torch.bfloat16)
+            tables.append(t.to(E4M3) if f8 else t)
+            del t
+        packed = PackedFeatures(tables, s, n, levels, cg, num_groups=g,
+                                slice_map=slice_map, yfold=yfold,
+                                gsplit=gsplit)
+        want_dtype = table_acc_dtype(packed)
+        got = msmv_sampling(packed, loc, sw)
+        again = msmv_sampling(packed, loc, sw)
+        want = msmv_sampling_plain(packed, loc, sw)
+        torch.cuda.synchronize()
+        exact = _bit_equal(torch, got, want)
+        d = (got.float() - want.float()).abs().max().item()
+        log(f"sampling e4m3 [{label}]: levels "
+            f"{''.join('8' if f else 'b' for f in fp8)} (8: e4m3, b: bf16), "
+            f"modes {''.join('y' if yf else 'p' for yf in yfold)}, "
+            f"group-split {[i for i, v in enumerate(gsplit) if v]}, output "
+            f"{str(got.dtype)[6:]}: max|kernel - plain| = {d:.3g}, bit-equal "
+            f"to plain: {exact}, two calls bit-equal: "
+            f"{_bit_equal(torch, got, again)}")
+        if got.dtype != want_dtype or not exact \
+                or not _bit_equal(torch, got, again):
+            fail(f"sampling kernel with e4m3 levels differs from its plain "
+                 f"version or from itself ({label})")
+        del got, again, want
+        res = _time_sampling(torch, flush, bw, fp32_rate, packed, loc, sw,
+                             f"e4m3 {label}] e4m3 route")
+        as_bf16 = packed.replace(tables=[t.to(torch.bfloat16) for t in
+                                         tables])
+        res["bf16_route_ms"] = time_ms(
+            torch, lambda: msmv_sampling(as_bf16, loc, sw), 30, flush)
+        log(f"sampling e4m3 [{label}]: the same call on the same values as "
+            f"bf16 tables (the bf16 route): {res['bf16_route_ms']:.4f} ms "
+            f"against {res['ms']:.4f} ms on the e4m3 route")
+        res["max_abs_err"] = 0.0
+        out[label] = res
+        del as_bf16, packed, tables
+        torch.cuda.empty_cache()
+    return out
 
 
 def check_sampling_recorded(torch, flush, bw, fp32_rate, cap, name):
@@ -1287,6 +1424,7 @@ def streaming_phase(torch, dev, path):
         fail(f"missing {config}")
     cfg = Config.fromfile(config)
     cfg.model.update(path.get("model_overrides", {}))
+    cfg.model["pts_bbox_head"].update(path.get("head_overrides", {}))
     head = cfg.model["pts_bbox_head"]
     t = head["num_frames"]
     image_h, image_w = cfg.ida_aug_conf["final_dim"]
@@ -1316,8 +1454,11 @@ def streaming_phase(torch, dev, path):
     with torch.inference_mode():
         for c in counters.values():
             c.launches = 0
+        msmv_sampling.msmv_sampling.e4m3_launches = 0
         times, preds = run_stream(torch, det, samples)
         launches = {k: c.launches for k, c in counters.items()}
+        # the sampling launches that read an e4m3 level, counted apart
+        launches["sampling_e4m3"] = msmv_sampling.msmv_sampling.e4m3_launches
     peak = torch.cuda.max_memory_allocated(dev) - held
     log(f"streaming [{name}]: kernel launches "
         + " ".join(f"{k}={v}" for k, v in launches.items()))
@@ -1534,12 +1675,15 @@ def compare_with_plain(torch, dev, path, model, det, samples, preds):
         gen = torch.Generator(device=dev).manual_seed(6)
         nudged = []
         for table in det.ring:
-            bits = table.view(torch.int16 if table.element_size() == 2
-                              else torch.int32)
+            bits = _int_view(torch, table)
             move = torch.rand(table.shape, generator=gen,
                               device=dev) < NUDGE_SHARE
-            nudged.append(torch.where(move & (table != 0), bits + 1, bits)
-                          .view(table.dtype))
+            # one ulp away from zero; an e4m3 entry one ulp toward zero (its
+            # top code is NaN), which for a nonzero entry keeps its sign
+            fp8 = table.element_size() == 1
+            live = (bits & 0x7F) != 0 if fp8 else table != 0
+            nudged.append(torch.where(move & live, bits + (-1 if fp8 else 1),
+                                      bits).view(table.dtype))
         with torch.inference_mode():
             probe = replay_head(torch, dev, model, det, tuple(nudged),
                                 samples[-1:])
@@ -2294,10 +2438,12 @@ def check_reduction_rounding(torch, dev):
         "256 + 8 x 2.0 reads 272 in bf16")
 
 
-def check_pack_bwd(torch, dev, flush, bw, levels=TRAIN_LEVELS, m=48):
-    """The y-fold pack's adjoint at the r50 training shapes (T * 6 = 48
-    images a level, C = 256, G = 4, bf16; fp32 once at the smallest level):
-    bit for bit against its plain version, timed beside its bound."""
+def check_pack_bwd(torch, dev, flush, bw, levels=TRAIN_LEVELS, m=48,
+                   label="r50 train"):
+    """The y-fold pack's adjoint at a training step's shapes (r50 by
+    default: T * 6 = 48 images a level, C = 256, G = 4, bf16; fp32 once at
+    the smallest level): bit for bit against its plain version, timed
+    beside its bound."""
     from sparsebev_tpu_torch.ops.msmv_pack import (pack_level_bwd,
                                                    pack_level_bwd_plain)
     gen = torch.Generator(device=dev).manual_seed(7)
@@ -2320,7 +2466,7 @@ def check_pack_bwd(torch, dev, flush, bw, levels=TRAIN_LEVELS, m=48):
         nbytes += (m * h * g * w * 2 * (c // g) + got.numel()) * 2
         del dt, got, want
     bound_ms = nbytes / bw * 1e3
-    log(f"pack_bwd [r50 train]: bit-equal to plain at all {len(levels)} "
+    log(f"pack_bwd [{label}]: bit-equal to plain at all {len(levels)} "
         f"levels (bf16; fp32 at the last); {m} images a level {ms:.4f} ms "
         f"(plain {plain_ms:.4f} ms), bound {bound_ms:.4f} ms "
         f"({nbytes / 1e6:.1f} MB moved)")
@@ -3554,6 +3700,79 @@ def eva02_training(torch, dev, flush, bw, fp32_rate, measured):
     return launches
 
 
+def r101_training(torch, dev, flush, bw, fp32_rate, measured):
+    """The training phase of the r101 config at full width (48 images of
+    1408x512, ``with_cp`` over the 33 bottlenecks, the decoder's layer
+    remat; 5 packs, 6 sampling calls, 6 sampling backwards and 5 pack
+    adjoints a step), then the pack adjoint at the step's 5 levels against
+    its plain version; the numbers go into ``measured``. Returns the step's
+    launch counts."""
+    path = next(p for p in PATHS if p["name"] == "r101")
+    launches, measured["sampling_bwd"]["r101 train recorded"], _ = \
+        training_phase(torch, dev, flush, bw, fp32_rate, path,
+                       TRAIN_GRAD_PROBES)
+    measured["pack_bwd"]["r101 train"] = check_pack_bwd(
+        torch, dev, flush, bw, levels=path["levels"], m=path["t"] * 6,
+        label="r101 train")
+    return launches
+
+
+FP8_DRIFT_SAMPLES = 4
+
+
+def fp8_drift_phase(torch):
+    """The port's fp8 drift tool at vov99 (``tools/fp8_drift.py``: a bf16
+    ring and a y-fold fp8-L0 ring over the same synthetic frames, one after
+    the other): its JSON line is printed, not held. With seeded weights the
+    head amplifies any change of its input (PERF.md, section 7, fault 1)."""
+    from sparsebev_tpu_torch.tools import fp8_drift
+    config = next(p for p in PATHS if p["name"] == "vov99")["config"]
+    report = fp8_drift.main(["--config", os.path.join(HERE, config),
+                             "--samples", str(FP8_DRIFT_SAMPLES)])
+    log(f"fp8 drift [vov99]: {json.dumps(report)} (printed, not held)")
+    torch.cuda.empty_cache()
+
+
+def bringup_slice14():
+    """What the r101 and fp8-ring slice adds, alone: build the pack and
+    sampling sources, print what ptxas reports for the sampling kernel,
+    check the sampling kernel's bf16 route at r50 / vov99 / r101 shapes and
+    its e4m3 route (``check_sampling_e4m3``), stream the vov99 fp8l0 and
+    r101 paths, run the fp8 drift tool and the r101 training phase
+    (``python3 -c "import chip_smoke; chip_smoke.bringup_slice14()"``)."""
+    import torch
+    sys.path.insert(0, HERE)
+    from sparsebev_tpu_torch.kernels import build
+    dev = torch.device("cuda", 0)
+    name = torch.cuda.get_device_name(0)
+    log(nvidia_smi_line())
+    logs = build.build_all(["msmv_pack", "msmv_pack_pair", "msmv_sample",
+                            "msmv_sample_bwd"])
+    for r in ptxas_report(logs["msmv_sample"]):
+        log(f"ptxas[msmv_sample]: {r['kernel']}: {r['regs']} registers, "
+            f"{r['stack']} bytes stack frame, spills {r['spill_stores']} / "
+            f"{r['spill_loads']} bytes")
+    bw, fp32_rate, _ = peaks(name)
+    flush = torch.empty(64 * 2**20, dtype=torch.int32, device=dev)
+    measured = {k: {} for k in KERNELS}
+    for pname in ("r50", "vov99", "r101"):
+        path = next(p for p in PATHS if p["name"] == pname)
+        check_sampling(torch, dev, flush, bw, fp32_rate, path)
+    check_pack(torch, dev, flush, bw, next(p for p in PATHS
+                                          if p["name"] == "r101"))
+    check_sampling_e4m3(torch, dev, flush, bw, fp32_rate)
+    for pname in ("vov99 fp8l0", "r101"):
+        t0 = time.perf_counter()
+        launches, _, _ = streaming_phase(
+            torch, dev, next(p for p in PATHS if p["name"] == pname))
+        log(f"{pname} stream: launches {launches}; "
+            f"{time.perf_counter() - t0:.1f} s")
+    fp8_drift_phase(torch)
+    t0 = time.perf_counter()
+    launches = r101_training(torch, dev, flush, bw, fp32_rate, measured)
+    log(f"r101 train: launches {launches}; {time.perf_counter() - t0:.1f} s")
+
+
 def bringup_eva02_train():
     """The EVA02 training phase alone: build its five sources, print what
     ptxas reports for the attention kernels, then phase 10 (``python3 -c
@@ -3699,6 +3918,12 @@ KERNELS = dict(
     sampling=dict(name="msmv_sample_forward", route="cuda",
                   source="sparsebev_tpu_torch/csrc/msmv_sample.cu",
                   replaces="sparsebev_tpu/ops/msmv_sampling.py:1011"),
+    # the same kernel's launches that read an e4m3 level (fp8 rings), and
+    # its numbers on that route (check_sampling_e4m3)
+    sampling_e4m3=dict(name="msmv_sample_forward (e4m3 levels)",
+                       route="cuda",
+                       source="sparsebev_tpu_torch/csrc/msmv_sample.cu",
+                       replaces="sparsebev_tpu/ops/msmv_sampling.py:1011"),
     onehot=dict(name="msmv_onehot_sample_level", route="cuda",
                 source="sparsebev_tpu_torch/csrc/msmv_onehot.cu",
                 replaces="sparsebev_tpu/ops/msmv_pallas.py:89"),
@@ -3846,6 +4071,8 @@ def main() -> int:
                 measured[k].update(res)
             else:
                 measured[k][path["name"]] = res
+    measured["sampling_e4m3"].update(check_sampling_e4m3(
+        torch, dev, flush, bw, fp32_rate))
     del flush
     torch.cuda.empty_cache()
     check_fp32_conv(torch, dev)
@@ -3858,6 +4085,10 @@ def main() -> int:
             torch, dev, path)
         log(f"phase: streaming [{path['name']}] took "
             f"{time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    fp8_drift_phase(torch)
+    log(f"phase: fp8 drift (vov99, {FP8_DRIFT_SAMPLES} samples, two "
+        f"streams) took {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
     flush = torch.empty(64 * 2**20, dtype=torch.int32, device=dev)
@@ -3938,6 +4169,14 @@ def main() -> int:
     torch.cuda.empty_cache()
     log(f"phase: training (vov99, {TRAIN_STEPS} steps, the plain step, the "
         f"recorded sampling backward and the pair adjoint) took "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    launches["r101 train"] = r101_training(torch, dev, flush, bw, fp32_rate,
+                                           measured)
+    torch.cuda.empty_cache()
+    log(f"phase: training (r101, {TRAIN_STEPS} steps, the plain step, the "
+        f"recorded sampling backward and the pack adjoint at 5 levels) took "
         f"{time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()

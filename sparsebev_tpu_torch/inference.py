@@ -4,13 +4,14 @@
 Per sample, only frames whose key (the absolute path of the frame's first
 view) is not cached go through the backbone; they are packed into grouped
 sampling tables (y-fold or pair rows per level, ``table_yfold``) and
-written into a slot of a fixed ring of device buffers. The ring carries the
-head's ``table_gsplit`` flags, which pick the pair levels' accumulation
-order as the JAX package's group-split ring does. The decoder reads the
-ring through a [T]-slot indirection (``ring_packed``), so history frames
-are never copied or re-packed. Slots
-are handed out FIFO (evict at ``cache_size`` frames) and a frame of the
-sample being assembled is never evicted.
+written into a slot of a fixed ring of device buffers, one a level, of the
+dtype :func:`ring_table_dtypes` gives (e4m3 for the head's ``table_fp8``
+levels). The ring carries the head's ``table_gsplit`` flags, which pick the
+pair levels' accumulation order as the JAX package's group-split ring does.
+The decoder reads the ring through a [T]-slot indirection (``ring_packed``),
+so history frames are never copied or re-packed. Slots are handed out FIFO
+(evict at ``cache_size`` frames) and a frame of the sample being assembled
+is never evicted.
 """
 
 from __future__ import annotations
@@ -22,8 +23,18 @@ from typing import List
 import numpy as np
 import torch
 
-from .ops.msmv_sampling import ring_init, ring_packed, ring_update
+from .ops.msmv_sampling import E4M3, ring_init, ring_packed, ring_update
 from .utils.device import resolve_device
+
+
+def ring_table_dtypes(model, frame_packed):
+    """Per-level ring-table dtypes (``sparsebev_tpu/inference.py::
+    ring_table_dtypes`` :55): e4m3 for a level marked in the head's
+    ``table_fp8`` (a bool or one flag a level), the packed frame's own dtype
+    otherwise. Streaming only: training and offline evaluation sample exact
+    tables."""
+    base = frame_packed.tables[0].dtype
+    return tuple(E4M3 if s else base for s in model.pts_bbox_head.table_fp8)
 
 
 class StreamingDetector:
@@ -69,7 +80,8 @@ class StreamingDetector:
         if self.ring is None:
             self._meta = fp.meta(
                 gsplit=self.model.pts_bbox_head.table_gsplit)
-            self.ring = ring_init(fp, self.cache_size)
+            self.ring = ring_init(fp, self.cache_size,
+                                  ring_table_dtypes(self.model, fp))
         slot = self._slot_for_new_frame(protected)
         ring_update(self.ring, fp, slot)
         self.slot_of_key[key] = slot

@@ -25,8 +25,10 @@ def _per_level(spec, n):
 def check_table_options(num_levels: int, table_yfold=True, table_fp8=False,
                         table_split=1, table_gsplit=False,
                         table_gsplit_pack=False) -> None:
-    """Accept per-level table modes (``table_yfold``) and the group-split
-    options; refuse the table modes that are not ported yet."""
+    """Accept per-level table modes (``table_yfold``), fp8 streaming rings
+    (``table_fp8``, a bool or one flag a level) and the group-split
+    options; refuse chunk-split rings (``table_split > 1``), not ported
+    yet."""
     for name, spec in (("table_yfold", table_yfold),
                        ("table_fp8", table_fp8),
                        ("table_split", table_split),
@@ -35,14 +37,10 @@ def check_table_options(num_levels: int, table_yfold=True, table_fp8=False,
         if len(_per_level(spec, num_levels)) != num_levels:
             raise ValueError(f"{name}={spec!r} does not have one entry per "
                              f"level ({num_levels} levels)")
-    if any(_per_level(table_fp8, num_levels)):
-        raise NotImplementedError(
-            "table_fp8 (fp8 streaming rings) is not ported yet "
-            "(ROADMAP Queue 1 item 14)")
     if any(int(s) != 1 for s in _per_level(table_split, num_levels)):
         raise NotImplementedError(
             "table_split > 1 (chunk-split streaming rings) is not ported yet "
-            "(ROADMAP Queue 1 item 14)")
+            "(ROADMAP Queue 1 entry 1, table_split)")
 
 
 class SparseBEVHead(nn.Module):
@@ -70,11 +68,15 @@ class SparseBEVHead(nn.Module):
         self.num_views = num_views
         self.pc_range = list(pc_range)
         self.compute_dtype = compute_dtype
-        # per-level table mode of the pack and the group-split flags of the
+        # per-level table mode of the pack, the e4m3 levels of the
+        # streaming ring (inference.ring_table_dtypes; training and offline
+        # evaluation keep exact tables), and the group-split flags of the
         # streaming ring and of the train / offline pack (which pick the
         # pair levels' accumulation order)
         self.table_yfold = tuple(bool(v) for v in
                                  _per_level(table_yfold, num_levels))
+        self.table_fp8 = tuple(bool(v) for v in
+                               _per_level(table_fp8, num_levels))
         self.table_gsplit = tuple(bool(v) for v in
                                   _per_level(table_gsplit, num_levels))
         self.table_gsplit_pack = tuple(bool(v) for v in

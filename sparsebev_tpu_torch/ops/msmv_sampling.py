@@ -64,9 +64,17 @@ the kernel in the order its reductions land). Tables packed by
 adds into that one buffer and the pack's adjoint reads it
 (``ops/msmv_pack.py``).
 
-Not in this slice: chunk-split rings (``table_split > 1``) and fp8 rings
-(``table_fp8``); configs that ask for them are refused by
-``models/head.py::check_table_options``.
+fp8 rings (``table_fp8``, streaming only, as in JAX): :func:`ring_init` takes
+a dtype a level, :func:`ring_update` writes an e4m3 level as the JAX ring does
+(clipped to +-448 in fp32, then cast with round-to-nearest-even), and the
+folds upcast an e4m3 gather to bf16 before its weights are cast to its dtype,
+so an e4m3 level samples as a bf16 level holding the same values. With level
+0 in e4m3 the output and accumulator are fp32 (``table_acc_dtype``) and each
+level's fold adds unrounded. On CUDA tensors the sampling kernel reads e4m3
+levels beside bf16 ones; the sampling backward takes no e4m3 table.
+
+Not in this slice: chunk-split rings (``table_split > 1``); configs that ask
+for them are refused by ``models/head.py::check_table_options``.
 """
 
 from __future__ import annotations
@@ -82,6 +90,10 @@ from .msmv_onehot import MAX_LEVELS as _MAX_LEVELS
 from .msmv_onehot import (_clamp_pixels, _view_index, lanes_per_point,
                           onehot_sample_levels)
 from .msmv_pack import TableGrad, pack_level, pack_level_pair
+
+# the fp8 ring dtype and its largest finite value
+E4M3 = torch.float8_e4m3fn
+E4M3_MAX = float(torch.finfo(E4M3).max)
 
 # sampling implementation: "xla" (y-fold tables for every level; the
 # default) or "hybrid" (pack_mlvl_feats keeps the small levels as bf16
@@ -249,29 +261,45 @@ def pack_mlvl_feats_grouped(mlvl_feats: Sequence[torch.Tensor],
                           table_grads=grads if in_graph else None)
 
 
-def ring_init(frame_packed: PackedFeatures, num_slots: int):
+def ring_init(frame_packed: PackedFeatures, num_slots: int, dtypes=None):
     """Allocate an all-zero table ring with ``num_slots`` frame slots: a
     per-level tuple of ``[num_slots*N*H*G, W+1, row]`` tensors (row = 2Cg
-    for y-fold levels, Cg for pair levels) of the single-frame
-    ``frame_packed`` tables' dtype and device."""
+    for y-fold levels, Cg for pair levels) on the single-frame
+    ``frame_packed`` tables' device. ``dtypes``: one dtype for every level
+    or one a level (``inference.ring_table_dtypes``: e4m3 for a
+    ``table_fp8`` level); None, the frame tables' dtype."""
     t0 = frame_packed.tables[0]
+    n = len(frame_packed.level_shapes)
+    if dtypes is None or isinstance(dtypes, torch.dtype):
+        dtypes = (dtypes or t0.dtype,) * n
+    if len(dtypes) != n:
+        raise ValueError(f"per-level dtype sequence has {len(dtypes)} "
+                         f"entries for {n} feature levels (check table_fp8 "
+                         "in the config)")
     rows = frame_packed.num_views * frame_packed.num_groups
     return tuple(torch.zeros((num_slots * rows * h, w + 1,
                               frame_packed.row_width(lvl)),
-                             dtype=t0.dtype, device=t0.device)
-                 for lvl, (h, w) in enumerate(frame_packed.level_shapes))
+                             dtype=dt, device=t0.device)
+                 for lvl, ((h, w), dt) in enumerate(
+                     zip(frame_packed.level_shapes, dtypes)))
 
 
 def ring_update(ring_tables, frame_packed: PackedFeatures, slot: int):
     """Write one frame's tables into ring slot ``slot``, IN PLACE (the JAX
     version returns an updated copy; the in-place copy saves the ring's
-    memory twice over). Returns ``ring_tables``."""
+    memory twice over). An e4m3 level gets the frame's values clipped to
+    +-``E4M3_MAX`` in fp32 and cast with round-to-nearest-even, as the JAX
+    ring writes it (``sparsebev_tpu/ops/msmv_sampling.py:421-429``): e4m3
+    has no infinity, and the clip keeps an outlier from depending on how a
+    library casts out-of-range values. Returns ``ring_tables``."""
     if frame_packed.batch != frame_packed.num_groups:
         raise ValueError("ring_update expects single-frame, B=1 packed tables")
     for ring, frame in zip(ring_tables, frame_packed.tables):
         rows = frame.shape[0]
         if ring.shape[0] % rows or ring.shape[1:] != frame.shape[1:]:
             raise ValueError("frame tables do not tile the ring")
+        if ring.dtype == E4M3 and frame.dtype != E4M3:
+            frame = frame.float().clamp_(-E4M3_MAX, E4M3_MAX)
         ring[slot * rows:(slot + 1) * rows].copy_(frame)
     return ring_tables
 
@@ -297,9 +325,10 @@ def ring_packed(ring_tables, slots_of_t: torch.Tensor, num_frames: int,
 
 
 def table_acc_dtype(packed: PackedFeatures) -> torch.dtype:
-    """Output/accumulator dtype of the sampling op: the table dtype for
-    bf16/fp32 tables (each level's tap contraction still reduces in fp32),
-    fp32 otherwise."""
+    """Output/accumulator dtype of the sampling op: level 0's table dtype
+    for bf16/fp32 tables (each level's tap contraction still reduces in
+    fp32), fp32 otherwise (an e4m3 level 0: every level's fold then adds
+    unrounded)."""
     t0 = packed.tables[0]
     dt = t0.dtype if t0 is not None else torch.float32
     return dt if dt in (torch.bfloat16, torch.float32) else torch.float32
@@ -397,6 +426,14 @@ def msmv_sampling_reference(mlvl_feats: Sequence[torch.Tensor],
     return out
 
 
+def _gather(flat, col):
+    """``flat[col]``; an e4m3 table's rows are gathered as bytes (indexing
+    takes every dtype that way on every device)."""
+    if flat.dtype == E4M3:
+        return flat.view(torch.uint8)[col].view(E4M3)
+    return flat[col]
+
+
 def _fold_window_taps(g0, g1, fxa, fxb, fya, fyb, c):
     """y-fold window contraction: the window's two columns ``g0``/``g1``
     ``[K, 2C]`` -> fp32 ``[K, C]``. The x weights are rounded to the table
@@ -404,6 +441,8 @@ def _fold_window_taps(g0, g1, fxa, fxb, fya, fyb, c):
     operands: XLA under ``jit`` drops the bf16 rounding of these products,
     see the module docstring), the two x taps add in fp32 and the y/level
     weights fold in fp32 (``_fold_window_taps`` :893)."""
+    if g0.dtype == E4M3:        # upcast first: the weights round to bf16
+        g0, g1 = g0.to(torch.bfloat16), g1.to(torch.bfloat16)
     xa = fxa[:, None].to(g0.dtype).float()
     xb = fxb[:, None].to(g0.dtype).float()
     g0, g1 = g0.float(), g1.float()
@@ -416,13 +455,16 @@ def _pair_level_taps(flat, col0, col1, wxa, wxb, wya, wyb, lw):
     column ``col0``) and ``min(ry+1, H-1)`` (``col1``) -> one fp32 ``[K, C]``
     sum per y tap. The x and y/level weights multiply in fp32 and round to
     the table dtype together; tap products are taken in fp32 and added in
-    fp32 (``_yfold_forward`` :1223-1227)."""
+    fp32 (``_yfold_forward`` :1223-1227). An e4m3 table's taps read as
+    bf16 (:1221-1222), so its weights round to bf16."""
+    wdt = torch.bfloat16 if flat.dtype == E4M3 else flat.dtype
     taps = []
     for col, wy in ((col0, wya), (col1, wyb)):
         wyl = wy * lw
-        w0 = (wxa * wyl)[:, None].to(flat.dtype).float()
-        w1 = (wxb * wyl)[:, None].to(flat.dtype).float()
-        taps.append(flat[col].float() * w0 + flat[col + 1].float() * w1)
+        w0 = (wxa * wyl)[:, None].to(wdt).float()
+        w1 = (wxb * wyl)[:, None].to(wdt).float()
+        taps.append(_gather(flat, col).float() * w0
+                    + _gather(flat, col + 1).float() * w1)
     return taps
 
 
@@ -469,7 +511,8 @@ def msmv_sampling_plain(packed: PackedFeatures,
         flat = packed.tables[lvl].reshape(-1, packed.row_width(lvl))
         if packed.yfold[lvl]:
             col = packed.row_index(batch_row, view, ry, h) * (w + 1) + sx
-            lvl_out = _fold_window_taps(flat[col], flat[col + 1], wxa, wxb,
+            lvl_out = _fold_window_taps(_gather(flat, col),
+                                        _gather(flat, col + 1), wxa, wxb,
                                         (wya * lw)[:, None],
                                         (wyb * lw)[:, None], c)
             out = out + lvl_out.to(acc_dtype)
@@ -698,6 +741,8 @@ def msmv_sampling(packed: PackedFeatures,
 
 
 msmv_sampling.launches = 0  # kernel launches (counted in _msmv_sampling_cuda)
+# the launches among them that read an e4m3 level
+msmv_sampling.e4m3_launches = 0
 
 _SIGNATURE_SET = False
 
@@ -708,24 +753,48 @@ def _lib():
     if not _SIGNATURE_SET:
         vp, ci = ctypes.c_void_p, ctypes.c_int
         lib.msmv_sample_forward.argtypes = [
-            vp, vp, vp, vp, ci, vp, vp, vp, vp, ctypes.c_longlong,
-            ci, ci, ci, ci, ci, ci, ci, ci, vp]
+            vp, vp, vp, vp, vp, ci, vp, vp, vp, vp, ctypes.c_longlong,
+            ci, ci, ci, ci, ci, ci, ci, ci, ci, vp]
         lib.msmv_sample_forward.restype = ci
         _SIGNATURE_SET = True
     return lib
 
 
-def sample_lanes_per_point(channels: int, dtype: torch.dtype) -> int:
+def sample_table_dtypes(dtypes):
+    """The tables' dtype as the sampling kernel reads it, and which levels
+    are e4m3: ``dtypes`` is one dtype or one a level. e4m3 levels read as
+    bf16 levels holding the same values, so beside them every other level
+    must be bf16 (an all-e4m3 ring reads as bf16). Raises ``ValueError``
+    for a mix the kernel does not take."""
+    if isinstance(dtypes, torch.dtype):
+        dtypes = (dtypes,)
+    fp8 = tuple(d == E4M3 for d in dtypes)
+    base = {d for d in dtypes if d != E4M3}
+    if len(base) > 1:
+        raise ValueError(f"msmv_sampling: tables of one dtype (or e4m3 "
+                         f"beside bf16), not {sorted(map(str, base))}")
+    base = base.pop() if base else torch.bfloat16
+    if any(fp8) and base != torch.bfloat16:
+        raise ValueError(f"msmv_sampling: e4m3 levels read as bf16, so the "
+                         f"other levels must be bf16, not {base}")
+    return base, fp8
+
+
+def sample_lanes_per_point(channels: int, dtype) -> int:
     """How many lanes of a warp share one sampling point in the kernel
     (:func:`~.msmv_onehot.lanes_per_point`: 16 bytes a lane; C=64 takes 8
-    lanes in bf16 and 16 in fp32). Raises ``ValueError`` for what the kernel
-    does not take."""
-    return lanes_per_point(channels, dtype, "msmv_sampling")
+    lanes in bf16 and 16 in fp32). ``dtype``: the tables' dtype or one a
+    level; an e4m3 level keeps a bf16 lane's channels (8 a lane, 8 bytes
+    read where a bf16 lane reads 16, see :func:`sample_table_dtypes`).
+    Raises ``ValueError`` for what the kernel does not take."""
+    return lanes_per_point(channels, sample_table_dtypes(dtype)[0],
+                           "msmv_sampling")
 
 
 def _check_cuda_operands(packed, loc, sw):
     """What both sampling kernels ask of their operands; returns the table
-    dtype, the lanes a point takes and the int32 slice map."""
+    dtype as the kernels read it (:func:`sample_table_dtypes`), the e4m3
+    flag of each level, the lanes a point takes and the int32 slice map."""
     _check_geometry(packed, loc, sw)
     dev = loc.device
     if not loc.is_cuda:
@@ -734,16 +803,16 @@ def _check_cuda_operands(packed, loc, sw):
         if t.dtype != torch.float32 or not t.is_contiguous() or t.device != dev:
             raise ValueError(f"msmv_sampling: {name} must be contiguous fp32 "
                              f"on {dev}")
-    dtype = packed.tables[0].dtype
+    dtype, fp8 = sample_table_dtypes([t.dtype for t in packed.tables])
     lanes = sample_lanes_per_point(packed.channels, dtype)
     if not 1 <= len(packed.level_shapes) <= _MAX_LEVELS:
         raise ValueError(f"msmv_sampling: the kernel takes 1 to {_MAX_LEVELS} "
                          f"levels, not {len(packed.level_shapes)}")
     for lvl, (t, (h, w)) in enumerate(zip(packed.tables,
                                           packed.level_shapes)):
-        if t.dtype != dtype or t.device != dev or not t.is_contiguous():
-            raise ValueError("msmv_sampling: tables must be contiguous, of "
-                             f"one dtype, on {dev}")
+        if t.device != dev or not t.is_contiguous():
+            raise ValueError("msmv_sampling: tables must be contiguous, on "
+                             f"{dev}")
         if t.dim() != 3 or t.shape[1:] != (w + 1, packed.row_width(lvl)) \
                 or t.shape[0] % h:
             raise ValueError(f"msmv_sampling: level {lvl} table "
@@ -760,7 +829,7 @@ def _check_cuda_operands(packed, loc, sw):
     slice_map = (torch.arange(s, device=dev) if packed.slice_map is None
                  else packed.slice_map)
     slice_map = slice_map.to(device=dev, dtype=torch.int32).contiguous()
-    return dtype, lanes, slice_map
+    return dtype, fp8, lanes, slice_map
 
 
 def _level_arrays(packed, tables):
@@ -774,24 +843,28 @@ def _level_arrays(packed, tables):
 
 
 def _msmv_sampling_cuda(packed, loc, sw):
-    dtype, lanes, slice_map = _check_cuda_operands(packed, loc, sw)
+    dtype, fp8, lanes, slice_map = _check_cuda_operands(packed, loc, sw)
     dev = loc.device
     q, s, p, _ = loc.shape
     c = packed.channels
-    out = torch.empty((q, s, p, c), dtype=dtype, device=dev)
+    out_dtype = table_acc_dtype(packed)
+    out = torch.empty((q, s, p, c), dtype=out_dtype, device=dev)
     num_levels = len(packed.level_shapes)
     tables, heights, widths, yfold = _level_arrays(packed, packed.tables)
     lib = _lib()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.msmv_sample_forward(
-            tables, heights, widths, yfold, num_levels, loc.data_ptr(),
-            sw.data_ptr(), slice_map.data_ptr(), out.data_ptr(), q * s * p,
-            s, p, packed.num_views, packed.num_groups, c,
-            int(dtype == torch.bfloat16), int(any(packed.gsplit)), lanes,
+            tables, heights, widths, yfold,
+            (ctypes.c_int * num_levels)(*map(int, fp8)), num_levels,
+            loc.data_ptr(), sw.data_ptr(), slice_map.data_ptr(),
+            out.data_ptr(), q * s * p, s, p, packed.num_views,
+            packed.num_groups, c, int(dtype == torch.bfloat16),
+            int(out_dtype == torch.bfloat16), int(any(packed.gsplit)), lanes,
             stream)
     build.check(lib, "msmv_sample", rc)
     msmv_sampling.launches += 1
+    msmv_sampling.e4m3_launches += any(fp8)
     return out
 
 
@@ -801,7 +874,10 @@ def _msmv_sampling_backward_cuda(packed, loc, sw, grad_out, grads=None):
     vector reductions in the table dtype to ``grads`` (per level a buffer of
     the table's shape and dtype; None for no table gradient). Returns
     ``(d_loc, d_sw)``."""
-    dtype, lanes, slice_map = _check_cuda_operands(packed, loc, sw)
+    dtype, fp8, lanes, slice_map = _check_cuda_operands(packed, loc, sw)
+    if any(fp8):
+        raise ValueError("msmv_sampling backward: e4m3 tables are a "
+                         "streaming ring's; training samples exact tables")
     dev = loc.device
     q, s, p, _ = loc.shape
     c = packed.channels

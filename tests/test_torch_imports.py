@@ -57,7 +57,8 @@ def test_port_modules_import_without_jax():
     for mod in ("data", "data.box3d", "data.synthetic", "data.fastloader",
                 "data.pipelines", "data.dataset", "data.loader", "builder",
                 "evaluation", "evaluation.results", "evaluation.metrics",
-                "evaluation.loop", "tools", "tools.train", "tools.val"):
+                "evaluation.loop", "tools", "tools.train", "tools.val",
+                "tools.fp8_drift"):
         assert f"sparsebev_tpu_torch.{mod}" in mods
     # the EVA02 backbone and its attention op
     for mod in ("models.eva02", "ops.eva_attention"):

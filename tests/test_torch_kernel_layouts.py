@@ -22,7 +22,8 @@ from sparsebev_tpu_torch.ops.mixing import (mixing_core_plain, mixing_route,
                                             padded_points)
 from sparsebev_tpu_torch.ops import msmv_onehot
 from sparsebev_tpu_torch.ops.msmv_onehot import onehot_lanes_per_point
-from sparsebev_tpu_torch.ops.msmv_sampling import sample_lanes_per_point
+from sparsebev_tpu_torch.ops.msmv_sampling import (sample_lanes_per_point,
+                                                   sample_table_dtypes)
 
 torch.set_num_threads(1)
 
@@ -51,6 +52,34 @@ def test_sampling_lanes_per_point(channels, dtype, lanes):
 def test_sampling_kernel_refuses(channels, dtype, match):
     with pytest.raises(ValueError, match=match):
         sample_lanes_per_point(channels, dtype)
+
+
+@pytest.mark.parametrize("dtypes,lanes", [
+    # an e4m3 level keeps a bf16 lane's 8 channels (8 bytes read a lane)
+    ((torch.float8_e4m3fn, torch.bfloat16, torch.bfloat16), 8),
+    ((torch.bfloat16, torch.float8_e4m3fn), 8),
+    ((torch.float8_e4m3fn,), 8),            # an all-e4m3 ring reads as bf16
+    (torch.float8_e4m3fn, 8),
+    ((torch.float32,) * 5, 16),
+])
+def test_sampling_e4m3_lane_map(dtypes, lanes):
+    assert sample_lanes_per_point(64, dtypes) == lanes
+    base, fp8 = sample_table_dtypes(dtypes)
+    seq = (dtypes,) if isinstance(dtypes, torch.dtype) else dtypes
+    assert fp8 == tuple(d == torch.float8_e4m3fn for d in seq)
+    assert base == (torch.float32 if torch.float32 in seq
+                    else torch.bfloat16)
+
+
+@pytest.mark.parametrize("dtypes,match", [
+    ((torch.float8_e4m3fn, torch.float32), "must be bf16"),
+    ((torch.bfloat16, torch.float32), "tables of one dtype"),
+    ((torch.float8_e4m3fn, torch.float16), "must be bf16"),
+    ((torch.float8_e5m2, torch.bfloat16), "tables of one dtype"),
+])
+def test_sampling_kernel_refuses_e4m3_mixes(dtypes, match):
+    with pytest.raises(ValueError, match=match):
+        sample_lanes_per_point(64, dtypes)
 
 
 @pytest.mark.parametrize("channels,lanes", [

@@ -228,9 +228,11 @@ def test_entry_points_need_cuda_by_default():
 
 
 @pytest.mark.parametrize("override", [
-    {"table_fp8": True},
+    # fp8 rings are ported (tests/test_torch_fp8_ring.py); beside a split
+    # ring the split still raises
+    {"table_split": 2, "table_fp8": True},
     {"table_split": 2},
-    {"table_fp8": (True, False, False, False)},
+    {"table_split": (1, 1, 4, 1), "table_fp8": (True, False, False, False)},
 ])
 def test_unported_table_modes_raise(override):
     cfg = copy.deepcopy(MODEL)
