@@ -32,6 +32,19 @@
 // accumulator unrounded, as JAX adds ``lvl_out.astype(f32)``; with a bf16
 // output (only later levels e4m3) each level rounds to bf16 as before.
 //
+// Chunk-split levels (streaming rings with ``table_split``, the JAX ring
+// keeps such a level as ``split`` separate buffers, each holding
+// num_slots / split consecutive ring slots, and gathers chunk by chunk,
+// _yfold_forward :1028-1060, :1135-1170): such a level's table is the list
+// of its chunk base pointers and its frames per chunk. A point resolves its
+// physical frame bt (slice_map[s] / G, the ring slot) to (chunk bt / cf,
+// frame in chunk bt % cf) and takes its row in that chunk as the unsplit
+// ring would hold it there, so the split route reads the same values and
+// gives the unsplit route's bits. The chunk pointers ride in a
+// __grid_constant__ parameter block, indexed at run time in place (no
+// copy to the stack); unsplit levels take no extra instruction but the
+// test of their chunk count.
+//
 // Numerics follow the bits XLA gives for the JAX code under jit: y-fold
 // levels round the x weights to the table dtype; pair levels round the
 // products wx * wy * lw to it. A bf16 tap times its bf16 weight is exact in
@@ -96,6 +109,7 @@
 namespace {
 
 constexpr int kMaxLevels = 8;
+constexpr int kMaxChunks = 16;
 constexpr int kThreads = 128;
 
 struct Levels {
@@ -104,6 +118,13 @@ struct Levels {
   int w[kMaxLevels];
   int yfold[kMaxLevels];  // 1: rows [w+1, 2c] (y-fold), 0: [w+1, c] (pair)
   int fp8[kMaxLevels];    // 1: e4m3 entries (beside bf16 levels only)
+};
+
+// chunk-split levels: frames a chunk (0: the level is one table) and the
+// chunks' base pointers, indexed by the chunk a point's frame lies in
+struct Chunks {
+  int frames[kMaxLevels];
+  const void* base[kMaxLevels][kMaxChunks];
 };
 
 __device__ __forceinline__ float round_bf16(float v) {
@@ -216,7 +237,8 @@ __device__ __forceinline__ void store_run(char* p, const float (&f)[kVec]) {
 // accumulator dtype.
 template <typename TB, typename TO, int L>
 __global__ void __launch_bounds__(kThreads)
-    msmv_sample_kernel(const Levels lv, const float* __restrict__ loc,
+    msmv_sample_kernel(const Levels lv, const __grid_constant__ Chunks ch,
+                       const float* __restrict__ loc,
                        const float* __restrict__ sw,
                        const int* __restrict__ slice_map, TO* __restrict__ out,
                        unsigned num_points, unsigned s, unsigned p, unsigned n,
@@ -293,8 +315,16 @@ __global__ void __launch_bounds__(kThreads)
     const unsigned isz = f8 ? 1u : (unsigned)sizeof(TB);
     const unsigned cb = (unsigned)c * isz;
     const unsigned ccb = (unsigned)cc * isz;
+    // a split level: the chunk that holds frame bt, and bt's frame in it
+    const char* table = static_cast<const char*>(lv.table[l]);
+    unsigned btl = bt;
+    if (ch.frames[l] > 0) {
+      const unsigned ci = bt / (unsigned)ch.frames[l];
+      btl = bt - ci * (unsigned)ch.frames[l];
+      table = static_cast<const char*>(ch.base[l][ci]);
+    }
     const unsigned row =
-        ((bt * n + view) * (unsigned)h + (unsigned)ry) * g + gi;
+        ((btl * n + view) * (unsigned)h + (unsigned)ry) * g + gi;
     const unsigned col = row * (unsigned)(w + 1) + (unsigned)sx;
     // bytes between the two columns of a window, and from row ry to row
     // ry+1: wyb is 0 wherever row ry+1 is invalid, so the clamp (a step of
@@ -302,8 +332,7 @@ __global__ void __launch_bounds__(kThreads)
     const unsigned stepx = yf ? 2u * cb : cb;
     const unsigned stepy =
         yf ? cb : (ry < h - 1 ? g * (unsigned)(w + 1) * cb : 0u);
-    const char* top = static_cast<const char*>(lv.table[l]) +
-                      (uint64_t)col * stepx + ccb;
+    const char* top = table + (uint64_t)col * stepx + ccb;
     const char* bot = top + stepy;
     if (f8) {
       t00[l] = load8(top);
@@ -360,26 +389,28 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 template <typename TB, typename TO, int L>
-void launch_levels(const Levels& lv, const float* loc, const float* sw,
+void launch_levels(const Levels& lv, const Chunks& ch, const float* loc,
+                   const float* sw,
                    const int* slice_map, void* out, unsigned num_points,
                    int s, int p, int n, int g, int c, int lanes_log2,
                    bool gmajor, cudaStream_t st) {
   const unsigned blocks = (unsigned)(
       (((uint64_t)num_points << lanes_log2) + kThreads - 1) / kThreads);
   msmv_sample_kernel<TB, TO, L><<<blocks, kThreads, 0, st>>>(
-      lv, loc, sw, slice_map, static_cast<TO*>(out), num_points, (unsigned)s,
-      (unsigned)p, (unsigned)n, (unsigned)g, c, lanes_log2, gmajor);
+      lv, ch, loc, sw, slice_map, static_cast<TO*>(out), num_points,
+      (unsigned)s, (unsigned)p, (unsigned)n, (unsigned)g, c, lanes_log2,
+      gmajor);
 }
 
 template <typename TB, typename TO>
-int launch(const Levels& lv, int num_levels, const float* loc,
-           const float* sw, const int* slice_map, void* out,
+int launch(const Levels& lv, const Chunks& ch, int num_levels,
+           const float* loc, const float* sw, const int* slice_map, void* out,
            unsigned num_points, int s, int p, int n, int g, int c,
            int lanes_log2, bool gmajor, cudaStream_t st) {
 #define SAMPLE_CASE(L)                                                     \
   case L:                                                                  \
-    launch_levels<TB, TO, L>(lv, loc, sw, slice_map, out, num_points, s,   \
-                             p, n, g, c, lanes_log2, gmajor, st);          \
+    launch_levels<TB, TO, L>(lv, ch, loc, sw, slice_map, out, num_points,  \
+                             s, p, n, g, c, lanes_log2, gmajor, st);       \
     break;
   switch (num_levels) {
     SAMPLE_CASE(1) SAMPLE_CASE(2) SAMPLE_CASE(3) SAMPLE_CASE(4)
@@ -395,8 +426,9 @@ int launch(const Levels& lv, int num_levels, const float* loc,
 
 extern "C" {
 
-// tables/heights/widths/yfold/fp8: host arrays of num_levels entries; each
-// table is [rows, w+1, 2c] (yfold 1) or [rows, w+1, c] (yfold 0)
+// tables/heights/widths/yfold/fp8/splits/chunk_frames: host arrays of
+// num_levels entries; each table is [rows, w+1, 2c] (yfold 1) or
+// [rows, w+1, c] (yfold 0)
 // contiguous, of the table dtype (table_bf16: bf16, else fp32) or, where
 // fp8 is set (bf16 tables only), of e4m3; 16-byte aligned, with rows * (w+1)
 // below 2^31. loc [K, 3] and sw [K, L] fp32, slice_map [s] int32, out [K, c]
@@ -405,10 +437,16 @@ extern "C" {
 // lanes_per_point is the power of two >= c * itemsize / 16 that the caller
 // chose (at most 32). gmajor selects the pair levels' accumulation order
 // (see the header). The supported pairs (table, output): (bf16, bf16),
-// (bf16, fp32) and (fp32, fp32).
+// (bf16, fp32) and (fp32, fp32). A level with splits[l] > 1 (y-fold only)
+// is that many chunk tables of chunk_frames[l] ring frames each
+// ([chunk_frames * n * h * g, w+1, 2c], the same alignment and limits);
+// chunks holds their base pointers, the split levels' in level order, and
+// tables[l] is ignored for such a level.
 int msmv_sample_forward(const void* const* tables, const int* heights,
                         const int* widths, const int* yfold, const int* fp8,
-                        int num_levels, const float* loc, const float* sw,
+                        const int* splits, const int* chunk_frames,
+                        const void* const* chunks, int num_levels,
+                        const float* loc, const float* sw,
                         const int* slice_map, void* out,
                         long long num_points, int s, int p, int n, int g,
                         int c, int table_bf16, int out_bf16, int gmajor,
@@ -425,11 +463,26 @@ int msmv_sample_forward(const void* const* tables, const int* heights,
       (reinterpret_cast<uintptr_t>(out) & 15) != 0)
     return (int)cudaErrorInvalidValue;
   Levels lv = {};
+  Chunks ch = {};
+  int next_chunk = 0;
   for (int l = 0; l < num_levels; ++l) {
-    if ((reinterpret_cast<uintptr_t>(tables[l]) & 15) != 0 ||
+    if (splits[l] < 1 || splits[l] > kMaxChunks ||
+        (splits[l] > 1 && (yfold[l] == 0 || chunk_frames[l] < 1)))
+      return (int)cudaErrorInvalidValue;
+    if (splits[l] > 1) {
+      ch.frames[l] = chunk_frames[l];
+      for (int i = 0; i < splits[l]; ++i) {
+        const void* base = chunks[next_chunk++];
+        if ((reinterpret_cast<uintptr_t>(base) & 15) != 0)
+          return (int)cudaErrorInvalidValue;
+        ch.base[l][i] = base;
+      }
+    }
+    const void* table = splits[l] > 1 ? ch.base[l][0] : tables[l];
+    if ((reinterpret_cast<uintptr_t>(table) & 15) != 0 ||
         heights[l] < 1 || widths[l] < 1 || (fp8[l] != 0 && !table_bf16))
       return (int)cudaErrorInvalidValue;
-    lv.table[l] = tables[l];
+    lv.table[l] = table;
     lv.h[l] = heights[l];
     lv.w[l] = widths[l];
     lv.yfold[l] = yfold[l] != 0;
@@ -439,13 +492,13 @@ int msmv_sample_forward(const void* const* tables, const int* heights,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (table_bf16 && out_bf16)
     return launch<__nv_bfloat16, __nv_bfloat16>(
-        lv, num_levels, loc, sw, slice_map, out, (unsigned)num_points, s, p,
-        n, g, c, lanes_log2, gmajor != 0, st);
+        lv, ch, num_levels, loc, sw, slice_map, out, (unsigned)num_points, s,
+        p, n, g, c, lanes_log2, gmajor != 0, st);
   if (table_bf16)
     return launch<__nv_bfloat16, float>(
-        lv, num_levels, loc, sw, slice_map, out, (unsigned)num_points, s, p,
-        n, g, c, lanes_log2, gmajor != 0, st);
-  return launch<float, float>(lv, num_levels, loc, sw, slice_map, out,
+        lv, ch, num_levels, loc, sw, slice_map, out, (unsigned)num_points, s,
+        p, n, g, c, lanes_log2, gmajor != 0, st);
+  return launch<float, float>(lv, ch, num_levels, loc, sw, slice_map, out,
                               (unsigned)num_points, s, p, n, g, c,
                               lanes_log2, gmajor != 0, st);
 }

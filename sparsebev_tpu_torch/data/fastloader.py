@@ -16,6 +16,7 @@ from __future__ import annotations
 import ctypes
 import logging
 import os
+import threading
 from typing import Optional, Sequence, Tuple
 
 import numpy as np
@@ -26,9 +27,18 @@ LIB_PATH = os.path.join(
 
 _LIB = None
 _TRIED = False
+# the loader's threads look the library up at once on a fresh process's
+# first batch; one lookup loads it while the others wait (without the lock a
+# thread saw the lookup begun and no library, and decoded with PIL)
+_LOCK = threading.Lock()
 
 
 def _find_lib() -> Optional[ctypes.CDLL]:
+    with _LOCK:
+        return _load_lib()
+
+
+def _load_lib() -> Optional[ctypes.CDLL]:
     global _LIB, _TRIED
     if _TRIED:
         return _LIB

@@ -18,6 +18,7 @@ from typing import Any, Dict, Iterator, Optional, Sequence
 import numpy as np
 
 from .box3d import Boxes3D
+from .pipelines import sample_stream
 
 
 def compute_time_diff(img_timestamp: np.ndarray, num_views: int = 6) -> np.ndarray:
@@ -107,7 +108,14 @@ class ShardedGroupSampler:
 
 
 class DataLoader:
-    """Threaded prefetching loader yielding collated numpy batches."""
+    """Threaded prefetching loader yielding collated numpy batches.
+
+    On one thread the pipeline draws from numpy's global RNG in the
+    sampler's order, as the JAX loader does. On more threads each sample
+    draws from its own stream, seeded by one global draw a sample in the
+    sampler's order before the sample is handed to a thread
+    (``pipelines.sample_stream``): the threads would otherwise take the
+    global draws in whatever order they run, and two runs would differ."""
 
     def __init__(self, dataset, batch_size: int = 1,
                  sampler: Optional[ShardedGroupSampler] = None,
@@ -137,8 +145,18 @@ class DataLoader:
         pool = ThreadPoolExecutor(max_workers=self.num_workers)
         pending: "queue.Queue" = queue.Queue()
 
+        def load(i, seed):
+            with sample_stream(seed):
+                return self.dataset[i]
+
         def submit(batch_idx):
-            futures = [pool.submit(self.dataset.__getitem__, i) for i in batch_idx]
+            if self.num_workers == 1:
+                futures = [pool.submit(self.dataset.__getitem__, i)
+                           for i in batch_idx]
+            else:
+                futures = [pool.submit(load, i,
+                                       np.random.randint(0, 2 ** 31 - 1))
+                           for i in batch_idx]
             pending.put(futures)
 
         try:

@@ -12,14 +12,17 @@ Re-provides the reference's pipeline surface:
 Images stay raw BGR float32 on host; normalization/photometric aug run on
 device in the detector (mirroring the reference's GPU-side aug,
 models/sparsebev.py:72-95). CPU variants are provided for config parity.
-Every random draw comes from numpy's global RNG, in the JAX package's call
-order, so under the same ``np.random.seed`` a sample equals the JAX
-package's bit for bit.
+Every random draw comes from :func:`random_state`: numpy's global RNG, in
+the JAX package's call order, so under the same ``np.random.seed`` a sample
+equals the JAX package's bit for bit; or, where the loader runs samples on
+more than one thread, the sample's own stream (:func:`sample_stream`).
 """
 
 from __future__ import annotations
 
+import contextlib
 import os
+import threading
 from typing import Any, Dict, Sequence
 
 import numpy as np
@@ -27,6 +30,28 @@ import numpy as np
 from ..ops.geometry import compose_lidar2img
 from ..registry import PIPELINES
 from .box3d import Boxes3D
+
+_LOCAL = threading.local()
+
+
+def random_state() -> np.random.RandomState:
+    """The stream this thread's pipeline steps draw from: the sample's own
+    inside :func:`sample_stream`, numpy's global one (``np.random.seed``)
+    otherwise."""
+    rng = getattr(_LOCAL, "rng", None)
+    return np.random.mtrand._rand if rng is None else rng
+
+
+@contextlib.contextmanager
+def sample_stream(seed: int):
+    """Draw this thread's pipeline steps from ``RandomState(seed)`` for the
+    duration (a loader thread, one sample)."""
+    _LOCAL.rng = np.random.RandomState(seed)
+    try:
+        yield
+    finally:
+        _LOCAL.rng = None
+
 
 CAM_TYPES = [
     "CAM_FRONT", "CAM_FRONT_RIGHT", "CAM_FRONT_LEFT",
@@ -185,7 +210,7 @@ class LoadMultiViewImageFromMultiSweeps(_SweepLoaderBase):
         else:
             max_int = min(len(prev) // self.sweeps_num, self.TRAIN_INTERVAL[1])
             min_int = min(max_int, self.TRAIN_INTERVAL[0])
-            interval = np.random.randint(min_int, max_int + 1)
+            interval = random_state().randint(min_int, max_int + 1)
             choices = [(k + 1) * interval - 1 for k in range(self.sweeps_num)]
 
         self._pick(prev, choices, results,
@@ -207,7 +232,8 @@ class LoadMultiViewImageFromMultiSweepsFuture(_SweepLoaderBase):
     def _interval(self):
         if self.test_mode:
             return self.TEST_INTERVAL
-        return np.random.randint(self.TRAIN_INTERVAL[0], self.TRAIN_INTERVAL[1] + 1)
+        return random_state().randint(self.TRAIN_INTERVAL[0],
+                                      self.TRAIN_INTERVAL[1] + 1)
 
     def __call__(self, results):
         if self.prev_sweeps_num == 0 and self.next_sweeps_num == 0:
@@ -241,8 +267,8 @@ class LoadMultiViewImageFromMultiSweepsFutureInterleave(_SweepLoaderBase):
         if self.prev_sweeps_num == 0 and self.next_sweeps_num == 0:
             return results
         interval = (self.TEST_INTERVAL if self.test_mode else
-                    np.random.randint(self.TRAIN_INTERVAL[0],
-                                      self.TRAIN_INTERVAL[1] + 1))
+                    random_state().randint(self.TRAIN_INTERVAL[0],
+                                           self.TRAIN_INTERVAL[1] + 1))
 
         halves = []
         for key, num in (("prev", self.prev_sweeps_num),
@@ -333,14 +359,15 @@ class RandomTransformImage:
         h, w = self.conf["H"], self.conf["W"]
         fh, fw = self.conf["final_dim"]
         if self.training:
-            resize = np.random.uniform(*self.conf["resize_lim"])
+            rng = random_state()
+            resize = rng.uniform(*self.conf["resize_lim"])
             dims = (int(w * resize), int(h * resize))
             nw, nh = dims
-            crop_h = int((1 - np.random.uniform(*self.conf["bot_pct_lim"])) * nh) - fh
-            crop_w = int(np.random.uniform(0, max(0, nw - fw)))
+            crop_h = int((1 - rng.uniform(*self.conf["bot_pct_lim"])) * nh) - fh
+            crop_w = int(rng.uniform(0, max(0, nw - fw)))
             crop = (crop_w, crop_h, crop_w + fw, crop_h + fh)
-            flip = bool(self.conf["rand_flip"] and np.random.choice([0, 1]))
-            rotate = np.random.uniform(*self.conf["rot_lim"])
+            flip = bool(self.conf["rand_flip"] and rng.choice([0, 1]))
+            rotate = rng.uniform(*self.conf["rot_lim"])
         else:
             resize = max(fh / h, fw / w)
             dims = (int(w * resize), int(h * resize))
@@ -448,7 +475,7 @@ class GlobalRotScaleTransImage:
         self.scale_ratio_range = scale_ratio_range
 
     def __call__(self, results):
-        angle = np.random.uniform(*self.rot_range)
+        angle = random_state().uniform(*self.rot_range)
         c, s = np.cos(angle), np.sin(angle)
         rot = np.array([[c, -s, 0, 0], [s, c, 0, 0],
                         [0, 0, 1, 0], [0, 0, 0, 1]], np.float64)
@@ -458,7 +485,7 @@ class GlobalRotScaleTransImage:
             for m in results["lidar2img"]]
         results["gt_bboxes_3d"].rotate(angle)
 
-        scale = np.random.uniform(*self.scale_ratio_range)
+        scale = random_state().uniform(*self.scale_ratio_range)
         sc_inv = np.diag([1 / scale, 1 / scale, 1 / scale, 1.0])
         results["lidar2img"] = [
             (np.asarray(m, np.float64) @ sc_inv).astype(np.float32)
@@ -557,7 +584,7 @@ class PhotoMetricDistortionMultiViewImage:
         return results
 
     def __call__(self, results):
-        seed = np.random.randint(0, 2 ** 31 - 1)
+        seed = random_state().randint(0, 2 ** 31 - 1)
         return self.apply(results, self.draw(len(results["img"]), seed))
 
 

@@ -7,8 +7,15 @@ The JAX loop jits ``model.apply`` + ``coder.decode``; here the forward is
 model's device, then the coder's decode, and the decoded arrays come back
 to the host. The metas, ``gt_*``, ``ego_frame`` and ``gt_num_pts`` stay on
 the host for the evaluator. Tail batches are padded to the first batch's
-size (and masked out of the evaluator), as in JAX. The JAX loop's ``mesh``
-(data parallelism over devices) is not ported: a mesh raises.
+size (and masked out of the evaluator), as in JAX.
+
+Data parallelism (the JAX loop's ``mesh``): with a ``group`` of more than
+one rank, each rank evaluates its shard of the split (a loader built with
+``shard_id`` = its rank, ``num_shards`` = the group's size and no shuffle:
+rank r's j-th sample is the split's sample ``j * n + r``), the decoded
+samples are gathered to rank 0, which drops the sampler's padding and
+feeds the evaluator in the split's order, so its metrics and results are
+the single process's. The other ranks return ``(None, {})``.
 
 Used by ``tools/val.py`` and the training-time ``EvalHook`` (the reference
 registers DistEvalHook at interval=total_epochs, train.py:154-158).
@@ -48,19 +55,25 @@ def decoded_to_host(dec: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
     return {k: v.cpu().numpy() for k, v in dec.items()}
 
 
-def run_offline_eval(model, coder, dataset, loader, mesh=None):
+def _sample_record(batch, i, res):
+    """What the evaluator needs of sample ``i`` of ``batch``: its decoded
+    arrays and its ground truth, as a one-sample batch."""
+    keep = ("gt_boxes", "gt_labels", "gt_mask", "ego_frame", "gt_num_pts")
+    return res, {k: batch[k][i:i + 1] for k in keep if k in batch}
+
+
+def run_offline_eval(model, coder, dataset, loader, group=None):
     """``model``: a ``SparseBEV`` holding its weights, on the device the
-    forward runs on. Returns ``(metrics dict or None, results_per_sample
-    dict)``."""
+    forward runs on. ``group``: the process group of a data-parallel
+    evaluation (module docstring; None or one rank: this process alone).
+    Returns ``(metrics dict or None, results_per_sample dict)``."""
+    from ..parallel import gather_results, rank, world_size
     from .metrics import NuScenesDetectionEvaluator
 
-    if mesh is not None:
-        raise NotImplementedError(
-            "data-parallel evaluation over a device mesh is not ported yet "
-            "(ROADMAP Queue 1 item 12); run without a mesh on one card")
     device = next(model.parameters()).device
-    evaluator = NuScenesDetectionEvaluator(classes=dataset.classes)
-    results_per_sample = {}
+    shards = world_size(group)
+    me = rank(group)
+    records = []    # (position in the split, token, result, gt)
     n_done = 0
     static_bs = None
     for batch in loader:
@@ -79,11 +92,22 @@ def run_offline_eval(model, coder, dataset, loader, mesh=None):
             preds = model(*inputs, train=False)
             dec = decoded_to_host(coder.decode(preds))
         for i, meta in enumerate(metas):
-            token = meta.get("sample_idx") or f"sample_{n_done}"
+            pos = n_done * shards + me
+            token = meta.get("sample_idx") or f"sample_{pos}"
             res = {k: v[i] for k, v in dec.items()}
-            results_per_sample[token] = res
-            add_batch_sample(evaluator, batch, i, res, token)
+            records.append((pos, token) + _sample_record(batch, i, res))
             n_done += 1
 
+    if shards > 1:
+        gathered = gather_results(records, group)
+        if gathered is None:
+            return None, {}
+        records = sorted((r for part in gathered for r in part
+                          if r[0] < len(dataset)), key=lambda r: r[0])
+    evaluator = NuScenesDetectionEvaluator(classes=dataset.classes)
+    results_per_sample = {}
+    for _, token, res, gt in records:
+        results_per_sample[token] = res
+        add_batch_sample(evaluator, gt, 0, res, token)
     metrics = evaluator.evaluate() if evaluator._num_samples > 0 else None
     return metrics, results_per_sample

@@ -12,6 +12,20 @@ The decoder reads the ring through a [T]-slot indirection (``ring_packed``),
 so history frames are never copied or re-packed. Slots are handed out FIFO
 (evict at ``cache_size`` frames) and a frame of the sample being assembled
 is never evicted.
+
+Chunk-split rings (the head's ``table_split``, :func:`ring_table_splits`)
+keep a split level as separate chunk buffers of ``T / split`` slots each.
+As in JAX, split mode holds exactly ``T`` slots (``cache_size =
+num_frames``) and makes every sample's slot list a bijection onto them: a
+frame that fills two positions of the window (the loader repeats the
+keyframe at a sequence start) gets its rows copied into a free slot
+(:meth:`StreamingDetector._dedupe_slots`, ``ring_copy_slot``), so the slot
+lists are the JAX detector's, slot for slot.
+
+``query_group`` (the JAX detector's ``mesh``): the head runs query-sharded
+over the group's ranks (``parallel/query_parallel.py``); each rank holds
+the whole ring and runs the backbone, and every rank returns all the
+predictions.
 """
 
 from __future__ import annotations
@@ -23,7 +37,8 @@ from typing import List
 import numpy as np
 import torch
 
-from .ops.msmv_sampling import E4M3, ring_init, ring_packed, ring_update
+from .ops.msmv_sampling import (E4M3, ring_copy_slot, ring_init, ring_packed,
+                                ring_update)
 from .utils.device import resolve_device
 
 
@@ -37,17 +52,42 @@ def ring_table_dtypes(model, frame_packed):
     return tuple(E4M3 if s else base for s in model.pts_bbox_head.table_fp8)
 
 
+def ring_table_splits(model, frame_packed, num_frames: int):
+    """Per-level chunk counts of the streaming ring
+    (``sparsebev_tpu/inference.py::ring_table_splits`` :85): the head's
+    ``table_split``, one int a level (1: unsplit). A split must divide the
+    frame window (``ValueError`` otherwise, as in JAX)."""
+    spec = model.pts_bbox_head.table_split
+    if len(spec) != len(frame_packed.level_shapes):
+        raise ValueError(f"table_split={spec} does not have one entry per "
+                         "level")
+    for sp in spec:
+        if sp > 1 and num_frames % sp:
+            raise ValueError(
+                f"table_split={spec} must divide num_frames={num_frames}")
+    return spec
+
+
 class StreamingDetector:
     def __init__(self, model, num_frames: int, coder=None,
-                 cache_size: int = 16, num_views: int = 6, device=None):
+                 cache_size: int = 16, num_views: int = 6, device=None,
+                 query_group=None):
         """``model``: a ``SparseBEV``; it is moved to ``device`` (CUDA unless
-        the caller passes ``device="cpu"``) and put in eval mode."""
+        the caller passes ``device="cpu"``) and put in eval mode.
+        ``query_group``: a process group over which the head runs
+        query-sharded (None: unsharded; the JAX detector's ``mesh``)."""
         self.device = resolve_device(device)
         self.model = model.to(self.device).eval()
         self.num_frames = num_frames
         self.num_views = num_views
         self.coder = coder
         self.cache_size = max(cache_size, num_frames)
+        self.query_group = query_group
+        self._split_mode = any(s > 1 for s in model.pts_bbox_head.table_split)
+        if self._split_mode:
+            # the split gather's chunk partition needs every ring slot to
+            # belong to the current sample (JAX :254-261)
+            self.cache_size = num_frames
         # key -> ring slot, insertion-ordered (FIFO evict)
         self.slot_of_key: "OrderedDict[str, int]" = OrderedDict()
         # key -> (device tensor, event) from prefetch_upload
@@ -58,6 +98,7 @@ class StreamingDetector:
         self.frames_reused = 0
         self._meta = None   # single-frame PackedFeatures geometry
         self._upload_stream = None
+        self.last_slots = None  # the ring slots of the last sample's frames
 
     def _slot_for_new_frame(self, protected) -> int:
         used = set(self.slot_of_key.values())
@@ -68,6 +109,36 @@ class StreamingDetector:
             if victim not in protected:
                 return self.slot_of_key.pop(victim)
         raise RuntimeError("ring cache smaller than the frame window")
+
+    def _dedupe_slots(self, slots, protected):
+        """Make the sample's [T] slot list a bijection onto ring slots (JAX
+        ``_dedupe_slots`` :312-344): each repeated slot after its first
+        occurrence gets its frame's rows copied into the lowest free slot,
+        or into the slot of the oldest cached frame outside the window,
+        which is evicted. Alias slots are not cached, so later frames may
+        take them."""
+        seen, out = set(), []
+        used = set(self.slot_of_key.values())
+        free = [s for s in range(self.cache_size) if s not in used]
+        for s in slots:
+            if s not in seen:
+                seen.add(s)
+                out.append(s)
+                continue
+            if free:
+                dst = free.pop(0)
+            else:
+                for victim in self.slot_of_key:
+                    if victim not in protected:
+                        dst = self.slot_of_key.pop(victim)
+                        break
+                else:
+                    raise RuntimeError(
+                        "ring cache smaller than the frame window")
+            ring_copy_slot(self.ring, self._meta, s, dst)
+            seen.add(dst)
+            out.append(dst)
+        return out
 
     def _ensure_frame(self, key: str, frame_imgs_fn, protected) -> int:
         """frame_imgs_fn: () -> [1, N, H, W, 3] device tensor (lazy, so a
@@ -81,7 +152,9 @@ class StreamingDetector:
             self._meta = fp.meta(
                 gsplit=self.model.pts_bbox_head.table_gsplit)
             self.ring = ring_init(fp, self.cache_size,
-                                  ring_table_dtypes(self.model, fp))
+                                  ring_table_dtypes(self.model, fp),
+                                  ring_table_splits(self.model, fp,
+                                                    self.cache_size))
         slot = self._slot_for_new_frame(protected)
         ring_update(self.ring, fp, slot)
         self.slot_of_key[key] = slot
@@ -121,12 +194,16 @@ class StreamingDetector:
 
         slots = [self._ensure_frame(keys[i], upload(i), protected)
                  for i in range(t)]
+        if self._split_mode and len(set(slots)) < t:
+            slots = self._dedupe_slots(slots, protected)
+        self.last_slots = slots
         packed = ring_packed(self.ring,
                              torch.tensor(slots, device=self.device),
                              t, self._meta)
         preds = self.model.forward_head(
             packed, torch.as_tensor(np.asarray(lidar2img), device=self.device),
-            torch.as_tensor(np.asarray(time_diff), device=self.device), h, w)
+            torch.as_tensor(np.asarray(time_diff), device=self.device), h, w,
+            query_group=self.query_group)
         if self.coder is not None:
             return self.coder.decode(preds)
         return preds

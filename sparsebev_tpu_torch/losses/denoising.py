@@ -104,10 +104,12 @@ def compute_dn_loss(dn_cls_scores: torch.Tensor, dn_bbox_preds: torch.Tensor,
                     gt_mask: torch.Tensor, num_classes: int,
                     code_weights: Sequence[float], groups: int = 10,
                     dn_weight: float = 1.0, loss_cls_weight: float = 2.0,
-                    loss_bbox_weight: float = 0.25) -> Dict[str, torch.Tensor]:
+                    loss_bbox_weight: float = 0.25,
+                    reduce=None) -> Dict[str, torch.Tensor]:
     """Reconstruction loss on the DN slots. Targets are the ORIGINAL
     (un-noised) boxes and labels, tiled over the groups; slot (g, i) is
-    supervised iff gt i is valid."""
+    supervised iff gt i is valid. ``reduce`` sums the normalizer over the
+    ranks of a data-parallel step (see ``compute_detection_loss``)."""
     num_layers, b, dn, _ = dn_cls_scores.shape
     m = gt_labels.shape[1]
     if dn != groups * m:
@@ -121,7 +123,10 @@ def compute_dn_loss(dn_cls_scores: torch.Tensor, dn_bbox_preds: torch.Tensor,
     tgt_labels = torch.where(tgt_mask, gt_labels.long().repeat(1, groups),
                              torch.full((b, dn), num_classes,
                                         dtype=torch.int64, device=dev))
-    num_tgt = torch.clamp(tgt_mask.sum().float(), min=1.0)
+    num_tgt = tgt_mask.sum().float()
+    if reduce is not None:
+        num_tgt = reduce(num_tgt)
+    num_tgt = torch.clamp(num_tgt, min=1.0)
     w = tgt_mask[..., None].float() * cw
 
     out: Dict[str, torch.Tensor] = {}

@@ -45,21 +45,28 @@ def compute_detection_loss(all_cls_scores: torch.Tensor,
                            loss_cls_weight: float = 2.0,
                            loss_bbox_weight: float = 0.25,
                            cls_cost_weight: float = 2.0,
-                           reg_cost_weight: float = 0.25
-                           ) -> Dict[str, torch.Tensor]:
+                           reg_cost_weight: float = 0.25,
+                           reduce=None) -> Dict[str, torch.Tensor]:
     """all_cls_scores ``[L, B, Q, C]``; all_bbox_preds ``[L, B, Q, 10]``
     (normalized layout, world coordinates); gt_boxes ``[B, M, 9]`` world
     (gravity-centered); gt_labels ``[B, M]``; gt_mask ``[B, M]`` bool.
     Returns ``loss_cls`` / ``loss_bbox`` (the last layer) and
     ``d{i}.loss_cls`` / ``d{i}.loss_bbox`` for the layers before it. All L
-    layers are matched in one call of the matcher (one host round trip)."""
+    layers are matched in one call of the matcher (one host round trip).
+    ``reduce`` (data parallelism): sums the count of valid boxes over the
+    ranks, so the normalizer is the global batch's, as in the JAX step
+    over a sharded batch; each rank's loss is then its share of the global
+    loss."""
     num_layers, b, q, _ = all_cls_scores.shape
     dev = all_cls_scores.device
     cw = torch.tensor(code_weights, dtype=torch.float32, device=dev)
     gt_labels = gt_labels.long()
     gt_boxes = _sanitize_gt(gt_boxes, gt_mask)
     norm_gt = normalize_bbox(gt_boxes)                          # [B, M, 10]
-    num_pos = torch.clamp(gt_mask.sum().float(), min=1.0)
+    num_pos = gt_mask.sum().float()
+    if reduce is not None:
+        num_pos = reduce(num_pos)
+    num_pos = torch.clamp(num_pos, min=1.0)
 
     with torch.no_grad():
         cost = matching_cost(all_cls_scores.detach().float(),

@@ -60,21 +60,29 @@ class SparseBEVSelfAttention(nn.Module):
         self.attention = MultiheadAttention(embed_dims, num_heads)
 
     def forward(self, query_bbox, query_feat, pre_attn_mask=None,
-                deterministic: bool = True):
+                deterministic: bool = True, queries=None):
+        """``queries`` (a ``parallel.query_parallel.QueryShard``): this
+        rank's queries of a sharded head; they attend over every rank's
+        queries, whose centres, keys and values are gathered, and the
+        denoising mask's rows are sliced to them."""
         b, q, _ = query_bbox.shape
         # pairwise BEV center distances; no gradient to the boxes
         centers = decode_bbox(query_bbox.detach(),
                               self.pc_range)[..., :2].float()
-        diff = centers[:, :, None, :] - centers[:, None, :, :]
-        dist = -torch.sqrt((diff * diff).sum(-1))                 # [B, Q, Q]
+        keys = centers if queries is None else queries.gather(centers, 1)
+        diff = centers[:, :, None, :] - keys[:, None, :, :]
+        dist = -torch.sqrt((diff * diff).sum(-1))                 # [B, Q, K]
         tau = self.gen_tau(query_feat).float().permute(0, 2, 1)   # [B, H, Q]
-        attn_mask = dist[:, None, :, :] * tau[..., None]          # [B,H,Q,Q]
+        attn_mask = dist[:, None, :, :] * tau[..., None]          # [B,H,Q,K]
         if pre_attn_mask is not None:   # query denoising group isolation
+            if queries is not None:
+                pre_attn_mask = pre_attn_mask[queries.lo:queries.hi]
             attn_mask = attn_mask.masked_fill(pre_attn_mask[None, None],
                                               float("-inf"))
         return self.attention(
-            query_feat, attn_mask=attn_mask.reshape(b * self.num_heads, q, q),
-            deterministic=deterministic)
+            query_feat, attn_mask=attn_mask.reshape(
+                b * self.num_heads, q, keys.shape[1]),
+            deterministic=deterministic, queries=queries)
 
 
 class SparseBEVSampling(nn.Module):
@@ -221,14 +229,18 @@ class SparseBEVTransformerDecoderLayer(nn.Module):
 
     def forward(self, query_bbox, query_feat, packed, lidar2img, time_diff,
                 image_h, image_w, with_cls: bool = True, attn_mask=None,
-                deterministic: bool = True, remat: bool = False):
+                deterministic: bool = True, remat: bool = False,
+                queries=None):
         """One iteration; ``remat`` runs it as the two checkpointed regions
-        of the module docstring."""
+        of the module docstring. ``queries``: this rank's range of a
+        query-sharded head (see :class:`SparseBEVSelfAttention`)."""
         attend = functools.partial(self._attend, image_h=image_h,
                                    image_w=image_w, attn_mask=attn_mask,
-                                   deterministic=deterministic)
+                                   deterministic=deterministic,
+                                   queries=queries)
         refine = functools.partial(self._refine, with_cls=with_cls,
-                                   deterministic=deterministic)
+                                   deterministic=deterministic,
+                                   queries=queries)
         if remat:
             gen = dropout_generator(self)
             query_feat, loc, sw = checkpoint_with_generator(
@@ -245,22 +257,22 @@ class SparseBEVTransformerDecoderLayer(nn.Module):
         return refine(query_bbox, query_feat, sampled, time_diff)
 
     def _attend(self, query_bbox, query_feat, lidar2img, time_diff, image_h,
-                image_w, attn_mask, deterministic):
+                image_w, attn_mask, deterministic, queries):
         """pos-MLP -> SASA -> the sampling operands."""
         cdt = query_feat.dtype
         query_feat = query_feat + self.position_encoder(
             query_bbox[..., :3].to(cdt))
         query_feat = self.norm1(self.self_attn(
-            query_bbox, query_feat, attn_mask, deterministic))
+            query_bbox, query_feat, attn_mask, deterministic, queries))
         loc, sw = self.sampling(query_bbox, query_feat, lidar2img, time_diff,
                                 image_h, image_w)
         return query_feat, loc, sw
 
     def _refine(self, query_bbox, query_feat, sampled, time_diff, with_cls,
-                deterministic):
+                deterministic, queries):
         """mixing -> FFN -> cls / reg branches -> refine."""
         query_feat = self.norm2(self.mixing(sampled, query_feat))
-        query_feat = self.norm3(self.ffn(query_feat, deterministic))
+        query_feat = self.norm3(self.ffn(query_feat, deterministic, queries))
 
         # at inference the decoder skips the cls branch on all but the last
         # layer: only the last layer's classification is ever decoded
@@ -288,10 +300,13 @@ class SparseBEVTransformerDecoder(nn.Module):
         self.decoder_layer = SparseBEVTransformerDecoderLayer(**layer_kwargs)
 
     def forward(self, query_bbox, query_feat, packed, lidar2img, time_diff,
-                image_h, image_w, attn_mask=None, deterministic: bool = True):
+                image_h, image_w, attn_mask=None, deterministic: bool = True,
+                queries=None):
         """Returns (cls_scores [L, B, Q, classes], bbox_preds [L, B, Q, 10]).
         At inference (``deterministic``) the first L-1 cls slots hold -1e4
-        ("no object": sigmoid ~ 0); in training every layer classifies."""
+        ("no object": sigmoid ~ 0); in training every layer classifies.
+        ``queries``: this rank's range of a query-sharded head (the boxes
+        and features given are that range's; so are the outputs)."""
         bbox_preds, cls_scores = [], []
         last = self.num_layers - 1
         remat = self.with_cp and not deterministic and torch.is_grad_enabled()
@@ -300,7 +315,7 @@ class SparseBEVTransformerDecoder(nn.Module):
                 query_bbox, query_feat, packed, lidar2img, time_diff,
                 image_h, image_w, with_cls=(not deterministic or i == last),
                 attn_mask=attn_mask, deterministic=deterministic,
-                remat=remat)
+                remat=remat, queries=queries)
             query_bbox = bbox_pred.detach()
             bbox_preds.append(bbox_pred)
             cls_scores.append(cls_score)

@@ -174,18 +174,22 @@ class SparseBEV(nn.Module):
 
     def forward(self, img: torch.Tensor, lidar2img: torch.Tensor,
                 time_diff: torch.Tensor, dn_inputs: Optional[dict] = None,
-                train: bool = False, aug_draws: Optional[dict] = None):
+                train: bool = False, aug_draws: Optional[dict] = None,
+                query_group=None):
         """Full forward. img: ``[B, T*6, H, W, 3]`` raw BGR; lidar2img
         ``[B, T*6, 4, 4]``; time_diff ``[B, T]``. ``train`` turns on the
         augmentations, dropout and the per-layer classification;
         ``aug_draws`` (``photometric``, ``grid_mask``) replaces the draws of
-        ``aug_generator``. Returns the head's prediction dict."""
+        ``aug_generator``; ``query_group`` shards the head's queries over a
+        group (``SparseBEVHead.forward``). Returns the head's prediction
+        dict."""
         img = self.preprocess(img, train, aug_draws)
         image_h, image_w = img.shape[2], img.shape[3]
         feats = self.extract_feat(img, train, aug_draws)
         return self.pts_bbox_head(feats, lidar2img, time_diff, image_h,
                                   image_w, dn_inputs=dn_inputs,
-                                  deterministic=not train)
+                                  deterministic=not train,
+                                  query_group=query_group)
 
     def forward_frame_packed(self, img: torch.Tensor):
         """Extract ONE frame's pyramid and pack it into grouped sampling
@@ -197,9 +201,9 @@ class SparseBEV(nn.Module):
                                        yfold=head.table_yfold)
 
     def forward_head(self, packed, lidar2img, time_diff, image_h: int,
-                     image_w: int):
+                     image_w: int, query_group=None):
         return self.pts_bbox_head(packed, lidar2img, time_diff, image_h,
-                                  image_w)
+                                  image_w, query_group=query_group)
 
 
 def _model_kwargs(cfg) -> Dict[str, Any]:

@@ -15,6 +15,7 @@ import torch
 from torch import nn
 
 from ..ops.msmv_sampling import PackedFeatures, pack_mlvl_feats_grouped
+from ..parallel.query_parallel import QueryShard, constrain_preds
 from .decoder import SparseBEVTransformer
 
 
@@ -24,11 +25,18 @@ def _per_level(spec, n):
 
 def check_table_options(num_levels: int, table_yfold=True, table_fp8=False,
                         table_split=1, table_gsplit=False,
-                        table_gsplit_pack=False) -> None:
-    """Accept per-level table modes (``table_yfold``), fp8 streaming rings
-    (``table_fp8``, a bool or one flag a level) and the group-split
-    options; refuse chunk-split rings (``table_split > 1``), not ported
-    yet."""
+                        table_gsplit_pack=False,
+                        num_frames: Optional[int] = None) -> None:
+    """Check the per-level table modes (``table_yfold``), fp8 streaming
+    rings (``table_fp8``), chunk-split streaming rings (``table_split``, an
+    int or one entry a level) and the group-split options. A split above 1
+    raises the JAX package's ``ValueError``s (``inference.py::
+    ring_table_splits`` :85, ``ops/msmv_sampling.py::ring_init`` :376-398,
+    ``_yfold_forward`` :1026) when it does not divide ``num_frames`` (the
+    split ring's slot count), when its level is not y-fold and when its
+    level is also group-split. (A ring that mixes split and group-split levels
+    fails where JAX's forward asserts it, when the streaming ring is
+    viewed: ``PackedFeatures``.)"""
     for name, spec in (("table_yfold", table_yfold),
                        ("table_fp8", table_fp8),
                        ("table_split", table_split),
@@ -37,10 +45,22 @@ def check_table_options(num_levels: int, table_yfold=True, table_fp8=False,
         if len(_per_level(spec, num_levels)) != num_levels:
             raise ValueError(f"{name}={spec!r} does not have one entry per "
                              f"level ({num_levels} levels)")
-    if any(int(s) != 1 for s in _per_level(table_split, num_levels)):
-        raise NotImplementedError(
-            "table_split > 1 (chunk-split streaming rings) is not ported yet "
-            "(ROADMAP Queue 1 entry 1, table_split)")
+    splits = tuple(int(s) for s in _per_level(table_split, num_levels))
+    yfold = _per_level(table_yfold, num_levels)
+    gsplit = _per_level(table_gsplit, num_levels)
+    for sp, yf, gs in zip(splits, yfold, gsplit):
+        if sp < 1:
+            raise ValueError(f"table_split={table_split!r} must be positive")
+        if sp == 1:
+            continue
+        if num_frames is not None and num_frames % sp:
+            raise ValueError(f"table_split={splits} must divide "
+                             f"num_frames={num_frames}")
+        if not yf:
+            raise ValueError("table_split requires a yfold level")
+        if gs:
+            raise ValueError("table_split and table_gsplit are mutually "
+                             "exclusive per level")
 
 
 class SparseBEVHead(nn.Module):
@@ -59,7 +79,7 @@ class SparseBEVHead(nn.Module):
                  table_gsplit=False, table_gsplit_pack=False):
         super().__init__()
         check_table_options(num_levels, table_yfold, table_fp8, table_split,
-                            table_gsplit, table_gsplit_pack)
+                            table_gsplit, table_gsplit_pack, num_frames)
         self.num_classes = num_classes
         self.in_channels = in_channels
         self.num_query = num_query
@@ -79,6 +99,9 @@ class SparseBEVHead(nn.Module):
                                _per_level(table_fp8, num_levels))
         self.table_gsplit = tuple(bool(v) for v in
                                   _per_level(table_gsplit, num_levels))
+        # chunks a level of the streaming ring (inference.ring_table_splits)
+        self.table_split = tuple(int(v) for v in
+                                 _per_level(table_split, num_levels))
         self.table_gsplit_pack = tuple(bool(v) for v in
                                        _per_level(table_gsplit_pack,
                                                   num_levels))
@@ -111,7 +134,7 @@ class SparseBEVHead(nn.Module):
 
     def forward(self, mlvl_feats, lidar2img, time_diff, image_h: int,
                 image_w: int, dn_inputs: Optional[dict] = None,
-                deterministic: bool = True):
+                deterministic: bool = True, query_group=None):
         """mlvl_feats: ring or frame tables (``PackedFeatures``, B' = B*T*G
         slices) or the raw pyramids, a list of ``[B, T*N, H, W, C]``, packed
         here once for all decoder layers; lidar2img [B, T*N, 4, 4];
@@ -121,7 +144,10 @@ class SparseBEVHead(nn.Module):
         (True = blocked), optionally ``dn_mask`` [B, DN]. Returns the dict
         ``all_cls_scores [L, B, Q, classes]``, ``all_bbox_preds
         [L, B, Q, 10]`` and, when denoising, ``dn_cls_scores`` /
-        ``dn_bbox_preds [L, B, DN, ...]``."""
+        ``dn_bbox_preds [L, B, DN, ...]``. ``query_group`` (a process
+        group; None: unsharded): this rank runs its range of the DN + Q
+        queries through the decoder and the predictions are
+        gathered over the group, so every rank returns all of them."""
         if isinstance(mlvl_feats, PackedFeatures):
             packed = mlvl_feats
             b = packed.batch // (self.num_frames * self.num_groups)
@@ -156,10 +182,19 @@ class SparseBEVHead(nn.Module):
             query_feat = torch.cat([dn_feat.to(query_feat.dtype), query_feat],
                                    dim=1)
 
+        queries = None
+        if query_group is not None:
+            queries = QueryShard(query_group, query_bbox.shape[1])
+            query_bbox = query_bbox[:, queries.lo:queries.hi]
+            query_feat = query_feat[:, queries.lo:queries.hi]
         cls_scores, bbox_preds = self.transformer(
             query_bbox, query_feat, packed, lidar2img.float(),
             time_diff.float(), image_h, image_w, attn_mask=attn_mask,
-            deterministic=deterministic)
+            deterministic=deterministic, queries=queries)
+        if queries is not None:
+            gathered = constrain_preds({"cls": cls_scores, "box": bbox_preds},
+                                       queries)
+            cls_scores, bbox_preds = gathered["cls"], gathered["box"]
 
         # query layout -> normalized layout: xyz to world, reorder
         pc = torch.tensor(self.pc_range, dtype=bbox_preds.dtype,

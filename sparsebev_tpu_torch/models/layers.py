@@ -88,12 +88,22 @@ class Dropout(nn.Module):
         self.p = p
         self.generator: Optional[torch.Generator] = None
 
-    def forward(self, x, deterministic: bool = True):
+    def forward(self, x, deterministic: bool = True, queries=None,
+                dim: int = 1):
+        """``queries`` (a query-sharded head's ``QueryShard``, ``x`` holding
+        its rows along ``dim``): the mask is drawn for every query and this
+        rank's rows are kept, so each rank applies the unsharded run's
+        mask."""
         if deterministic or self.p == 0.0:
             return x
         keep = 1.0 - self.p
-        mask = torch.rand(x.shape, generator=self.generator,
+        shape = list(x.shape)
+        if queries is not None:
+            shape[dim] = queries.total
+        mask = torch.rand(shape, generator=self.generator,
                           device=x.device) < keep
+        if queries is not None:
+            mask = mask.narrow(dim, queries.lo, x.shape[dim])
         return x * mask.to(x.dtype) / keep
 
 
@@ -213,7 +223,11 @@ class MultiheadAttention(nn.Module):
         self.attn_drop = Dropout(dropout)
         self.proj_drop = Dropout(dropout)
 
-    def forward(self, query, attn_mask=None, deterministic: bool = True):
+    def forward(self, query, attn_mask=None, deterministic: bool = True,
+                queries=None):
+        """``queries`` (a query-sharded head's ``QueryShard``): ``query``
+        holds this rank's rows, which attend over every rank's keys and
+        values (gathered); ``attn_mask`` is then ``[B*H, Q_rank, K]``."""
         c, h = self.embed_dims, self.num_heads
         hd = c // h
         b, q_len, _ = query.shape
@@ -223,6 +237,9 @@ class MultiheadAttention(nn.Module):
         qkv = F.linear(query, w, bias)                        # [B, Q, 3C]
         qh, kh, vh = (t.reshape(b, q_len, h, hd).transpose(1, 2)
                       for t in qkv.split(c, dim=-1))          # [B, H, Q, hd]
+        if queries is not None:
+            kh, vh = queries.gather(kh, 2), queries.gather(vh, 2)  # K rows
+        k_len = kh.shape[2]
         logits = torch.matmul(qh.float(), kh.float().transpose(-1, -2))
         logits = logits / math.sqrt(hd)
         if attn_mask is not None:
@@ -232,11 +249,13 @@ class MultiheadAttention(nn.Module):
                                        attn_mask, float("-inf"))
             else:
                 bias = attn_mask.float()
-            logits = logits + bias.reshape(b, h, q_len, q_len)
-        attn = self.attn_drop(torch.softmax(logits, dim=-1), deterministic)
+            logits = logits + bias.reshape(b, h, q_len, k_len)
+        attn = self.attn_drop(torch.softmax(logits, dim=-1), deterministic,
+                              queries, dim=2)
         out = torch.matmul(attn.to(query.dtype), vh)          # [B, H, Q, hd]
         out = out.transpose(1, 2).reshape(b, q_len, c)
-        return query + self.proj_drop(core.out_proj(out), deterministic)
+        return query + self.proj_drop(core.out_proj(out), deterministic,
+                                      queries)
 
 
 class FFN(nn.Module):
@@ -252,7 +271,7 @@ class FFN(nn.Module):
         self.drop1 = Dropout(ffn_drop)
         self.drop2 = Dropout(ffn_drop)
 
-    def forward(self, x, deterministic: bool = True):
-        y = self.drop1(self.layers[0](x), deterministic)
-        y = self.drop2(self.layers[1](y), deterministic)
+    def forward(self, x, deterministic: bool = True, queries=None):
+        y = self.drop1(self.layers[0](x), deterministic, queries)
+        y = self.drop2(self.layers[1](y), deterministic, queries)
         return x + y

@@ -73,8 +73,19 @@ so an e4m3 level samples as a bf16 level holding the same values. With level
 level's fold adds unrounded. On CUDA tensors the sampling kernel reads e4m3
 levels beside bf16 ones; the sampling backward takes no e4m3 table.
 
-Not in this slice: chunk-split rings (``table_split > 1``); configs that ask
-for them are refused by ``models/head.py::check_table_options``.
+Chunk-split rings (``table_split``, streaming only, as in JAX): a split
+level of the ring is a tuple of ``split`` separate chunk buffers, each
+holding ``num_slots / split`` consecutive ring slots (:func:`ring_init`);
+:func:`ring_update` and :func:`ring_copy_slot` write the one chunk that holds
+a slot, and ``PackedFeatures.split`` gives the chunk count of each level. A
+point reads the chunk of its PHYSICAL slot (the JAX forward partitions the
+points by physical slot, ``_yfold_forward`` :1028-1060, :1135-1170), at the
+row the unsplit ring would hold in that chunk, so a split ring samples bit
+for bit as the unsplit ring over the same frames. On CUDA tensors the
+sampling kernel takes each split level's chunk base pointers and resolves a
+point's slot to (chunk, slot in chunk) before its row address. Split levels
+must be y-fold and cannot be group-split; the sampling backward takes no
+split ring (training samples exact, unsplit tables).
 """
 
 from __future__ import annotations
@@ -90,6 +101,9 @@ from .msmv_onehot import MAX_LEVELS as _MAX_LEVELS
 from .msmv_onehot import (_clamp_pixels, _view_index, lanes_per_point,
                           onehot_sample_levels)
 from .msmv_pack import TableGrad, pack_level, pack_level_pair
+
+# chunks a split ring level may have in the sampling kernel (kMaxChunks)
+_MAX_CHUNKS = 16
 
 # the fp8 ring dtype and its largest finite value
 E4M3 = torch.float8_e4m3fn
@@ -147,7 +161,10 @@ class PackedFeatures:
     ``mxu_tables`` (hybrid impl only, :func:`pack_mlvl_feats`) holds as bf16
     ``[B, N*H, W*C]`` tables. ``table_grads`` (optional, one
     :class:`~.msmv_pack.TableGrad` a level) is where the sampling backward
-    sums the packed tables' gradients for the packs' adjoints.
+    sums the packed tables' gradients for the packs' adjoints. A level of a
+    chunk-split ring (:func:`ring_init` with ``splits``) is a tuple of chunk
+    tensors; ``split`` holds each level's chunk count (1: one tensor), as
+    the JAX ``PackedFeatures.split`` derives it.
     """
 
     def __init__(self, tables, batch: int, num_views: int, level_shapes,
@@ -169,6 +186,13 @@ class PackedFeatures:
         self.gsplit = _per_level(gsplit, n, "gsplit")
         if any(gs and not yf for gs, yf in zip(self.gsplit, self.yfold)):
             raise ValueError("table_gsplit requires a yfold level")
+        self.split = tuple(len(t) if isinstance(t, tuple) else 1
+                           for t in self.tables)
+        if any(sp > 1 and not yf for sp, yf in zip(self.split, self.yfold)):
+            raise ValueError("table_split requires a yfold level")
+        if any(sp > 1 for sp in self.split) and any(self.gsplit):
+            raise ValueError("slot chunk-split and group-split levels cannot "
+                             "mix in one ring")
 
     def row_index(self, slice_idx, view, row_y, height):
         """Flat table row for (slice, view, y-row) under the row order above."""
@@ -261,13 +285,37 @@ def pack_mlvl_feats_grouped(mlvl_feats: Sequence[torch.Tensor],
                           table_grads=grads if in_graph else None)
 
 
-def ring_init(frame_packed: PackedFeatures, num_slots: int, dtypes=None):
+def _per_level_split(splits, n):
+    """``table_split`` as one int a level (an int broadcasts)."""
+    if splits is None:
+        return (1,) * n
+    if isinstance(splits, int):
+        return (splits,) * n
+    splits = tuple(int(s) for s in splits)
+    if len(splits) != n:
+        raise ValueError(f"per-level split sequence has {len(splits)} "
+                         f"entries for {n} feature levels (check "
+                         "table_split in the config)")
+    return splits
+
+
+def level_chunk(table):
+    """A level's table, or the first chunk of a split level."""
+    return table[0] if isinstance(table, tuple) else table
+
+
+def ring_init(frame_packed: PackedFeatures, num_slots: int, dtypes=None,
+              splits=None):
     """Allocate an all-zero table ring with ``num_slots`` frame slots: a
     per-level tuple of ``[num_slots*N*H*G, W+1, row]`` tensors (row = 2Cg
     for y-fold levels, Cg for pair levels) on the single-frame
     ``frame_packed`` tables' device. ``dtypes``: one dtype for every level
     or one a level (``inference.ring_table_dtypes``: e4m3 for a
-    ``table_fp8`` level); None, the frame tables' dtype."""
+    ``table_fp8`` level); None, the frame tables' dtype. ``splits`` (an int
+    or one a level, ``inference.ring_table_splits``): a level with a split
+    above 1 is a tuple of that many SEPARATE chunk tensors of
+    ``num_slots / split`` slots each (the JAX ring allocates them apart);
+    the split must divide ``num_slots`` and the level must be y-fold."""
     t0 = frame_packed.tables[0]
     n = len(frame_packed.level_shapes)
     if dtypes is None or isinstance(dtypes, torch.dtype):
@@ -276,18 +324,44 @@ def ring_init(frame_packed: PackedFeatures, num_slots: int, dtypes=None):
         raise ValueError(f"per-level dtype sequence has {len(dtypes)} "
                          f"entries for {n} feature levels (check table_fp8 "
                          "in the config)")
+    splits = _per_level_split(splits, n)
     rows = frame_packed.num_views * frame_packed.num_groups
-    return tuple(torch.zeros((num_slots * rows * h, w + 1,
-                              frame_packed.row_width(lvl)),
-                             dtype=dt, device=t0.device)
-                 for lvl, ((h, w), dt) in enumerate(
-                     zip(frame_packed.level_shapes, dtypes)))
+    ring = []
+    for lvl, ((h, w), dt, sp) in enumerate(
+            zip(frame_packed.level_shapes, dtypes, splits)):
+        shape = (w + 1, frame_packed.row_width(lvl))
+        if sp == 1:
+            ring.append(torch.zeros((num_slots * rows * h,) + shape,
+                                    dtype=dt, device=t0.device))
+            continue
+        if num_slots % sp:
+            raise ValueError(f"table_split={sp} must divide "
+                             f"num_slots={num_slots}")
+        if not frame_packed.yfold[lvl]:
+            raise ValueError("table_split requires a yfold level")
+        ring.append(tuple(
+            torch.zeros((num_slots // sp * rows * h,) + shape, dtype=dt,
+                        device=t0.device) for _ in range(sp)))
+    return tuple(ring)
+
+
+def _slot_rows(ring, rows: int, slot: int):
+    """The ``rows`` rows of ring slot ``slot`` in a level's ring: a view of
+    the one tensor, or of the chunk that holds the slot (chunk
+    ``slot // frames_per_chunk``, as the JAX ring picks it)."""
+    if not isinstance(ring, tuple):
+        return ring[slot * rows:(slot + 1) * rows]
+    per_chunk = ring[0].shape[0] // rows
+    chunk = ring[(slot // per_chunk) % len(ring)]
+    off = slot % per_chunk
+    return chunk[off * rows:(off + 1) * rows]
 
 
 def ring_update(ring_tables, frame_packed: PackedFeatures, slot: int):
     """Write one frame's tables into ring slot ``slot``, IN PLACE (the JAX
     version returns an updated copy; the in-place copy saves the ring's
-    memory twice over). An e4m3 level gets the frame's values clipped to
+    memory twice over). A split level writes only the chunk that holds the
+    slot. An e4m3 level gets the frame's values clipped to
     +-``E4M3_MAX`` in fp32 and cast with round-to-nearest-even, as the JAX
     ring writes it (``sparsebev_tpu/ops/msmv_sampling.py:421-429``): e4m3
     has no infinity, and the clip keeps an outlier from depending on how a
@@ -296,11 +370,27 @@ def ring_update(ring_tables, frame_packed: PackedFeatures, slot: int):
         raise ValueError("ring_update expects single-frame, B=1 packed tables")
     for ring, frame in zip(ring_tables, frame_packed.tables):
         rows = frame.shape[0]
-        if ring.shape[0] % rows or ring.shape[1:] != frame.shape[1:]:
+        chunk = ring[0] if isinstance(ring, tuple) else ring
+        if chunk.shape[0] % rows or chunk.shape[1:] != frame.shape[1:]:
             raise ValueError("frame tables do not tile the ring")
-        if ring.dtype == E4M3 and frame.dtype != E4M3:
+        if chunk.dtype == E4M3 and frame.dtype != E4M3:
             frame = frame.float().clamp_(-E4M3_MAX, E4M3_MAX)
-        ring[slot * rows:(slot + 1) * rows].copy_(frame)
+        _slot_rows(ring, rows, slot).copy_(frame)
+    return ring_tables
+
+
+def ring_copy_slot(ring_tables, frame_packed_meta: PackedFeatures, src: int,
+                   dst: int):
+    """Copy one frame's table rows from ring slot ``src`` to slot ``dst``,
+    IN PLACE (JAX ``ring_copy_slot`` :478, which returns a copy). The
+    streaming detector's chunk-split mode needs it: its sample's slot list
+    must be a bijection onto the ring's slots, so a frame that occurs twice
+    in the window (the loader repeats the keyframe at a sequence start) gets
+    its rows copied into a free slot. Returns ``ring_tables``."""
+    for ring, (h, _) in zip(ring_tables, frame_packed_meta.level_shapes):
+        rows = (frame_packed_meta.num_views * h
+                * frame_packed_meta.num_groups)
+        _slot_rows(ring, rows, dst).copy_(_slot_rows(ring, rows, src))
     return ring_tables
 
 
@@ -308,9 +398,10 @@ def ring_packed(ring_tables, slots_of_t: torch.Tensor, num_frames: int,
                 frame_packed_meta: PackedFeatures) -> PackedFeatures:
     """View a table ring as PackedFeatures for the decoder.
 
-    ``slots_of_t``: int ``[T]`` — the ring slot of each logical frame
-    (0 = newest), carried as ``slice_map [T*G]``. The table modes and
-    group-split flags come from ``frame_packed_meta``."""
+    ``slots_of_t``: int ``[T]`` — the physical ring slot of each logical
+    frame (0 = newest), carried as ``slice_map [T*G]``. A split level's
+    chunks travel as its table (``PackedFeatures.split``). The table modes
+    and group-split flags come from ``frame_packed_meta``."""
     g = frame_packed_meta.num_groups
     slots_of_t = slots_of_t.to(torch.int64)
     groups = torch.arange(g, dtype=torch.int64, device=slots_of_t.device)
@@ -330,7 +421,7 @@ def table_acc_dtype(packed: PackedFeatures) -> torch.dtype:
     fp32), fp32 otherwise (an e4m3 level 0: every level's fold then adds
     unrounded)."""
     t0 = packed.tables[0]
-    dt = t0.dtype if t0 is not None else torch.float32
+    dt = level_chunk(t0).dtype if t0 is not None else torch.float32
     return dt if dt in (torch.bfloat16, torch.float32) else torch.float32
 
 
@@ -468,6 +559,31 @@ def _pair_level_taps(flat, col0, col1, wxa, wxb, wya, wyb, lw):
     return taps
 
 
+def _split_level_fold(packed, lvl, batch_row, view, ry, sx, wxa, wxb, fya,
+                      fyb):
+    """A chunk-split level's fold (the JAX branch :1135-1170): the points
+    partition by the chunk that holds their physical slice; each chunk's
+    points read that chunk at the row the unsplit ring holds there and fold
+    as an unsplit y-fold level does, so the result is the unsplit level's,
+    bit for bit. Returns fp32 ``[K, C]``."""
+    chunks = packed.tables[lvl]
+    h, w = packed.level_shapes[lvl]
+    c = packed.channels
+    per_chunk = chunks[0].shape[0] // (packed.num_views * h)   # slices
+    chunk_of = batch_row // per_chunk
+    out = torch.zeros((batch_row.shape[0], c), dtype=torch.float32,
+                      device=batch_row.device)
+    for ci, chunk in enumerate(chunks):
+        sel = (chunk_of == ci).nonzero().squeeze(1)
+        flat = chunk.reshape(-1, packed.row_width(lvl))
+        col = packed.row_index(batch_row[sel] - ci * per_chunk, view[sel],
+                               ry[sel], h) * (w + 1) + sx[sel]
+        out[sel] = _fold_window_taps(_gather(flat, col),
+                                     _gather(flat, col + 1), wxa[sel],
+                                     wxb[sel], fya[sel], fyb[sel], c)
+    return out
+
+
 def _check_geometry(packed, loc, sw):
     if not isinstance(packed, PackedFeatures):
         raise TypeError("msmv_sampling takes PackedFeatures "
@@ -480,6 +596,12 @@ def _check_geometry(packed, loc, sw):
         raise ValueError(f"scale weights {tuple(sw.shape)} do not match "
                          f"locations {tuple(loc.shape)} and "
                          f"{len(packed.level_shapes)} levels")
+
+
+def _refuse_split(packed, what: str):
+    if any(sp > 1 for sp in packed.split):
+        raise ValueError(f"{what} takes no chunk-split ring: split rings are "
+                         "streaming only (training samples exact tables)")
 
 
 def msmv_sampling_plain(packed: PackedFeatures,
@@ -508,6 +630,12 @@ def msmv_sampling_plain(packed: PackedFeatures,
         sx, ry, (wxa, wxb), (wya, wyb) = _separable_slot_weights(
             x * (w - 1), y * (h - 1), h, w)
         lw = lw_levels[lvl]
+        if packed.split[lvl] > 1:
+            lvl_out = _split_level_fold(packed, lvl, batch_row, view, ry, sx,
+                                        wxa, wxb, (wya * lw)[:, None],
+                                        (wyb * lw)[:, None])
+            out = out + lvl_out.to(acc_dtype)
+            continue
         flat = packed.tables[lvl].reshape(-1, packed.row_width(lvl))
         if packed.yfold[lvl]:
             col = packed.row_index(batch_row, view, ry, h) * (w + 1) + sx
@@ -547,6 +675,7 @@ def msmv_halfrow_plain(packed: PackedFeatures,
     weights, and the derivatives of the piecewise-linear slot weights for x
     and y."""
     _check_geometry(packed, sampling_locations, scale_weights)
+    _refuse_split(packed, "the sampling backward")
     q, s, p, _ = sampling_locations.shape
     n, c = packed.num_views, packed.channels
     num_levels = len(packed.level_shapes)
@@ -732,7 +861,8 @@ def msmv_sampling(packed: PackedFeatures,
         return out.transpose(0, 1).contiguous()
     if torch.is_grad_enabled() and any(
             t.requires_grad for t in (sampling_locations, scale_weights,
-                                      *packed.tables)):
+                                      *map(level_chunk, packed.tables))):
+        _refuse_split(packed, "the differentiable sampling op")
         return _MsmvSampling.apply(packed, sampling_locations, scale_weights,
                                    *packed.tables)
     if sampling_locations.device.type == "cpu":
@@ -741,8 +871,9 @@ def msmv_sampling(packed: PackedFeatures,
 
 
 msmv_sampling.launches = 0  # kernel launches (counted in _msmv_sampling_cuda)
-# the launches among them that read an e4m3 level
+# the launches among them that read an e4m3 level, and a chunk-split one
 msmv_sampling.e4m3_launches = 0
+msmv_sampling.split_launches = 0
 
 _SIGNATURE_SET = False
 
@@ -753,8 +884,8 @@ def _lib():
     if not _SIGNATURE_SET:
         vp, ci = ctypes.c_void_p, ctypes.c_int
         lib.msmv_sample_forward.argtypes = [
-            vp, vp, vp, vp, vp, ci, vp, vp, vp, vp, ctypes.c_longlong,
-            ci, ci, ci, ci, ci, ci, ci, ci, ci, vp]
+            vp, vp, vp, vp, vp, vp, vp, vp, ci, vp, vp, vp, vp,
+            ctypes.c_longlong, ci, ci, ci, ci, ci, ci, ci, ci, ci, vp]
         lib.msmv_sample_forward.restype = ci
         _SIGNATURE_SET = True
     return lib
@@ -803,13 +934,24 @@ def _check_cuda_operands(packed, loc, sw):
         if t.dtype != torch.float32 or not t.is_contiguous() or t.device != dev:
             raise ValueError(f"msmv_sampling: {name} must be contiguous fp32 "
                              f"on {dev}")
-    dtype, fp8 = sample_table_dtypes([t.dtype for t in packed.tables])
+    dtype, fp8 = sample_table_dtypes([level_chunk(t).dtype
+                                      for t in packed.tables])
     lanes = sample_lanes_per_point(packed.channels, dtype)
     if not 1 <= len(packed.level_shapes) <= _MAX_LEVELS:
         raise ValueError(f"msmv_sampling: the kernel takes 1 to {_MAX_LEVELS} "
                          f"levels, not {len(packed.level_shapes)}")
-    for lvl, (t, (h, w)) in enumerate(zip(packed.tables,
-                                          packed.level_shapes)):
+    if max(packed.split) > _MAX_CHUNKS:
+        raise ValueError(f"msmv_sampling: the kernel takes at most "
+                         f"{_MAX_CHUNKS} chunks a level, not "
+                         f"{max(packed.split)}")
+    chunks = [(lvl, t, hw) for lvl, (level, hw) in enumerate(
+        zip(packed.tables, packed.level_shapes))
+        for t in (level if isinstance(level, tuple) else (level,))]
+    for lvl, t, (h, w) in chunks:
+        first = level_chunk(packed.tables[lvl])
+        if t.dtype != first.dtype or t.shape != first.shape:
+            raise ValueError(f"msmv_sampling: the chunks of level {lvl} "
+                             "differ in shape or dtype")
         if t.device != dev or not t.is_contiguous():
             raise ValueError("msmv_sampling: tables must be contiguous, on "
                              f"{dev}")
@@ -832,11 +974,30 @@ def _check_cuda_operands(packed, loc, sw):
     return dtype, fp8, lanes, slice_map
 
 
-def _level_arrays(packed, tables):
-    """ctypes arrays of the per-level table pointers, heights, widths and
-    modes that the C entries take."""
+def _chunk_arrays(packed):
+    """ctypes arrays of the split levels' layout that the forward's C entry
+    takes: each level's ring frames a chunk (0: not split) and the chunk
+    base pointers of the split levels, in level order."""
     num_levels = len(packed.level_shapes)
-    return ((ctypes.c_void_p * num_levels)(*[t.data_ptr() for t in tables]),
+    frames, ptrs = [], []
+    for level, (h, _) in zip(packed.tables, packed.level_shapes):
+        if not isinstance(level, tuple):
+            frames.append(0)
+            continue
+        frames.append(level[0].shape[0]
+                      // (packed.num_views * h * packed.num_groups))
+        ptrs.extend(t.data_ptr() for t in level)
+    return ((ctypes.c_int * num_levels)(*packed.split),
+            (ctypes.c_int * num_levels)(*frames),
+            (ctypes.c_void_p * max(len(ptrs), 1))(*ptrs))
+
+
+def _level_arrays(packed, tables):
+    """ctypes arrays of the per-level table pointers (a split level's first
+    chunk), heights, widths and modes that the C entries take."""
+    num_levels = len(packed.level_shapes)
+    return ((ctypes.c_void_p * num_levels)(
+        *[level_chunk(t).data_ptr() for t in tables]),
             (ctypes.c_int * num_levels)(*[h for h, _ in packed.level_shapes]),
             (ctypes.c_int * num_levels)(*[w for _, w in packed.level_shapes]),
             (ctypes.c_int * num_levels)(*[int(v) for v in packed.yfold]))
@@ -851,12 +1012,14 @@ def _msmv_sampling_cuda(packed, loc, sw):
     out = torch.empty((q, s, p, c), dtype=out_dtype, device=dev)
     num_levels = len(packed.level_shapes)
     tables, heights, widths, yfold = _level_arrays(packed, packed.tables)
+    splits, chunk_frames, chunk_ptrs = _chunk_arrays(packed)
     lib = _lib()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.msmv_sample_forward(
             tables, heights, widths, yfold,
-            (ctypes.c_int * num_levels)(*map(int, fp8)), num_levels,
+            (ctypes.c_int * num_levels)(*map(int, fp8)), splits,
+            chunk_frames, chunk_ptrs, num_levels,
             loc.data_ptr(), sw.data_ptr(), slice_map.data_ptr(),
             out.data_ptr(), q * s * p, s, p, packed.num_views,
             packed.num_groups, c, int(dtype == torch.bfloat16),
@@ -865,6 +1028,7 @@ def _msmv_sampling_cuda(packed, loc, sw):
     build.check(lib, "msmv_sample", rc)
     msmv_sampling.launches += 1
     msmv_sampling.e4m3_launches += any(fp8)
+    msmv_sampling.split_launches += any(sp > 1 for sp in packed.split)
     return out
 
 
@@ -874,6 +1038,7 @@ def _msmv_sampling_backward_cuda(packed, loc, sw, grad_out, grads=None):
     vector reductions in the table dtype to ``grads`` (per level a buffer of
     the table's shape and dtype; None for no table gradient). Returns
     ``(d_loc, d_sw)``."""
+    _refuse_split(packed, "msmv_sampling backward")
     dtype, fp8, lanes, slice_map = _check_cuda_operands(packed, loc, sw)
     if any(fp8):
         raise ValueError("msmv_sampling backward: e4m3 tables are a "

@@ -7,11 +7,20 @@ resume and pretrained loading — the reference's train.py:20-176).
         [--work-dir DIR] [--epochs N] [--batch-size B] [--seed S] \\
         [--override key.path=value ...] [--device cuda|cpu]
 
-One card per process, CUDA unless ``--device cpu``: ``cfg.batch_size`` (or
-``--batch-size``) is this card's batch (the reference's r50 schedule is 8
-cards x 1 sample). Data parallelism (``--multihost``, ``--query-shards``)
-is not ported yet and raises. ``main(argv)`` runs in-process and returns
-the finished ``Runner``.
+One card per process, CUDA unless ``--device cpu``. ``--multihost`` joins
+the process group that ``torchrun`` describes in the environment (NCCL on
+cards, gloo with ``--device cpu``; the JAX CLI's
+``jax.distributed.initialize``) and trains data-parallel: ``cfg.batch_size``
+(or ``--batch-size``) is the global batch, as in JAX, and each rank loads
+its shard of it (the world must divide it). ``--query-shards n`` splits the
+ranks into dp x n groups (``parallel.make_hybrid_groups``): the batch over
+dp, each shard's decoder queries over n. Rank 0 logs, writes checkpoints
+and keeps the evaluation; every rank resumes from the same checkpoint.
+
+    torchrun --nproc_per_node 8 -m sparsebev_tpu_torch.tools.train \
+        --config CONFIG --multihost [--query-shards 2]
+
+``main(argv)`` runs in-process and returns the finished ``Runner``.
 """
 
 from __future__ import annotations
@@ -23,9 +32,6 @@ import time
 from typing import Optional, Sequence
 
 import numpy as np
-
-_NOT_PORTED = ("is not ported yet: data and query parallelism are ROADMAP "
-               "Queue 1 item 12; train on one card")
 
 
 def parse_args(argv: Optional[Sequence[str]] = None):
@@ -41,9 +47,11 @@ def parse_args(argv: Optional[Sequence[str]] = None):
                         help="cuda (default) or cpu (the kernels' plain "
                              "PyTorch versions)")
     parser.add_argument("--multihost", action="store_true",
-                        help="not ported (ROADMAP Queue 1 item 12)")
+                        help="data-parallel training: join the process "
+                             "group of the torchrun environment")
     parser.add_argument("--query-shards", type=int, default=1,
-                        help="not ported above 1 (ROADMAP Queue 1 item 12)")
+                        help="hybrid dp x sp training: shard the decoder's "
+                             "queries over this many ranks per batch shard")
     return parser.parse_args(argv)
 
 
@@ -60,10 +68,12 @@ def load_config(path: str, overrides=None, **top_level):
     return cfg
 
 
-def build_eval_fn(cfg):
+def build_eval_fn(cfg, group=None):
     """``eval_fn(state) -> metrics`` over ``cfg.data.val`` for the
     ``EvalHook``, or None when the config names no val infos file that
-    exists."""
+    exists. With more than one rank in ``group`` each rank evaluates its
+    shard of the split and rank 0 gets the metrics (None elsewhere)."""
+    from ..parallel import rank, world_size
     from ..bbox.nms_free_coder import build_coder
     from ..builder import build_dataloader, build_dataset
     from ..evaluation import run_offline_eval
@@ -77,12 +87,13 @@ def build_eval_fn(cfg):
     val_loader = build_dataloader(
         val_dataset, batch_size=1,
         num_workers=cfg.data.get("workers_per_gpu", 4),
+        shard_id=rank(group), num_shards=world_size(group),
         shuffle=False, drop_last=False, max_gt=cfg.get("max_gt", 64))
     coder = build_coder(cfg)
 
     def eval_fn(state):
         metrics, _ = run_offline_eval(state.model, coder, val_dataset,
-                                      val_loader)
+                                      val_loader, group=group)
         return metrics
 
     return eval_fn
@@ -93,43 +104,66 @@ def main(argv: Optional[Sequence[str]] = None, extra_hooks=()):
     config's hooks (for in-process callers that watch the run). Returns the
     ``Runner`` after its last epoch."""
     args = parse_args(argv)
-    if args.multihost:
-        raise NotImplementedError(f"--multihost {_NOT_PORTED}")
-    if args.query_shards > 1:
-        raise NotImplementedError(f"--query-shards {args.query_shards} "
-                                  f"{_NOT_PORTED}")
 
     from ..builder import build_dataloader, build_dataset
     from ..models.detector import build_detector
+    from ..parallel import (init_from_env, is_main_process,
+                            make_hybrid_groups, rank, world_size)
     from ..train import hooks as H
     from ..train.optim import cosine_warmup_schedule, optimizer_from_config
     from ..train.runner import Runner
-    from ..train.step import create_train_state, train_step_from_config
+    from ..train.step import (create_train_state, data_parallel_groups,
+                              hybrid_step_groups, train_step_from_config)
     from ..utils.checkpoint_io import (latest_checkpoint, load_pretrained,
                                        load_torch_checkpoint)
     from ..utils.device import resolve_device
     from ..utils.logging import backup_code, init_logging
 
     device = resolve_device(args.device)
+    if args.multihost:
+        device = init_from_env(device)
     cfg = load_config(args.config, args.override, total_epochs=args.epochs,
                       batch_size=args.batch_size)
+
+    # the ranks: dp x sp groups with --query-shards, else data parallelism
+    # over every rank
+    world = world_size()
+    step_groups, data_group, data_index, dp = None, None, 0, 1
+    if args.query_shards > 1:
+        if world % args.query_shards:
+            raise ValueError(f"--query-shards {args.query_shards} does not "
+                             f"divide the {world} rank(s) (launch with "
+                             "torchrun and --multihost)")
+        hybrid = make_hybrid_groups(world // args.query_shards,
+                                    args.query_shards)
+        step_groups = hybrid_step_groups(hybrid)
+        data_group, data_index, dp = hybrid.data, hybrid.data_index, hybrid.dp
+    elif world > 1:
+        step_groups = data_parallel_groups(None)
+        data_index, dp = rank(), world
+    if cfg.batch_size % dp:
+        raise ValueError(f"a global batch of {cfg.batch_size} does not shard "
+                         f"over {dp} data-parallel ranks")
 
     work_dir = args.work_dir or os.path.join(
         "outputs", os.path.splitext(os.path.basename(args.config))[0],
         time.strftime("%Y-%m-%d_%H-%M-%S"))
     os.makedirs(work_dir, exist_ok=True)
     init_logging(os.path.join(work_dir, "train.log"),
-                 debug=cfg.get("debug", False))
-    backup_code(work_dir)
+                 debug=cfg.get("debug", False), rank=rank())
+    if is_main_process():
+        backup_code(work_dir)
     logging.info("work dir: %s", work_dir)
-    logging.info("device: %s", device)
+    logging.info("device: %s, %d rank(s), %d data-parallel", device, world,
+                 dp)
     np.random.seed(args.seed)
 
-    # data
+    # data: this rank's shard of every global batch
     dataset = build_dataset(cfg.data["train"])
     loader = build_dataloader(
-        dataset, batch_size=cfg.batch_size,
-        num_workers=cfg.data.get("workers_per_gpu", 4), shuffle=True,
+        dataset, batch_size=cfg.batch_size // dp,
+        num_workers=cfg.data.get("workers_per_gpu", 4),
+        shard_id=data_index, num_shards=dp, shuffle=True,
         seed=args.seed, max_gt=cfg.get("max_gt", 64))
     logging.info("dataset: %d samples, %d iters/epoch", len(dataset),
                  len(loader))
@@ -153,7 +187,7 @@ def main(argv: Optional[Sequence[str]] = None, extra_hooks=()):
     schedule = cosine_warmup_schedule(
         cfg.optimizer["lr"], total_steps, lr_cfg.get("warmup_iters", 500),
         lr_cfg.get("warmup_ratio", 1 / 3), lr_cfg.get("min_lr_ratio", 1e-3))
-    train_step = train_step_from_config(cfg)
+    train_step = train_step_from_config(cfg, step_groups)
 
     hooks = [H.IterTimerHook(), H.SamplerSeedHook()]
     for hcfg in cfg.get("log_config", {}).get("hooks", []):
@@ -176,10 +210,13 @@ def main(argv: Optional[Sequence[str]] = None, extra_hooks=()):
             hooks.append(H.EvalHook(interval=eval_interval, eval_fn=eval_fn))
     hooks.extend(extra_hooks)
 
+    # the step's draws differ between batch shards and agree within a q
+    # group (its ranks hold the same shard)
     runner = Runner(train_step, state, loader, work_dir,
                     total_epochs=cfg.total_epochs, lr_schedule=schedule,
-                    hooks=hooks, device=device, seed=args.seed,
-                    steps_per_dispatch=cfg.get("steps_per_dispatch", 1))
+                    hooks=hooks, device=device, seed=args.seed + data_index,
+                    steps_per_dispatch=cfg.get("steps_per_dispatch", 1),
+                    group=data_group)
 
     resume_from = cfg.get("resume_from")
     if resume_from == "auto":

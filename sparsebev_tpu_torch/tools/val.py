@@ -12,8 +12,14 @@ Offline, every sample runs the full forward over its T frames
 (``evaluation/loop.py::run_offline_eval``). ``--online`` streams the split
 through ``inference.py::StreamingDetector`` with a one-batch lookahead:
 sample i+1's uncached frames start their upload before sample i's forward.
-CUDA unless ``--device cpu``; ``--shard-queries`` is not ported yet and
-raises. ``main(argv)`` runs in-process and returns a dict: ``metrics``,
+CUDA unless ``--device cpu``. Launched by ``torchrun`` with more than one
+rank (``WORLD_SIZE`` > 1) it joins that process group: offline, each rank
+evaluates its shard of the split and rank 0 gathers the results and
+computes the metrics (the JAX CLI's data-parallel evaluation over every
+device); ``--online --shard-queries`` streams the split on every rank with
+the head's queries sharded over them (the JAX CLI's query mesh). Rank 0
+logs and writes the submission. ``main(argv)`` runs in-process and returns
+a dict: ``metrics``,
 ``results`` (token -> decoded arrays), the host clock's ``sample_ms`` (one
 per sample after the first, synchronized: each includes its wait for the
 loader) and ``wait_ms``, and for ``--online`` the ring's ``frames_run`` /
@@ -24,9 +30,12 @@ from __future__ import annotations
 
 import argparse
 import logging
+import os
 import statistics
 import time
 from typing import Optional, Sequence
+
+import torch.distributed as dist
 
 _REPORTED = ("NDS", "mAP", "mATE", "mASE", "mAOE", "mAVE", "mAAE")
 
@@ -43,7 +52,8 @@ def parse_args(argv: Optional[Sequence[str]] = None):
                         help="evaluate only the first N samples")
     parser.add_argument("--out", default=None, help="submission json path")
     parser.add_argument("--shard-queries", action="store_true",
-                        help="not ported (ROADMAP Queue 1 item 12)")
+                        help="with --online: shard the decoder's queries "
+                             "over the torchrun ranks")
     parser.add_argument("--online", action="store_true",
                         help="streaming eval with the per-frame table ring "
                              "(reference simple_test_online; requires "
@@ -122,10 +132,6 @@ def run_online(streaming, evaluator, loader):
 
 def main(argv: Optional[Sequence[str]] = None):
     args = parse_args(argv)
-    if args.shard_queries:
-        raise NotImplementedError(
-            "--shard-queries is not ported yet: query parallelism is ROADMAP "
-            "Queue 1 item 12; evaluate on one card")
     if args.online and args.batch_size != 1:
         raise ValueError("--online requires --batch-size 1")
 
@@ -134,22 +140,29 @@ def main(argv: Optional[Sequence[str]] = None):
     from ..evaluation import (NuScenesDetectionEvaluator,
                               format_nusc_submission, run_offline_eval)
     from ..models.detector import build_detector
+    from ..parallel import init_from_env, is_main_process, rank, world_size
     from ..utils.checkpoint_io import load_weights
     from ..utils.device import resolve_device
     from ..utils.logging import init_logging
     from .train import load_config
 
     device = resolve_device(args.device)
-    init_logging()
+    if int(os.environ.get("WORLD_SIZE", "1")) > 1:
+        device = init_from_env(device)
+    world = world_size()
+    init_logging(rank=rank())
     cfg = load_config(args.config, args.override)
 
+    # offline with several ranks: each loads its shard of the split
+    shards = 1 if args.online else world
     dataset = build_dataset(cfg.data["val"])
     if args.limit:
         dataset.data_infos = dataset.data_infos[:args.limit]
     loader = build_dataloader(dataset, batch_size=args.batch_size,
                               num_workers=cfg.data.get("workers_per_gpu", 4),
-                              shuffle=False, drop_last=False,
-                              max_gt=cfg.get("max_gt", 64))
+                              shard_id=rank() if shards > 1 else 0,
+                              num_shards=shards, shuffle=False,
+                              drop_last=False, max_gt=cfg.get("max_gt", 64))
 
     # the weights (and a checkpoint's VERSION tag) before any decode
     model = build_detector(cfg, device=device, seed=0)
@@ -167,7 +180,9 @@ def main(argv: Optional[Sequence[str]] = None):
         from ..inference import StreamingDetector
         streaming = StreamingDetector(
             model, num_frames=cfg.model["pts_bbox_head"]["num_frames"],
-            coder=coder, device=device)
+            coder=coder, device=device,
+            query_group=None if not args.shard_queries or world == 1
+            else dist.group.WORLD)
         evaluator = NuScenesDetectionEvaluator(classes=dataset.classes)
         results_per_sample = run_online(streaming, evaluator, clock)
         clock.mark()
@@ -178,8 +193,10 @@ def main(argv: Optional[Sequence[str]] = None):
                      "in the ring", streaming.frames_run,
                      streaming.frames_reused)
     else:
+        if shards > 1:
+            logging.info("data-parallel eval over %d ranks", shards)
         metrics, results_per_sample = run_offline_eval(
-            model, coder, dataset, clock)
+            model, coder, dataset, clock, group=None)
     sample_ms = clock.sample_ms(args.batch_size, 1 if args.online else 0)
     wait_ms = [w * 1e3 / args.batch_size for w in clock.wait]
     if sample_ms:
@@ -189,7 +206,7 @@ def main(argv: Optional[Sequence[str]] = None):
                      statistics.mean(sample_ms), statistics.median(sample_ms),
                      statistics.mean(wait_ms[1:] or wait_ms))
 
-    if args.out:
+    if args.out and is_main_process():
         format_nusc_submission(results_per_sample, dataset.classes, args.out)
         logging.info("wrote submission to %s", args.out)
 

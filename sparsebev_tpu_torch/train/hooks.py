@@ -5,6 +5,11 @@ sampler's epoch seed and an evaluation callback.
 Hook protocol: objects with any of ``before_run / before_epoch / after_iter /
 after_epoch`` taking the runner (``after_iter`` also the step's metrics as
 floats).
+
+In a data-parallel run the loggers write and the evaluation's results are
+kept on rank 0 only (``parallel.is_main_process``); every rank runs the
+evaluation (its shard of the split) and reaches the checkpoint hook, where
+only rank 0 writes.
 """
 
 from __future__ import annotations
@@ -13,6 +18,7 @@ import logging
 import time
 from typing import Any, Dict, Optional
 
+from ..parallel import is_main_process
 from ..registry import HOOKS
 
 
@@ -57,7 +63,7 @@ class TextLoggerHook(Hook):
         self.interval = interval
 
     def after_iter(self, runner, metrics):
-        if (runner.iter + 1) % self.interval != 0:
+        if (runner.iter + 1) % self.interval != 0 or not is_main_process():
             return
         iters_per_epoch = runner.iters_per_epoch
         total_iters = runner.total_epochs * iters_per_epoch
@@ -88,6 +94,8 @@ class TensorboardLoggerHook(Hook):
         self.writer = None
 
     def before_run(self, runner):
+        if not is_main_process():
+            return
         try:
             from torch.utils.tensorboard import SummaryWriter
         except ImportError:
@@ -126,7 +134,8 @@ class CheckpointHook(Hook):
         path = save_checkpoint(runner.work_dir, runner.global_step,
                                runner.state, max_keep=self.max_keep,
                                extra={"epoch": runner.epoch + 1})
-        logging.info("saved checkpoint to %s", path)
+        if path is not None:
+            logging.info("saved checkpoint to %s", path)
 
 
 @HOOKS.register_module()
@@ -143,7 +152,8 @@ class SamplerSeedHook(Hook):
 @HOOKS.register_module()
 class EvalHook(Hook):
     """Runs a caller-given ``eval_fn(state)`` at an epoch interval
-    (``eval_config`` of the configs)."""
+    (``eval_config`` of the configs) on every rank; rank 0 logs and keeps
+    the results."""
 
     def __init__(self, interval: int, eval_fn=None):
         self.interval = interval
@@ -153,5 +163,7 @@ class EvalHook(Hook):
         if self.eval_fn is None or (runner.epoch + 1) % self.interval != 0:
             return
         results = self.eval_fn(runner.state)
+        if not is_main_process():
+            return
         logging.info("eval @ epoch %d: %s", runner.epoch + 1, results)
         runner.eval_results = results

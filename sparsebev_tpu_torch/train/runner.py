@@ -2,8 +2,13 @@
 ``sparsebev_tpu/train/runner.py``): a host loop over a loader that calls the
 train step, fires the hooks, and saves and resumes checkpoints.
 
-One card per process; ``device`` takes the place of the JAX runner's mesh
-(data parallelism is not ported yet). The loader is anything with
+One card per process; ``device`` and ``group`` take the place of the JAX
+runner's mesh. In a data-parallel run every rank runs a ``Runner`` over its
+shard of the loader (``build_dataloader(shard_id=..., num_shards=...)``)
+with a step made for the group (``train/step.py::StepGroups``); ``group``
+is the data-parallel group, whose ranks wait for each other at the end of
+every epoch (after rank 0's checkpoint), and the hooks log, save and keep
+the evaluation on rank 0 only. The loader is anything with
 ``__len__`` and ``__iter__`` that yields collated batches of numpy arrays
 (``img_metas``, when present, is dropped); each batch goes to the device
 through pinned host memory. The step's draws (denoising noise,
@@ -22,6 +27,7 @@ from typing import Any, Callable, Dict, List, Optional
 import numpy as np
 import torch
 
+from ..parallel import barrier
 from ..utils.device import resolve_device
 from .hooks import Hook, IterTimerHook
 from .step import make_multi_step
@@ -38,7 +44,8 @@ class Runner:
                  hooks: Optional[List[Hook]] = None,
                  device=None,
                  seed: int = 0,
-                 steps_per_dispatch: int = 1):
+                 steps_per_dispatch: int = 1,
+                 group=None):
         """``train_step_fn(state, batch, generator) -> (state, metrics)``
         (``train/step.py``), with ``state`` on ``device`` (CUDA unless the
         caller passes ``"cpu"``). ``steps_per_dispatch > 1`` runs K steps a
@@ -57,6 +64,7 @@ class Runner:
         self.hooks = hooks or []
         self.device = resolve_device(device)
         self.seed = seed
+        self.group = group
 
         self.epoch = 0
         self.iter = 0
@@ -124,6 +132,9 @@ class Runner:
                            for k, v in metrics.items()}
                 self._call_hooks("after_iter", metrics)
             self._call_hooks("after_epoch")
+            # rank 0 wrote the epoch's checkpoint: no rank runs on (or
+            # returns, to a caller that reads it) before it is there
+            barrier(self.group)
         return self.state
 
     def _iter_batches(self):

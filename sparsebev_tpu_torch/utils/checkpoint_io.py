@@ -39,10 +39,16 @@ def _checkpoints(work_dir: str):
 
 
 def save_checkpoint(work_dir: str, step: int, state, max_keep: int = 1,
-                    extra: Optional[Dict[str, Any]] = None) -> str:
+                    extra: Optional[Dict[str, Any]] = None
+                    ) -> Optional[str]:
     """Save the train state under ``work_dir/ckpt_{step}.pth`` and prune to
-    the newest ``max_keep`` checkpoints. Returns the path."""
+    the newest ``max_keep`` checkpoints. Returns the path. In a
+    data-parallel run only rank 0 writes (every rank holds the same state);
+    the others return None."""
+    from ..parallel import is_main_process
     from .version import VERSION
+    if not is_main_process():
+        return None
     extra = dict(extra or {})
     extra.setdefault("version", VERSION.name)
     payload = {

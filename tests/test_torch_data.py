@@ -343,3 +343,59 @@ def test_fastloader_binding_matches_jax(synth):
     # the lazy marker's decode path (PIL or native) equals JAX's
     np.testing.assert_array_equal(tpipe._imread_bgr(paths[0]),
                                   jpipe._imread_bgr(paths[0]))
+
+
+def test_threaded_loader_draws_a_stream_per_sample(synth):
+    """On two threads the train pipeline draws each sample from its own
+    stream, seeded by one global draw a sample in the sampler's order: every
+    sample of the batches equals the pipeline run alone on that stream, and
+    two runs under the same ``np.random.seed`` give the same batches."""
+    _, tds = _datasets(synth, "train")
+    runs = []
+    for _ in range(2):
+        loader = build_dataloader(tds, batch_size=2, num_workers=2,
+                                  shuffle=True, seed=2, max_gt=8)
+        loader.sampler.set_epoch(1)
+        np.random.seed(11)
+        runs.append(list(loader))
+    _assert_tree_equal(runs[0], runs[1], "runs")
+    order = list(loader.sampler)
+    np.random.seed(11)
+    seeds = [np.random.randint(0, 2 ** 31 - 1) for _ in order]
+    samples = []
+    for i, seed in zip(order, seeds):
+        with tpipe.sample_stream(seed):
+            samples.append(tds[i])
+    want = [tloader.collate_batch(samples[k:k + 2], 8)
+            for k in range(0, len(samples), 2)]
+    _assert_tree_equal(want, runs[0], "batches")
+
+
+def test_library_lookup_waits_for_the_first(monkeypatch):
+    """Threads that look the native library up while the first lookup is
+    still loading it wait and find it: none of them falls back to PIL."""
+    import ctypes
+    import threading
+    import time
+    real = ctypes.CDLL
+
+    def slow_cdll(*args, **kwargs):
+        time.sleep(0.3)
+        return real(*args, **kwargs)
+
+    monkeypatch.setattr(ctypes, "CDLL", slow_cdll)
+    monkeypatch.setattr(tfast, "_LIB", None)
+    monkeypatch.setattr(tfast, "_TRIED", False)
+    start = threading.Barrier(4)
+    seen = []
+
+    def look():
+        start.wait()
+        seen.append(tfast.available())
+
+    threads = [threading.Thread(target=look) for _ in range(4)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    assert seen == [jfast.available()] * 4

@@ -155,6 +155,84 @@ def test_add_batch_sample_matches_jax(keys):
     assert evs[1]._num_samples == b
 
 
-def test_offline_eval_refuses_a_mesh():
-    with pytest.raises(NotImplementedError, match="item 12"):
-        tloop.run_offline_eval(None, None, None, [], mesh=object())
+def _eval_samples(rng, n, t=2, hw=(4, 4), m=12):
+    """``n`` one-sample batches as a loader collates them: pixels that seed
+    ``torch_ranks.score_preds``, and ground truth near its boxes."""
+    out = []
+    for i in range(n):
+        k = rng.randint(3, m)
+        gt = np.zeros((1, m, 9), np.float32)
+        gt[0, :k] = _boxes(rng, k, spread=12.0)
+        mask = np.zeros((1, m), bool)
+        mask[0, :k] = True
+        out.append(dict(
+            img_metas=[{"sample_idx": f"tok{i}"}],
+            img=rng.randint(0, 256, (1, t * 6) + hw + (3,)).astype(
+                np.float32),
+            lidar2img=np.tile(np.eye(4, dtype=np.float32), (1, t * 6, 1, 1)),
+            time_diff=np.zeros((1, t), np.float32), gt_boxes=gt,
+            gt_labels=rng.randint(0, 10, (1, m)), gt_mask=mask))
+    return out
+
+
+def test_offline_eval_over_two_ranks_matches_jax(tmp_path):
+    """``run_offline_eval(group=...)`` on two gloo ranks (rank r evaluates
+    the split's samples r, r + 2, ..., padded as the sampler pads; rank 0
+    gathers) against the JAX loop in one process over batches of 2 with a
+    padded tail: the same scores, labels and masks, the boxes within the
+    two coders' rounding, and the same metric table. The model is a
+    stand-in whose predictions the pixels seed (the same numpy function on
+    both sides, through a host callback in JAX)."""
+    import jax
+    import jax.numpy as jnp
+
+    from sparsebev_tpu.bbox.nms_free_coder import NMSFreeCoder as JaxCoder
+    from torch_ranks import eval_rank, run_ranks, score_preds
+
+    rng = np.random.RandomState(11)
+    samples = _eval_samples(rng, 5)
+    coder = dict(pc_range=[-51.2, -51.2, -5.0, 51.2, 51.2, 3.0],
+                 post_center_range=[-61.2, -61.2, -10.0, 61.2, 61.2, 10.0],
+                 max_num=20, num_classes=10)
+
+    class JaxScoreModel:
+        def apply(self, variables, img, lidar2img, time_diff, train=False):
+            shapes = {k: jax.ShapeDtypeStruct(v.shape, np.float32)
+                      for k, v in score_preds(
+                          np.zeros(img.shape, np.float32), None, None)
+                      .items()}
+            return jax.pure_callback(
+                lambda i, l, t: score_preds(np.asarray(i), l, t), shapes,
+                img, lidar2img, time_diff)
+
+    class Split:
+        classes = CLASSES
+
+        def __len__(self):
+            return len(samples)
+
+    def collate(group):
+        out = {k: np.concatenate([s[k] for s in group])
+               for k in group[0] if k != "img_metas"}
+        out["img_metas"] = [m for s in group for m in s["img_metas"]]
+        return out
+
+    jbatches = [collate(samples[i:i + 2]) for i in range(0, 5, 2)]
+    want_metrics, want = jloop.run_offline_eval(
+        JaxScoreModel(), {}, JaxCoder(**coder), Split(), jbatches)
+
+    torch.save(dict(samples=samples, coder=coder, classes=CLASSES),
+               tmp_path / "eval_inputs.pt")
+    run_ranks(eval_rank, 2, tmp_path)
+    out = torch.load(tmp_path / "eval_out.pt", weights_only=False)
+    assert list(out["results"]) == list(want) == [f"tok{i}"
+                                                  for i in range(5)]
+    for tok, w in want.items():
+        got = out["results"][tok]
+        for k in ("scores", "labels", "mask"):
+            np.testing.assert_array_equal(got[k], w[k], err_msg=k)
+        # the two coders' box decodes (exp, atan2) round differently
+        np.testing.assert_allclose(got["bboxes"], w["bboxes"], rtol=1e-6,
+                                   atol=1e-6)
+    assert out["metrics"] == want_metrics
+    assert want_metrics["mAP"] > 0.0

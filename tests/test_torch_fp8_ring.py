@@ -172,11 +172,20 @@ def test_table_fp8_needs_one_flag_a_level():
         check_table_options(4, table_fp8=(True, False))
 
 
-def test_table_split_still_raises_naming_its_roadmap_entry():
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
-        check_table_options(4, table_split=2)
-    with pytest.raises(NotImplementedError, match="table_split"):
-        check_table_options(4, table_fp8=True, table_split=(1, 2, 1, 1))
+def test_table_split_beside_fp8_checks_as_jax():
+    """Chunk-split rings beside e4m3 ones: accepted where the JAX ring takes
+    them (a y-fold level, a split that divides the window), refused with
+    JAX's ``ValueError`` where its ``ring_init`` refuses them."""
+    check_table_options(4, table_split=2, num_frames=8)
+    check_table_options(4, table_fp8=True, table_split=(1, 2, 1, 1),
+                        num_frames=8)
+    with pytest.raises(ValueError, match="must divide num_frames"):
+        check_table_options(4, table_fp8=True, table_split=(1, 2, 1, 1),
+                            num_frames=3)
+    with pytest.raises(ValueError, match="requires a yfold level"):
+        check_table_options(4, table_fp8=True, table_split=(2, 1, 1, 1),
+                            table_yfold=(False, True, True, True),
+                            num_frames=8)
 
 
 # ------------------------------------------------ plain sampling over rings --
@@ -415,9 +424,9 @@ def test_val_cli_online_streams_an_e4m3_ring(tmp_path, monkeypatch):
     dtypes = []
     ring_init = inference.ring_init
 
-    def record(fp, slots, dts=None):
+    def record(fp, slots, dts=None, *splits):
         dtypes.append(tuple(dts))
-        return ring_init(fp, slots, dts)
+        return ring_init(fp, slots, dts, *splits)
 
     monkeypatch.setattr(inference, "ring_init", record)
     argv = ["--config", os.path.join(repo, "configs", "smoke_synthetic.py"),

@@ -63,6 +63,9 @@ def test_port_modules_import_without_jax():
     # the EVA02 backbone and its attention op
     for mod in ("models.eva02", "ops.eva_attention"):
         assert f"sparsebev_tpu_torch.{mod}" in mods
+    # data and query parallelism
+    for mod in ("parallel", "parallel.mesh", "parallel.query_parallel"):
+        assert f"sparsebev_tpu_torch.{mod}" in mods
     code = (
         "import sys\n"
         f"sys.path.insert(0, {REPO!r})\n"

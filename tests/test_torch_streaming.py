@@ -228,17 +228,43 @@ def test_entry_points_need_cuda_by_default():
 
 
 @pytest.mark.parametrize("override", [
-    # fp8 rings are ported (tests/test_torch_fp8_ring.py); beside a split
-    # ring the split still raises
-    {"table_split": 2, "table_fp8": True},
-    {"table_split": 2},
-    {"table_split": (1, 1, 4, 1), "table_fp8": (True, False, False, False)},
+    # chunk-split rings beside fp8 ones, as the JAX package runs them (the
+    # fixture's group-split L1 cannot share a ring with split levels, and
+    # a split must divide the window of T=2 frames)
+    {"table_split": 2, "table_fp8": True, "table_gsplit": False},
+    {"table_split": 2, "table_gsplit": False},
+    {"table_split": (1, 1, 2, 1), "table_fp8": (True, False, False, False),
+     "table_gsplit": False},
 ])
-def test_unported_table_modes_raise(override):
+def test_split_table_modes_stream_like_jax(both, override):
+    """The fixture's 3-sample stream (sample 0 repeats frame 0, so the split
+    ring copies it into a second slot) with chunk-split rings, in the port
+    and in JAX's ``StreamingDetector``: the same slot bookkeeping and the
+    same last-layer outputs."""
+    jdet0, tdet0, _, _, samples = both
     cfg = copy.deepcopy(MODEL)
     cfg["pts_bbox_head"].update(override)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_detector({"model": cfg}, device="cpu")
+    jcfg = copy.deepcopy(cfg)
+    jcfg.pop("type")
+    jcfg.pop("compute_dtype")
+    jcfg["pts_bbox_head"].pop("bbox_coder")
+    jdet = JaxStreaming(JaxSparseBEV(compute_dtype=jnp.float32, **jcfg),
+                        jdet0.variables, num_frames=T, cache_size=T)
+    tmodel = build_detector({"model": cfg}, device="cpu")
+    tmodel.load_state_dict(tdet0.model.state_dict(), strict=True)
+    tdet = StreamingDetector(tmodel, num_frames=T, cache_size=T,
+                             device="cpu")
+    for s in samples:
+        jp = jax.device_get(jdet.infer(*s))
+        tp = {k: v.numpy() for k, v in tdet.infer(*s).items()}
+        assert sorted(tdet.last_slots) == list(range(T))
+        assert list(tdet.slot_of_key.items()) == \
+            list(jdet.slot_of_key.items())
+        for key in ("all_cls_scores", "all_bbox_preds"):
+            np.testing.assert_allclose(tp[key][-1], jp[key][-1], rtol=0,
+                                       atol=ATOL, err_msg=key)
+    splits = [len(r) if isinstance(r, tuple) else 1 for r in tdet.ring]
+    assert splits == list(tmodel.pts_bbox_head.table_split)
 
 
 def test_coder_matches_jax_with_thresholds_and_version_swap():
