@@ -37,10 +37,11 @@ prints its wall time):
      r101 shapes (5 y-fold levels from 128x352, a group-split L2); the
      sampling kernel's e4m3 route (``check_sampling_e4m3``): the vov99
      fp8l0 ring (y-fold e4m3 L0, fp32 output), an e4m3 pair L0 beside the
-     group-split L3 (fp32 output) and r50 with e4m3 on L1 only (bf16
-     output), each bit for bit against its plain version and twice
-     bit-equal, timed beside its bound (each level at its own item size)
-     and beside the same values as bf16 tables; the sampling kernel's
+     group-split L3 (fp32 output), r50 with e4m3 on L1 only (bf16 output)
+     and the vov99 fp8l0 ring of an fp32 model (e4m3 L0 beside fp32 levels, fp32 output),
+     each bit for bit against its plain version and twice bit-equal, timed
+     beside its bound (each level at its own item size) and beside the
+     same values as bf16 (fp32) tables; the sampling kernel's
      chunk-split route (``check_sampling_split``): the vov99 fp8l0 ring of
      T=15 slots as 5 chunks a level and the r50 ring of T=8 slots as 2,
      each bit for bit against the unsplit route over the same values, its
@@ -48,7 +49,7 @@ prints its wall time):
   4. streaming inference at full width with seeded random weights, one new
      frame per sample of a synthetic 6-camera stream, for each path:
      ``configs/r50_nuimg_704x256.py`` (12 samples, T=8, 704x256) and
-     ``configs/vov99_dd3d_1600x640_trainval_future.py`` (8 samples, T=15,
+     ``configs/vov99_dd3d_1600x640_trainval_future.py`` (6 samples, T=15,
      1600x640, pair level 0) and
      ``configs/vit_eva02_1600x640_trainval_future.py`` (3 samples: EVA02
      ViT-L, 16 windowed and 8 global blocks, its own pyramid, P=8; 24
@@ -57,7 +58,7 @@ prints its wall time):
      GB; its ring held to ``RING_FP32_TOL``), the vov99 config with every
      level y-fold and ``table_fp8`` on level 0 ("vov99 fp8l0", 6 samples,
      an e4m3 L0 ring; its e4m3 sampling launches counted apart and held
-     above 0) and ``configs/r101_nuimg_1408x512.py`` (8 samples: ResNet-101
+     above 0) and ``configs/r101_nuimg_1408x512.py`` (6 samples: ResNet-101
      at 1408x512, 5 levels, a 5.9 GB ring) and the r50 config with
      ``table_split=2`` on every level ("r50 split", 10 samples: a ring of
      T=8 slots in two chunks a level; the stream's first sample repeats its
@@ -67,7 +68,11 @@ prints its wall time):
      ring still holds; then the last sample's head over the split ring and
      over its rows as one unsplit ring, bit-equal, and the sampling kernel
      on that head's first call against the unsplit call, bit for bit, timed
-     beside its bound). The kernel launch counts are
+     beside its bound) and the r50 config as an fp32 model with
+     ``table_fp8`` on level 0 ("r50 fp32 fp8l0", 4 samples: an e4m3 L0
+     ring beside fp32 rings; its launches of the sampling kernel's e4m3
+     route beside fp32 levels counted apart and held above 0). The kernel
+     launch counts are
      reset just before each path's run and read just after it; the outputs
      must be finite and match a second run of the same stream that uses the
      plain versions (on the EVA02 paths the ring and the head replayed over
@@ -205,8 +210,23 @@ prints its wall time):
      on the same gathered inputs, the end-to-end gap to an unsharded stream
      printed. gloo takes no CUDA tensor for most collectives, so the port's
      collective helpers stage them through host memory
-     (``parallel/mesh.py``);
- 13. a ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and last
+     (``parallel/mesh.py``). The data-parallel check also prints a probe
+     (``choice_probe``, ``first_divergence``): the one-process step over
+     the batch of 2 against its halves, each FPN level's difference, the
+     first of the head's module calls whose output differs, each decoder
+     layer's view choices and the matcher's assignment;
+ 13. the side modules at full width: the FPS CLI (``tools/timing.py``
+     in-process on the r50 400-query config, then on the r50 config with
+     ``--e2e`` and ``--profile-dir``: JAX's JSON lines, held; the pack and
+     sampling launches held above 0; ms/sample, device busy and ops a
+     sample from the trace, peak memory); one r50 sample with the
+     decoder's ``DUMP`` on (every stage's files, their shapes and finite
+     values; the predictions bit-equal to the run with dumps off); the
+     vov99 config's frame pass on the depthwise spec ``V-19-dw-eSE`` at
+     1600x640 (the packs launched and bit-equal to plain); the loader bench
+     and the parity dry run (``--synthetic --limit 2``, the val CLI in a
+     subprocess), their JSON printed;
+ 14. a ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and last
      ``{"ok": true, "device": {...}}``.
 
 Needs one CUDA card (it uses ``cuda:0`` alone); imports nothing of JAX.
@@ -242,7 +262,7 @@ PATHS = (
          levels=[(64, 176), (32, 88), (16, 44), (8, 22)],
          yfold=(True,) * 4, gsplit=(False,) * 4, t=8, q=900, p=4),
     dict(name="vov99", config="configs/vov99_dd3d_1600x640_trainval_future.py",
-         samples=8, kernels=("pack", "pack_pair", "sampling"),
+         samples=6, kernels=("pack", "pack_pair", "sampling"),
          levels=[(160, 400), (80, 200), (40, 100), (20, 50), (10, 25)],
          yfold=(False, True, True, True, True),
          gsplit=(False, False, False, True, False), t=15, q=1600, p=4),
@@ -292,7 +312,7 @@ PATHS = (
     # ResNet-101 at 1408x512 (with_cp over its 33 bottlenecks in training),
     # five y-fold levels with a group-split L2; every kernel bit-exact, so
     # held end to end; no mixing capture
-    dict(name="r101", config="configs/r101_nuimg_1408x512.py", samples=8,
+    dict(name="r101", config="configs/r101_nuimg_1408x512.py", samples=6,
          kernels=("pack", "sampling"), capture=False,
          levels=[(128, 352), (64, 176), (32, 88), (16, 44), (8, 22)],
          yfold=(True,) * 5, gsplit=(False, False, True, False, False), t=8,
@@ -313,6 +333,21 @@ PATHS = (
          capture=False,
          levels=[(64, 176), (32, 88), (16, 44), (8, 22)],
          yfold=(True,) * 4, gsplit=(False,) * 4, t=8, q=900, p=4),
+    # the r50 config as an fp32 model with level 0's ring in e4m3: the
+    # other levels' rings stay fp32 (the frame's dtype, as in JAX), so the
+    # sampling kernel reads an e4m3 level beside fp32 ones (its launches
+    # counted apart and held above 0; the route is checked bit for bit in
+    # phase 3, case (d) of check_sampling_e4m3). The fp32 packs and the
+    # sampling kernel give their plain versions' bits, so the path is held
+    # end to end like r50; no phase-3 checks, no mixing capture.
+    dict(name="r50 fp32 fp8l0", config="configs/r50_nuimg_704x256.py",
+         model_overrides=dict(compute_dtype="float32"), dtype="float32",
+         head_overrides=dict(table_fp8=(True, False, False, False)),
+         samples=4, kernels=("pack", "sampling", "sampling_e4m3_fp32"),
+         checks=(), capture=False,
+         levels=[(64, 176), (32, 88), (16, 44), (8, 22)],
+         yfold=(True,) * 4, gsplit=(False, True, False, False), t=8, q=900,
+         p=4),
 )
 # sources whose ptxas report is printed per kernel
 PTXAS_REPORTS = ("msmv_sample", "msmv_sample_bwd", "msmv_onehot", "mixing")
@@ -714,14 +749,20 @@ def check_sampling(torch, dev, flush, bw, fp32_rate, path):
 
 
 # the e4m3 route of the sampling kernel (phase 3): label, the path whose
-# shapes it takes, and the e4m3 levels. (a) the vov99 fp8l0 ring: y-fold
-# e4m3 L0, fp32 output; (b) the vov99 ring with an e4m3 pair L0 and the
-# group-split L3 (the group-major order), fp32 output; (c) r50 with e4m3 on
-# L1 only, bf16 output
+# shapes it takes, the e4m3 levels and the other levels' dtype. (a) the
+# vov99 fp8l0 ring: y-fold e4m3 L0, fp32 output; (b) the vov99 ring with an
+# e4m3 pair L0 and the group-split L3 (the group-major order), fp32 output;
+# (c) r50 with e4m3 on L1 only, bf16 output; (d) the vov99 fp8l0 ring of
+# an fp32 model (``compute_dtype="float32"``): e4m3 L0 beside fp32 levels,
+# fp32 output (the e4m3 level's weights still round to bf16)
 E4M3_CHECKS = (
-    ("vov99 fp8l0", "vov99 fp8l0", (True, False, False, False, False)),
-    ("vov99 pair e4m3 L0", "vov99", (True, False, False, False, False)),
-    ("r50 e4m3 L1", "r50", (False, True, False, False)),
+    ("vov99 fp8l0", "vov99 fp8l0", (True, False, False, False, False),
+     "bfloat16"),
+    ("vov99 pair e4m3 L0", "vov99", (True, False, False, False, False),
+     "bfloat16"),
+    ("r50 e4m3 L1", "r50", (False, True, False, False), "bfloat16"),
+    ("vov99 fp8l0 fp32", "vov99 fp8l0", (True, False, False, False, False),
+     "float32"),
 )
 
 
@@ -729,25 +770,27 @@ def check_sampling_e4m3(torch, dev, flush, bw, fp32_rate):
     """The sampling kernel with e4m3 levels (``E4M3_CHECKS``) on a 16-slot
     ring of seeded tables: bit for bit against its plain version, and twice
     bit-equal on the same inputs; timed beside its bound (each level's bytes
-    at its own item size) and beside the same call with every level bf16
-    (the e4m3 tables upcast: the same values, the bf16 route). Returns the
-    numbers by label."""
+    at its own item size) and beside the same call with every level in the
+    other levels' dtype (the e4m3 tables upcast: the same values on the
+    bf16 or the fp32 route). Returns the numbers by label, each with the
+    other levels' dtype under ``base``."""
     from sparsebev_tpu_torch.ops.msmv_sampling import (
         E4M3, PackedFeatures, msmv_sampling, msmv_sampling_plain,
         table_acc_dtype)
     out = {}
-    for label, pname, fp8 in E4M3_CHECKS:
+    for label, pname, fp8, base in E4M3_CHECKS:
         path = next(p for p in PATHS if p["name"] == pname)
         gen = torch.Generator(device=dev).manual_seed(4)
         levels, yfold, gsplit = path["levels"], path["yfold"], path["gsplit"]
         n, g, cg = SAMPLING_VIEWS, SAMPLING_GROUPS, SAMPLING_CG
         s = path["t"] * g
         loc, sw, slice_map = _sampling_inputs(torch, dev, path, gen)
+        base_dtype = getattr(torch, base)
         tables = []
         for (h, w), yf, f8 in zip(levels, yfold, fp8):
             t = torch.randn((SAMPLING_SLOTS * n * h * g, w + 1,
                              (2 if yf else 1) * cg), generator=gen,
-                            device=dev, dtype=torch.bfloat16)
+                            device=dev, dtype=base_dtype)
             tables.append(t.to(E4M3) if f8 else t)
             del t
         packed = PackedFeatures(tables, s, n, levels, cg, num_groups=g,
@@ -760,8 +803,10 @@ def check_sampling_e4m3(torch, dev, flush, bw, fp32_rate):
         torch.cuda.synchronize()
         exact = _bit_equal(torch, got, want)
         d = (got.float() - want.float()).abs().max().item()
+        tag = "b" if base == "bfloat16" else "f"
         log(f"sampling e4m3 [{label}]: levels "
-            f"{''.join('8' if f else 'b' for f in fp8)} (8: e4m3, b: bf16), "
+            f"{''.join('8' if f else tag for f in fp8)} (8: e4m3, "
+            f"{tag}: {base}), "
             f"modes {''.join('y' if yf else 'p' for yf in yfold)}, "
             f"group-split {[i for i, v in enumerate(gsplit) if v]}, output "
             f"{str(got.dtype)[6:]}: max|kernel - plain| = {d:.3g}, bit-equal "
@@ -774,16 +819,17 @@ def check_sampling_e4m3(torch, dev, flush, bw, fp32_rate):
         del got, again, want
         res = _time_sampling(torch, flush, bw, fp32_rate, packed, loc, sw,
                              f"e4m3 {label}] e4m3 route")
-        as_bf16 = packed.replace(tables=[t.to(torch.bfloat16) for t in
-                                         tables])
-        res["bf16_route_ms"] = time_ms(
-            torch, lambda: msmv_sampling(as_bf16, loc, sw), 30, flush)
+        as_base = packed.replace(tables=[t.to(base_dtype) for t in tables])
+        key = "bf16_route_ms" if base == "bfloat16" else "fp32_route_ms"
+        res[key] = time_ms(torch, lambda: msmv_sampling(as_base, loc, sw),
+                           30, flush)
         log(f"sampling e4m3 [{label}]: the same call on the same values as "
-            f"bf16 tables (the bf16 route): {res['bf16_route_ms']:.4f} ms "
-            f"against {res['ms']:.4f} ms on the e4m3 route")
+            f"{base} tables (the {base} route): {res[key]:.4f} ms against "
+            f"{res['ms']:.4f} ms on the e4m3 route")
         res["max_abs_err"] = 0.0
+        res["base"] = base
         out[label] = res
-        del as_bf16, packed, tables
+        del as_base, packed, tables
         torch.cuda.empty_cache()
     return out
 
@@ -1513,12 +1559,16 @@ def streaming_phase(torch, dev, path):
         for c in counters.values():
             c.launches = 0
         msmv_sampling.msmv_sampling.e4m3_launches = 0
+        msmv_sampling.msmv_sampling.e4m3_fp32_launches = 0
         msmv_sampling.msmv_sampling.split_launches = 0
         times, preds = run_stream(torch, det, samples)
         launches = {k: c.launches for k, c in counters.items()}
-        # the sampling launches that read an e4m3 level, and those that
-        # read a chunk-split level, counted apart
+        # the sampling launches that read an e4m3 level beside bf16 levels,
+        # beside fp32 levels, and those that read a chunk-split level,
+        # counted apart
         launches["sampling_e4m3"] = msmv_sampling.msmv_sampling.e4m3_launches
+        launches["sampling_e4m3_fp32"] = \
+            msmv_sampling.msmv_sampling.e4m3_fp32_launches
         launches["sampling_split"] = \
             msmv_sampling.msmv_sampling.split_launches
     peak = torch.cuda.max_memory_allocated(dev) - held
@@ -3345,7 +3395,7 @@ def runner_phase(torch, dev):
 # sample; train and val from two seeds
 DATA_IMAGE_HW = (900, 1600)
 DATA_SWEEPS_BETWEEN = 7
-DATA_SAMPLES = dict(train=4, val=4)
+DATA_SAMPLES = dict(train=4, val=3)
 DATA_EPOCHS = 1
 # the device-busy window: two steps after the first, inside epoch 1
 PROFILED_STEPS = (3, 4)
@@ -3409,6 +3459,23 @@ class _WatchTraining:
             self.eval_launches = diff
 
 
+def val_with_gt_config(root):
+    """Write under ``root`` the r50 config with a val split that keeps its
+    ground truth through the pipeline (as configs/smoke_synthetic.py does),
+    so that the evaluator has boxes to score; everything else is the
+    config's own. Returns its path."""
+    from sparsebev_tpu_torch.config import Config
+    base = os.path.join(HERE, PATHS[0]["config"])
+    val_pipeline = [dict(p) for p in Config.fromfile(base).test_pipeline]
+    val_pipeline[-1]["keys"] = ["gt_bboxes_3d", "gt_labels_3d", "img"]
+    config = os.path.join(root, "r50_synthetic_val_with_gt.py")
+    with open(config, "w") as f:
+        f.write(f"_base_ = [{base!r}]\n"
+                f"data = dict(val=dict(test_mode=False, "
+                f"pipeline={val_pipeline!r}))\n")
+    return config
+
+
 def data_path_phase(torch, dev, preloaded_ms):
     """The host data path and the two CLIs at r50 full width, from JPEGs on
     disk: two synthetic nuScenes-format datasets (train and val, 1600x900,
@@ -3432,17 +3499,7 @@ def data_path_phase(torch, dev, preloaded_ms):
     root = os.path.join(HERE, "outputs", "chip_smoke_data")
     shutil.rmtree(root, ignore_errors=True)
     os.makedirs(root)
-    # the config with a val split that keeps its ground truth through the
-    # pipeline (as configs/smoke_synthetic.py does), so that the evaluator
-    # has boxes to score; everything else is the config's own
-    base = os.path.join(HERE, path["config"])
-    val_pipeline = [dict(p) for p in Config.fromfile(base).test_pipeline]
-    val_pipeline[-1]["keys"] = ["gt_bboxes_3d", "gt_labels_3d", "img"]
-    config = os.path.join(root, "r50_synthetic_val_with_gt.py")
-    with open(config, "w") as f:
-        f.write(f"_base_ = [{base!r}]\n"
-                f"data = dict(val=dict(test_mode=False, "
-                f"pipeline={val_pipeline!r}))\n")
+    config = val_with_gt_config(root)
     cfg = Config.fromfile(config)
     anns = {}
     for seed, (split, n) in enumerate(DATA_SAMPLES.items()):
@@ -3923,6 +3980,52 @@ def bringup_slice15():
         f"{time.perf_counter() - t0:.1f} s")
 
 
+def bringup_slice16():
+    """What the side-module slice adds, alone: build the pack and sampling
+    sources, print what ptxas reports for the sampling kernel, check its
+    fp32 route at r50 and its e4m3 routes (case (d): e4m3 beside fp32
+    levels), stream the r50 fp32 fp8l0 path, run the choice probe of the
+    data-parallel step (the batch of 2 against its halves, bf16 and fp32)
+    and phase 13 (``python3 -c "import chip_smoke;
+    chip_smoke.bringup_slice16()"``)."""
+    import torch
+    sys.path.insert(0, HERE)
+    from sparsebev_tpu_torch.kernels import build
+    dev = torch.device("cuda", 0)
+    log(nvidia_smi_line())
+    t0 = time.perf_counter()
+    logs = build.build_all(["msmv_pack", "msmv_pack_pair", "msmv_sample",
+                            "msmv_sample_bwd"])
+    log(f"build: 4 sources in {time.perf_counter() - t0:.1f} s")
+    for r in ptxas_report(logs["msmv_sample"]):
+        log(f"ptxas[msmv_sample]: {r['kernel']}: {r['regs']} registers, "
+            f"{r['stack']} bytes stack frame, spills {r['spill_stores']} / "
+            f"{r['spill_loads']} bytes")
+    bw, fp32_rate, _ = peaks(torch.cuda.get_device_name(0))
+    flush = torch.empty(64 * 2**20, dtype=torch.int32, device=dev)
+    check_sampling(torch, dev, flush, bw, fp32_rate, PATHS[0])
+    check_sampling_e4m3(torch, dev, flush, bw, fp32_rate)
+    del flush
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    launches, _, _ = streaming_phase(
+        torch, dev, next(p for p in PATHS if p["name"] == "r50 fp32 fp8l0"))
+    log(f"r50 fp32 fp8l0 stream: launches {launches}; "
+        f"{time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    for fp32 in (False, True):
+        one, halves = {}, [{}, {}]
+        dp_halves(torch, dev, fp32, records=halves)
+        dp_step(torch, dev, fp32=fp32, record=one)
+        log_choice_probe("parallel [r50]", "fp32" if fp32 else "bf16", one,
+                         halves)
+        torch.cuda.empty_cache()
+    log(f"probe: {time.perf_counter() - t0:.1f} s")
+    launches = {}
+    side_phases(torch, dev, launches)
+    log(f"phase 13 launches: {launches}")
+
+
 def bringup_eva02_train():
     """The EVA02 training phase alone: build its five sources, print what
     ptxas reports for the attention kernels, then phase 10 (``python3 -c
@@ -4020,6 +4123,79 @@ def backward_ab(other, reps=10):
             + ", ".join(f"{label} {ms:.4f}" for label, ms in runs))
         del q, k, v, g, out, lse
         torch.cuda.empty_cache()
+
+
+# the sampling kernel's A/B (``sampling_ab``): (path, table dtype, e4m3
+# levels or None)
+SAMPLING_AB = (("r50", "bfloat16", None),
+               ("vov99 fp8l0", "bfloat16", (True, False, False, False, False)),
+               ("r50", "float32", None))
+
+
+def sampling_ab(other, reps=30):
+    """The sampling forward of this checkout against the one of the
+    checkout at ``other`` (another commit unpacked with ``git archive``
+    into a gitignored directory) on one card, on the seeded inputs of
+    ``SAMPLING_AB`` (16-slot rings at the paths' shapes): the two outputs
+    bit-equal, then timed in turns (other, this, this, other; CUDA events,
+    L2 flushed, median of ``reps`` calls each) (``python3 -c "import
+    chip_smoke; chip_smoke.sampling_ab('outputs/parent')"``)."""
+    import ctypes
+    import torch
+    sys.path.insert(0, HERE)
+    from sparsebev_tpu_torch.kernels import build
+    from sparsebev_tpu_torch.ops import msmv_sampling as ms
+    dev = torch.device("cuda", 0)
+    log(f"sampling_ab [{other}]: {nvidia_smi_line()}")
+    src = os.path.join(os.path.abspath(other),
+                       "sparsebev_tpu_torch/csrc/msmv_sample.cu")
+    lib_path = os.path.join(build.BUILD_DIR, "libmsmv_sample_other.so")
+    os.makedirs(build.BUILD_DIR, exist_ok=True)
+    out = subprocess.run([build.find_nvcc(), *build.NVCC_FLAGS, "-o",
+                          lib_path, src], capture_output=True, text=True,
+                         timeout=600)
+    if out.returncode != 0:
+        fail(f"nvcc failed for {src}:\n{out.stdout}{out.stderr}")
+    libs = dict(other=ctypes.CDLL(lib_path), this=ms._lib())
+    fn = libs["other"].msmv_sample_forward
+    fn.argtypes = libs["this"].msmv_sample_forward.argtypes
+    fn.restype = libs["this"].msmv_sample_forward.restype
+    real = ms._lib
+    flush = torch.empty(64 * 2**20, dtype=torch.int32, device=dev)
+    n, g, cg = SAMPLING_VIEWS, SAMPLING_GROUPS, SAMPLING_CG
+    try:
+        for pname, dtype, fp8 in SAMPLING_AB:
+            path = next(p for p in PATHS if p["name"] == pname)
+            gen = torch.Generator(device=dev).manual_seed(4)
+            loc, sw, slice_map = _sampling_inputs(torch, dev, path, gen)
+            tables = []
+            for i, ((h, w), yf) in enumerate(zip(path["levels"],
+                                                 path["yfold"])):
+                t = torch.randn((SAMPLING_SLOTS * n * h * g, w + 1,
+                                 (2 if yf else 1) * cg), generator=gen,
+                                device=dev, dtype=getattr(torch, dtype))
+                tables.append(t.to(ms.E4M3) if fp8 and fp8[i] else t)
+            packed = ms.PackedFeatures(
+                tables, path["t"] * g, n, path["levels"], cg, num_groups=g,
+                slice_map=slice_map, yfold=path["yfold"],
+                gsplit=path["gsplit"])
+            outs, runs = {}, []
+            for label in ("other", "this", "this", "other"):
+                ms._lib = lambda lib=libs[label]: lib
+                outs[label] = ms.msmv_sampling(packed, loc, sw)
+                runs.append((label, time_ms(
+                    torch, lambda: ms.msmv_sampling(packed, loc, sw), reps,
+                    flush)))
+            same = _bit_equal(torch, outs["this"], outs["other"])
+            log(f"sampling_ab [{pname} {dtype}"
+                f"{' e4m3 L0' if fp8 else ''}]: outputs bit-equal {same}; "
+                "ms: " + ", ".join(f"{label} {t:.4f}" for label, t in runs))
+            if not same:
+                fail("sampling_ab: the two kernels' outputs differ")
+            del tables, packed, outs
+            torch.cuda.empty_cache()
+    finally:
+        ms._lib = real
 
 
 def step_profile(root=HERE):
@@ -4292,7 +4468,8 @@ def _summed_normalizer(loss_fn, add):
     return call
 
 
-def dp_step(torch, dev, rank=0, world=1, fp32=False, half=None):
+def dp_step(torch, dev, rank=0, world=1, fp32=False, half=None,
+            record=None):
     """One training step of the r50 config at full width on the global
     batch of ``DP_SEEDS`` (seeded weights, dropout 0, augmentations off,
     the denoising noise drawn for the global batch), in bf16 or, with
@@ -4303,7 +4480,11 @@ def dp_step(torch, dev, rank=0, world=1, fp32=False, half=None):
     :func:`dp_halves`); else this rank's sample with the gradients and the
     loss normalizers summed over the default gloo group. Returns the
     metrics, the probed gradients (before the clip), the launches of the
-    step and its host-clock ms."""
+    step and its host-clock ms. ``record`` (a dict) collects each
+    projection call's view choice (``views``: ``[Q, B*G*T, P]`` int8 codes,
+    the view plus 6 where the chosen view sees the point), the matcher's
+    assignment with its box mask (``assigned``) and the FPN's outputs
+    (``neck``, kept on the card) for :func:`choice_probe`."""
     import contextlib
     import numpy as np
     from sparsebev_tpu_torch.losses import draw_dn_noise
@@ -4346,6 +4527,12 @@ def dp_step(torch, dev, rank=0, world=1, fp32=False, half=None):
     opt, sched, _ = optim.optimizer_from_config(model, cfg, total_steps=1000)
     state = tstep.create_train_state(model, opt, sched)
     step = tstep.train_step_from_config(cfg, groups)
+    if record is not None:
+        record["neck"] = []
+        model.img_neck.register_forward_hook(
+            lambda mod, args, out: record["neck"].append(
+                [o.detach().clone() for o in out]))
+        _record_head_modules(torch, model.pts_bbox_head, record)
     grads = {}
     real = dict(clip_by_global_norm=tstep.clip_by_global_norm,
                 **{k: getattr(tstep, k) for k in patched})
@@ -4361,8 +4548,11 @@ def dp_step(torch, dev, rank=0, world=1, fp32=False, half=None):
     _reset(counters)
     for k, v in dict(patched, clip_by_global_norm=clip).items():
         setattr(tstep, k, v)
+    recorders = _choice_recorders(torch, record) if record is not None \
+        else contextlib.nullcontext()
     try:
-        with fp32_precision() if fp32 else contextlib.nullcontext():
+        with recorders, (fp32_precision() if fp32
+                         else contextlib.nullcontext()):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             gen = torch.Generator(device=dev).manual_seed(11)
@@ -4377,7 +4567,7 @@ def dp_step(torch, dev, rank=0, world=1, fp32=False, half=None):
             _read(counters), ms_step)
 
 
-def dp_halves(torch, dev, fp32=False):
+def dp_halves(torch, dev, fp32=False, records=None):
     """The data-parallel step's reference with no parallel code: one
     process runs each sample of the global batch alone through the step
     (:func:`dp_step` with ``half``), its loss normalizers summed with the
@@ -4385,12 +4575,176 @@ def dp_halves(torch, dev, fp32=False):
     gradients. Each half is a batch of 1, as on a rank, so its
     convolutions run the ranks' cuDNN algorithms; what is left between it
     and the ranks is the collectives and the sampling backward's atomic
-    adds. Returns ``({"loss"}, grads, launches of one half, ms of both)``."""
-    parts = [dp_step(torch, dev, fp32=fp32, half=h)
+    adds. Returns ``({"loss"}, grads, launches of one half, ms of both)``.
+    ``records``: one dict a half for ``dp_step``'s ``record``."""
+    parts = [dp_step(torch, dev, fp32=fp32, half=h,
+                     record=None if records is None else records[h])
              for h in range(len(DP_SEEDS))]
     loss = sum(p[0]["loss"] for p in parts)
     grads = {k: parts[0][1][k] + parts[1][1][k] for k in TRAIN_GRAD_PROBES}
     return {"loss": loss}, grads, parts[0][2], sum(p[3] for p in parts)
+
+
+@contextlib.contextmanager
+def _choice_recorders(torch, record):
+    """Record into ``record`` every ``project_points_qmajor`` call's view
+    choice and every matcher call's assignment (``dp_step``)."""
+    from sparsebev_tpu_torch.losses import target
+    from sparsebev_tpu_torch.ops import projection
+    project, match = projection.project_points_qmajor, \
+        target.hungarian_matching
+    record.update(views=[], assigned=[], neck=[])
+
+    def project_and_record(pts_q, *a, **k):
+        loc, valid = project(pts_q, *a, **k)
+        n = k.get("num_views", a[3] if len(a) > 3 else 6)
+        code = torch.round(loc[..., 2] * (n - 1)) + n * valid
+        record["views"].append(code.to(torch.int8).cpu())
+        return loc, valid
+
+    def match_and_record(cost, gt_mask):
+        out = match(cost, gt_mask)
+        record["assigned"].append((out.cpu(), gt_mask.cpu()))
+        return out
+
+    projection.project_points_qmajor = project_and_record
+    target.hungarian_matching = match_and_record
+    try:
+        yield
+    finally:
+        projection.project_points_qmajor = project
+        target.hungarian_matching = match
+
+
+# the head's module calls that the probe records: those of the first
+# PROBE_LAYERS decoder layers' forward
+PROBE_LAYERS = 2
+
+
+def _record_head_modules(torch, head, record):
+    """Forward hooks on every submodule of ``head`` that keep, in call
+    order, each call's first output tensor (detached, on the card) until
+    the decoder layer has run ``PROBE_LAYERS`` times (``record["modules"]``:
+    ``(name, tensor)``)."""
+    record["modules"] = []
+    layer = head.transformer.decoder.decoder_layer
+    calls = [0]
+
+    def count(mod, args):
+        calls[0] += 1
+
+    def keep(name):
+        def hook(mod, args, out):
+            if calls[0] > PROBE_LAYERS or not torch.is_grad_enabled():
+                return
+            t = out[0] if isinstance(out, (tuple, list)) else out
+            if isinstance(t, torch.Tensor):
+                record["modules"].append((name, t.detach().clone()))
+        return hook
+
+    layer.register_forward_pre_hook(count)
+    for name, mod in head.named_modules():
+        if name:
+            mod.register_forward_hook(keep(name))
+
+
+def first_divergence(one, halves):
+    """The head's first module call (in call order, over the first
+    ``PROBE_LAYERS`` decoder layers) whose output in the batch of 2 differs
+    from the halves' (the batch's output split along its batch-major dim:
+    the first whose size doubles, the leading one of a batch-major tensor,
+    the slice dim of the sampling op's query-major operands); returns
+    ``(index, name, shape, difference over scale, calls compared)``, index
+    None where none differs."""
+    entries = one["modules"]
+    n = min(len(entries), *(len(h["modules"]) for h in halves))
+    for i in range(n):
+        name, both = entries[i]
+        for h, half in enumerate(halves):
+            hname, got = half["modules"][i]
+            dims = [d for d in range(both.dim()) if both.dim() == got.dim()
+                    and both.shape[d] == len(halves) * got.shape[d]
+                    and both.shape[:d] == got.shape[:d]
+                    and both.shape[d + 1:] == got.shape[d + 1:]]
+            if hname != name or not (dims or both.shape == got.shape):
+                fail(f"probe: module call {i} is {name} {tuple(both.shape)} "
+                     f"in the batch of 2 and {hname} {tuple(got.shape)} in "
+                     f"half {h}")
+            want = both.float()
+            if dims:
+                per = got.shape[dims[0]]
+                want = want.narrow(dims[0], h * per, per)
+            d = (got.float() - want).abs().max().item()
+            if d > 0:
+                scale = max(want.abs().max().item(), 1e-30)
+                return i, name, tuple(both.shape), d / scale, n
+    return None, None, None, 0.0, n
+
+
+def choice_probe(one, halves):
+    """The discrete choices of the one-process step over the batch of 2
+    (``one``, a ``dp_step`` record) against its halves (the records of
+    ``dp_halves``), sample by sample: for each projection call, the queries
+    whose view choice differs at some point; for each matcher call, the
+    ground-truth boxes (of the sample's valid ones) assigned to another
+    query in some decoder layer; and the FPN's outputs (the first place the
+    step's arithmetic sees the batch size: cuDNN picks its algorithms by
+    shape), each level's largest difference over its scale. Returns (per
+    call the differing queries of each sample, per matcher call the
+    differing boxes of each sample, the valid boxes of each sample, per
+    sample each FPN level's difference over its scale)."""
+    views, boxes, valid, neck = [], [], [], []
+    for h, half in enumerate(halves):
+        row = []
+        for both, got in zip(one["neck"][0], half["neck"][0]):
+            per = both.shape[0] // len(halves)
+            want = both[h * per:(h + 1) * per].float()
+            scale = max(want.abs().max().item(), 1e-30)
+            row.append((got.float() - want).abs().max().item() / scale)
+        neck.append(row)
+    calls = len(one["views"])
+    if any(len(h["views"]) != calls for h in halves):
+        fail(f"probe: the batch of 2 made {calls} projection calls, the "
+             f"halves {[len(h['views']) for h in halves]}")
+    for i in range(calls):
+        both = one["views"][i]
+        per = both.shape[1] // len(halves)
+        views.append([int((both[:, h * per:(h + 1) * per]
+                           != halves[h]["views"][i]).flatten(1).any(1).sum())
+                      for h in range(len(halves))])
+    for i, (both, mask) in enumerate(one["assigned"]):
+        row = []
+        for h in range(len(halves)):
+            got, hmask = halves[h]["assigned"][i]
+            m = hmask[0]
+            row.append(int((both[:, h][:, m] != got[:, 0][:, m]).any(0)
+                           .sum()))
+        boxes.append(row)
+        valid = [int(mask[h].sum()) for h in range(len(halves))]
+    return views, boxes, valid, neck
+
+
+def log_choice_probe(label, prec, one, halves):
+    """Print :func:`choice_probe` of the batch of 2 against its halves."""
+    views, boxes, valid, neck = choice_probe(one, halves)
+    i, name, shape, share, n = first_divergence(one, halves)
+    log(f"{label}: {prec} probe: the head's module calls of the first "
+        f"{PROBE_LAYERS} decoder layers, the batch of 2 against its halves: "
+        + (f"all {n} bit-equal" if i is None else
+           f"the first that differs is call {i} of {n}, {name} "
+           f"{shape}, by {share:.3g} of its scale"))
+    flipped = [sum(v[h] for v in views) for h in range(len(halves))]
+    log(f"{label}: {prec} probe, the batch of 2 against its halves (ROADMAP "
+        f"Queue 3 fault 1): FPN outputs, each level's largest difference "
+        f"over its scale, per sample "
+        f"{[[f'{d:.3g}' for d in row] for row in neck]}; "
+        f"projection calls whose view choices differ "
+        f"{sum(any(v) for v in views)} of {len(views)} (forward and the "
+        f"layer remat's recompute); queries that differ, summed over the "
+        f"calls, per sample {flipped}, per call {views}; matcher calls "
+        f"whose assignment differs {sum(any(b) for b in boxes)} of "
+        f"{len(boxes)}, boxes assigned otherwise in some layer per call "
+        f"{boxes} of the valid {valid}")
 
 
 def _dp_rank(rank, world, workdir):
@@ -4594,9 +4948,13 @@ def parallel_phase(torch, dev, config):
         fp32 = prec == "fp32"
         got = [r[prec] for r in ranks]
         two, two_grads = got[0]["metrics"], got[0]["grads"]
-        ref, ref_grads, ref_launches, ref_ms = dp_halves(torch, dev, fp32)
-        one, one_grads, one_launches, one_ms = dp_step(torch, dev,
-                                                       fp32=fp32)
+        rec_halves, rec_one = [{}, {}], {}
+        ref, ref_grads, ref_launches, ref_ms = dp_halves(
+            torch, dev, fp32, records=rec_halves)
+        one, one_grads, one_launches, one_ms = dp_step(
+            torch, dev, fp32=fp32, record=rec_one)
+        log_choice_probe(label, prec, rec_one, rec_halves)
+        del rec_one, rec_halves
         again = dp_halves(torch, dev, fp32)
         torch.cuda.empty_cache()
         if got[0]["metrics"] != got[1]["metrics"]:
@@ -4679,6 +5037,337 @@ def parallel_phase(torch, dev, config):
     return launches
 
 
+# ------------------------------------------------------------ phase 13 --
+
+# the FPS CLI's runs: samples of its timed loop, its warm-up, the samples
+# of its --e2e streams; (label, config, --e2e, --profile-dir) a run (the
+# profiled loop runs after the timed one)
+TIMING_SAMPLES, TIMING_WARMUP, TIMING_E2E_SAMPLES = 30, 5, 3
+TIMING_RUNS = (
+    ("r50 400q", "configs/r50_nuimg_704x256_400q_36ep.py", False, False),
+    ("r50", "configs/r50_nuimg_704x256.py", True, True),
+)
+# the JSON keys of the JAX CLI's lines (tools/timing.py), in its order
+TIMING_KEYS = dict(
+    streaming_fps=["metric", "value", "unit"],
+    streaming_fps_e2e=["e2e_fps", "e2e_ms_per_sample", "host_pipeline_ms",
+                       "dispatch_upload_forward_ms", "metric"],
+    streaming_fps_e2e_overlapped=["e2e_fps", "e2e_ms_per_sample",
+                                  "host_wait_ms",
+                                  "dispatch_upload_forward_ms", "overlap",
+                                  "metric"])
+
+
+def trace_device_busy(path):
+    """Device busy ms (the union of the device events' intervals) and the
+    device ops (kernels, copies, memsets) of a ``torch.profiler`` chrome
+    trace."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    spans = sorted((e["ts"], e["ts"] + e["dur"]) for e in events
+                   if e.get("ph") == "X" and e.get("cat") in (
+                       "kernel", "gpu_memcpy", "gpu_memset"))
+    busy, end = 0.0, -math.inf
+    for a, b in spans:
+        if a >= end:
+            busy += b - a
+            end = b
+        elif b > end:
+            busy += b - end
+            end = b
+    return busy / 1e3, len(spans)
+
+
+def timing_phase(torch, dev):
+    """The port's FPS CLI, ``tools/timing.py::main`` in-process, on the r50
+    400-query config and on the r50 config (``--e2e --profile-dir``): its
+    JSON lines (JAX's keys, held), the pack and sampling launches of each
+    run (held above 0), ms/sample (1000 over the printed FPS), peak memory,
+    and from the profiled loop's trace the device busy ms and device ops a
+    sample. Returns the launches of each run."""
+    from sparsebev_tpu_torch.ops import msmv_pack, msmv_sampling
+    from sparsebev_tpu_torch.tools import timing
+    root = os.path.join(HERE, "outputs", "chip_smoke_timing")
+    counters = dict(pack=msmv_pack.pack_level,
+                    sampling=msmv_sampling.msmv_sampling)
+    launches = {}
+    for label, config, e2e, profiled in TIMING_RUNS:
+        argv = ["--config", os.path.join(HERE, config), "--samples",
+                str(TIMING_SAMPLES), "--warmup", str(TIMING_WARMUP)]
+        extra = ["--e2e", "--e2e-samples", str(TIMING_E2E_SAMPLES)] \
+            if e2e else []
+        trace = os.path.join(root, label.replace(" ", "_")) if profiled \
+            else None
+        if trace is not None:
+            extra += ["--profile-dir", trace]
+        held = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        for c in counters.values():
+            c.launches = 0
+        t0 = time.perf_counter()
+        lines = timing.main(argv + extra)
+        sec = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated(dev) - held
+        got = {k: c.launches for k, c in counters.items()}
+        want = ["streaming_fps"] + (
+            ["streaming_fps_e2e", "streaming_fps_e2e_overlapped"]
+            if "--e2e" in extra else [])
+        if [ln.get("metric") for ln in lines] != want or any(
+                list(ln) != TIMING_KEYS[ln["metric"]] for ln in lines):
+            fail(f"timing [{label}]: the CLI printed {lines}")
+        fps = lines[0]["value"]
+        if not (math.isfinite(fps) and fps > 0) or min(got.values()) <= 0:
+            fail(f"timing [{label}]: {fps} FPS, launches {got}")
+        for ln in lines:
+            log(f"timing [{label}]: {json.dumps(ln)}")
+        log(f"timing [{label}]: {1e3 / fps:.3f} ms/sample (1000 / the "
+            f"printed FPS; make_ring_bench, {TIMING_SAMPLES} samples after "
+            f"{TIMING_WARMUP})")
+        log(f"timing [{label}]: peak memory {peak / 2**30:.2f} GiB (above "
+            f"{held / 2**30:.2f} GiB held by earlier phases)")
+        log(f"timing [{label}]: launches " + " ".join(
+            f"{k}={v}" for k, v in got.items()) + f"; {sec:.1f} s in main")
+        if trace is not None:
+            busy, ops = trace_device_busy(os.path.join(trace, "trace.json"))
+            log(f"timing [{label}]: device busy {busy / TIMING_SAMPLES:.3f} "
+                f"ms a sample, {ops / TIMING_SAMPLES:.1f} device ops a "
+                f"sample (the profiled loop's trace, {ops} ops in "
+                f"{busy:.1f} ms)")
+            if ops <= 0:
+                fail(f"timing [{label}]: the trace holds no device op")
+        launches[f"timing {label}"] = got
+        torch.cuda.empty_cache()
+    return launches
+
+
+# the dumps of one sample (phase 13), with their shapes given (Q, T, G * P,
+# classes), the attention's 8 heads and the decoded boxes' 9 values
+DUMP_SHAPES = dict(sasa_tau=lambda q, t, gp, k: (1, q, 8),
+                   sample_points_cam=lambda q, t, gp, k: (1, t, q, gp, 3),
+                   sample_points_cam_valid_mask=lambda q, t, gp, k:
+                   (1, t, q, gp),
+                   query_bbox=lambda q, t, gp, k: (1, q, 9),
+                   bbox_pred=lambda q, t, gp, k: (1, q, 9),
+                   cls_score=lambda q, t, gp, k: (1, q, k))
+
+
+def dumps_phase(torch, dev):
+    """One r50 sample at full width through a ``StreamingDetector`` with
+    the decoder's ``DUMP`` off, then through a fresh one with it on: every
+    stage's files (their names, shapes and finite values), the dumped
+    class scores equal to the sigmoid of the returned ones, and the boxes
+    of every layer, the last layer's scores and the decoded boxes bit-equal
+    to the run with dumps off. Returns the launches of the dumped run."""
+    import shutil
+    import numpy as np
+    from sparsebev_tpu_torch.bbox.nms_free_coder import build_coder
+    from sparsebev_tpu_torch.config import Config
+    from sparsebev_tpu_torch.inference import StreamingDetector
+    from sparsebev_tpu_torch.models.detector import build_detector
+    from sparsebev_tpu_torch.ops import msmv_pack, msmv_sampling
+    from sparsebev_tpu_torch.utils.dump import DUMP
+    label = "dumps [r50]"
+    cfg = Config.fromfile(os.path.join(HERE, PATHS[0]["config"]))
+    image_h, image_w = cfg.ida_aug_conf["final_dim"]
+    model = build_detector(cfg, device=dev, seed=0)
+    head = model.pts_bbox_head
+    decoder = head.transformer.decoder
+    t, q, layers = head.num_frames, head.num_query, decoder.num_layers
+    gp = head.num_groups * decoder.decoder_layer.sampling.num_points
+    coder = build_coder(cfg)
+    sample = make_stream(1, t, image_h, image_w)[0]
+    out_dir = os.path.join(HERE, "outputs", "chip_smoke_dumps")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    counters = dict(pack=msmv_pack.pack_level,
+                    sampling=msmv_sampling.msmv_sampling)
+    runs = {}
+    with torch.inference_mode():
+        for dump in (False, True):
+            det = StreamingDetector(model, num_frames=t, device=dev)
+            for c in counters.values():
+                c.launches = 0
+            if dump:
+                DUMP.enable(out_dir)
+            try:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = det.infer(*sample)
+                torch.cuda.synchronize()
+                ms = (time.perf_counter() - t0) * 1e3
+            finally:
+                DUMP.enabled = False
+            runs[dump] = (out, ms, {k: c.launches for k, c in
+                                    counters.items()},
+                          coder.decode(out))
+            del det
+    (off, off_ms, _, off_dec), (on, on_ms, on_launches, on_dec) = \
+        runs[False], runs[True]
+    names = sorted(f"{n}_stage{i}.npy" for n in DUMP_SHAPES
+                   for i in range(layers))
+    if sorted(os.listdir(out_dir)) != names:
+        fail(f"{label}: the dumps are {sorted(os.listdir(out_dir))}")
+    for i in range(layers):
+        for n, shape in DUMP_SHAPES.items():
+            a = np.load(os.path.join(out_dir, f"{n}_stage{i}.npy"))
+            want = shape(q, t, gp, head.num_classes)
+            if a.shape != want or a.dtype != np.float32 \
+                    or not np.isfinite(a).all():
+                fail(f"{label}: {n} stage {i}: {a.shape} {a.dtype}, want "
+                     f"{want} float32, finite")
+        dumped = np.load(os.path.join(out_dir, f"cls_score_stage{i}.npy"))
+        if not np.array_equal(dumped, torch.sigmoid(
+                on["all_cls_scores"][i]).float().cpu().numpy()):
+            fail(f"{label}: stage {i}'s dumped scores are not the sigmoid "
+                 "of its returned scores")
+    valid = np.load(os.path.join(out_dir,
+                                 f"sample_points_cam_valid_mask_stage"
+                                 f"{layers - 1}.npy"))
+    exact = (torch.equal(on["all_bbox_preds"], off["all_bbox_preds"])
+             and torch.equal(on["all_cls_scores"][-1],
+                             off["all_cls_scores"][-1])
+             and all(torch.equal(on_dec[k], off_dec[k]) for k in off_dec))
+    size = sum(os.path.getsize(os.path.join(out_dir, f)) for f in names)
+    log(f"{label}: {len(names)} files ({len(DUMP_SHAPES)} names x {layers} "
+        f"stages, {size / 1e6:.1f} MB) under {os.path.relpath(out_dir, HERE)}"
+        f", shapes as given, finite; the last stage's points in a view "
+        f"{valid.mean():.3f}; the sample {off_ms:.1f} ms with dumps off, "
+        f"{on_ms:.1f} ms with them on (host copies); launches "
+        + " ".join(f"{k}={v}" for k, v in on_launches.items())
+        + f"; the boxes of every layer, the last layer's scores and the "
+        f"decoded boxes bit-equal to the run with dumps off: {exact}")
+    if not exact or min(on_launches.values()) <= 0:
+        fail(f"{label}: dumps changed a prediction, or a kernel was not "
+             "launched")
+    del model
+    torch.cuda.empty_cache()
+    return on_launches
+
+
+DW_SPEC = "V-19-dw-eSE"
+DW_REPS = 3
+
+
+def depthwise_phase(torch, dev):
+    """The vov99 config's detector on the depthwise spec ``DW_SPEC`` at
+    1600x640 (seeded weights): ``forward_frame_packed`` of one frame of six
+    views with the kernels (the packs' launches held above 0), timed on the
+    host clock, then with the plain versions: every level's table bit-equal
+    (held within ``STREAM_TOL`` of its scale). Returns the launches of one
+    frame pass."""
+    from sparsebev_tpu_torch.config import Config
+    from sparsebev_tpu_torch.models.detector import build_detector
+    from sparsebev_tpu_torch.ops import msmv_pack
+    label = f"depthwise [{DW_SPEC}]"
+    vov = PATHS[1]
+    cfg = Config.fromfile(os.path.join(HERE, vov["config"]))
+    cfg.model["img_backbone"]["spec_name"] = DW_SPEC
+    image_h, image_w = cfg.ida_aug_conf["final_dim"]
+    held = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    model = build_detector(cfg, device=dev, seed=0)
+    frame = torch.from_numpy(make_stream(1, 1, image_h, image_w)[0][0]).to(
+        dev)
+    counters = dict(pack=msmv_pack.pack_level,
+                    pack_pair=msmv_pack.pack_level_pair)
+    with torch.inference_mode():
+        for c in counters.values():
+            c.launches = 0
+        fp = model.forward_frame_packed(frame)
+        got = {k: c.launches for k, c in counters.items()}
+        times = []
+        for _ in range(DW_REPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            model.forward_frame_packed(frame)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        with plain_versions():
+            plain = model.forward_frame_packed(frame)
+    peak = torch.cuda.max_memory_allocated(dev) - held
+    exact, worst = True, 0.0
+    for a, b in zip(fp.tables, plain.tables):
+        d = (a.float() - b.float()).abs().max().item()
+        worst = max(worst, d / max(1.0, b.float().abs().max().item()))
+        exact = exact and _bit_equal(torch, a, b)
+    n_params = sum(p.numel() for p in model.img_backbone.parameters())
+    log(f"{label}: the vov99 config's detector on {DW_SPEC} "
+        f"({n_params / 1e6:.2f}M backbone parameters), one frame of 6 views "
+        f"at {image_w}x{image_h}: tables "
+        + " ".join(str(tuple(t.shape)) for t in fp.tables)
+        + f" ({''.join('y' if yf else 'p' for yf in fp.yfold)}); launches "
+        + " ".join(f"{k}={v}" for k, v in got.items())
+        + f"; frame pass {statistics.median(times):.3f} ms (median of "
+        f"{DW_REPS}, host clock, synchronized); peak memory "
+        f"{peak / 2**30:.2f} GiB; against the plain versions: worst "
+        f"{worst:.3g} of each level's scale, bit-equal {exact}")
+    if min(got.values()) <= 0 or not worst <= STREAM_TOL:
+        fail(f"{label}: the frame pass launched {got}, or differs from the "
+             "plain versions")
+    del model, fp, plain
+    torch.cuda.empty_cache()
+    return got
+
+
+LOADER_BENCH_REPS = 2
+
+
+def side_tools_phase(torch):
+    """The port's loader bench (8 frames of 6 JPEGs of 1600x900,
+    ``LOADER_BENCH_REPS`` reps; PIL where the native decoder does not
+    load) and the parity dry run on the r50 config with its val split
+    keeping the ground truth (``val_with_gt_config``; ``--synthetic --limit
+    2``: the val CLI in a subprocess on the card), their JSON printed; an
+    NDS must come back, with no gate on its value: the weights are
+    seeded."""
+    import shutil
+    from sparsebev_tpu_torch.tools import loader_bench, parity
+    rows = loader_bench.main(["--frames", "8", "--reps",
+                              str(LOADER_BENCH_REPS)])
+    if not rows or any(not r["samples_per_s"] > 0 for r in rows):
+        fail(f"loader bench: {rows}")
+    for r in rows:
+        log(f"loader bench: {json.dumps(r)}")
+    work = os.path.join(HERE, "outputs", "chip_smoke_parity")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    t0 = time.perf_counter()
+    rc = parity.main(["--config", val_with_gt_config(work), "--synthetic",
+                      "--limit", "2", "--work-dir", work])
+    sec = time.perf_counter() - t0
+    if rc != 0:
+        fail(f"parity dry run: exit code {rc}")
+    with open(os.path.join(work, "parity.json")) as f:
+        report = json.load(f)
+    log(f"parity [r50]: parity.json keys {list(report)}: "
+        f"{json.dumps(report)} ({sec:.1f} s, the val CLI's process "
+        "included; no NDS gate: seeded weights)")
+    if list(report) != ["nds", "expected", "checkpoint", "work_dir"] \
+            or report["nds"] is None:
+        fail(f"parity dry run: {report}")
+
+
+def side_phases(torch, dev, launches):
+    """Phase 13: the FPS CLI, the dumps, the depthwise frame pass and the
+    side tools, each timed; their launches go into ``launches``."""
+    t0 = time.perf_counter()
+    launches.update(timing_phase(torch, dev))
+    log(f"phase: the FPS CLI (r50 400q, r50 with --e2e and --profile-dir) "
+        f"took "
+        f"{time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    launches["r50 dumps"] = dumps_phase(torch, dev)
+    log(f"phase: dumps (r50, one sample) took "
+        f"{time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    launches["vov99 depthwise frame"] = depthwise_phase(torch, dev)
+    log(f"phase: depthwise frame pass ({DW_SPEC}, 1600x640) took "
+        f"{time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    side_tools_phase(torch)
+    log(f"phase: loader bench and parity dry run took "
+        f"{time.perf_counter() - t0:.1f} s")
+
+
 KERNELS = dict(
     pack=dict(name="msmv_pack_level", route="cuda",
               source="sparsebev_tpu_torch/csrc/msmv_pack.cu",
@@ -4691,10 +5380,16 @@ KERNELS = dict(
                   replaces="sparsebev_tpu/ops/msmv_sampling.py:1011"),
     # the same kernel's launches that read an e4m3 level (fp8 rings), and
     # its numbers on that route (check_sampling_e4m3)
-    sampling_e4m3=dict(name="msmv_sample_forward (e4m3 levels)",
+    sampling_e4m3=dict(name="msmv_sample_forward (e4m3 levels beside bf16)",
                        route="cuda",
                        source="sparsebev_tpu_torch/csrc/msmv_sample.cu",
                        replaces="sparsebev_tpu/ops/msmv_sampling.py:1011"),
+    # the same kernel's launches that read an e4m3 level beside fp32 ones
+    # (an fp32 model's fp8 ring), and its numbers on that route
+    sampling_e4m3_fp32=dict(
+        name="msmv_sample_forward (e4m3 levels beside fp32)", route="cuda",
+        source="sparsebev_tpu_torch/csrc/msmv_sample.cu",
+        replaces="sparsebev_tpu/ops/msmv_sampling.py:1011"),
     # the same kernel's launches over a chunk-split ring (table_split),
     # and its numbers on that route (check_sampling_split, the r50 split
     # stream's recorded call)
@@ -4849,8 +5544,11 @@ def main() -> int:
                 measured[k].update(res)
             else:
                 measured[k][path["name"]] = res
-    measured["sampling_e4m3"].update(check_sampling_e4m3(
-        torch, dev, flush, bw, fp32_rate))
+    for label, res in check_sampling_e4m3(torch, dev, flush, bw,
+                                          fp32_rate).items():
+        key = ("sampling_e4m3" if res.pop("base") == "bfloat16"
+               else "sampling_e4m3_fp32")
+        measured[key][label] = res
     measured["sampling_split"].update(check_sampling_split(
         torch, dev, flush, bw, fp32_rate))
     del flush
@@ -4977,6 +5675,8 @@ def main() -> int:
     log(f"phase: parallelism (r50: the train CLI under torchrun, the "
         f"data-parallel step on two gloo ranks, the query-sharded stream on "
         f"two gloo ranks) took {time.perf_counter() - t0:.1f} s")
+
+    side_phases(torch, dev, launches)
 
     log(json.dumps(kernels_line(measured, launches)))
     log(smi)

@@ -21,16 +21,20 @@
 // table dtype for bf16 or fp32 tables, fp32 when level 0 is e4m3.
 //
 // e4m3 levels (streaming rings with ``table_fp8``, the JAX ring stores them
-// as float8_e4m3fn): a level's table may hold e4m3 values beside bf16
-// levels. As the JAX fold does (:900-901 y-fold, :996-997 group-major pair,
-// :1221-1222 pair), each e4m3 tap is upcast to bf16 (exact: every e4m3
-// value is a bf16 value) and the bf16 fold runs unchanged, x weights (or
-// pair products) rounded to bf16. An e4m3 lane keeps a bf16 lane's eight
-// channels and loads their 8 bytes (a bf16 lane loads 16); cvt.rn.f16x2.
-// e4m3x2 widens two at a time to f16, then to f32, both exact. With an
-// fp32 output (level 0 e4m3) each level's fp32 fold is added to the fp32
-// accumulator unrounded, as JAX adds ``lvl_out.astype(f32)``; with a bf16
-// output (only later levels e4m3) each level rounds to bf16 as before.
+// as float8_e4m3fn): a level's table may hold e4m3 values beside bf16 or
+// fp32 levels (the ring keeps the frame's dtype for the others,
+// sparsebev_tpu/inference.py:55-77). As the JAX fold does (:900-901
+// y-fold, :996-997 group-major pair, :1221-1222 pair), each e4m3 tap is
+// upcast to bf16 (exact: every e4m3 value is a bf16 value) and folds as a
+// bf16 tap, x weights (or pair products) rounded to bf16, whatever the
+// other levels' dtype. An e4m3 lane keeps the lane width of its tables:
+// beside bf16 levels eight channels from 8 bytes (a bf16 lane loads 16),
+// beside fp32 levels four channels from 4 bytes (an fp32 lane loads 16);
+// cvt.rn.f16x2.e4m3x2 widens two at a time to f16, then to f32, both
+// exact. With an fp32 output (level 0 e4m3, or fp32 tables) each level's
+// fp32 fold is added to the fp32 accumulator unrounded, as JAX adds
+// ``lvl_out.astype(f32)``; with a bf16 output (bf16 tables, only later
+// levels e4m3) each level rounds to bf16 as before.
 //
 // Chunk-split levels (streaming rings with ``table_split``, the JAX ring
 // keeps such a level as ``split`` separate buffers, each holding
@@ -117,7 +121,7 @@ struct Levels {
   int h[kMaxLevels];
   int w[kMaxLevels];
   int yfold[kMaxLevels];  // 1: rows [w+1, 2c] (y-fold), 0: [w+1, c] (pair)
-  int fp8[kMaxLevels];    // 1: e4m3 entries (beside bf16 levels only)
+  int fp8[kMaxLevels];    // 1: e4m3 entries (beside bf16 or fp32 levels)
 };
 
 // chunk-split levels: frames a chunk (0: the level is one table) and the
@@ -186,6 +190,11 @@ __device__ __forceinline__ uint4 load8(const char* p) {
   return make_uint4(v.x, v.y, 0u, 0u);
 }
 
+// 4 e4m3 bytes (an fp32-width lane's four channels) in .x
+__device__ __forceinline__ uint4 load4(const char* p) {
+  return make_uint4(__ldg(reinterpret_cast<const unsigned*>(p)), 0u, 0u, 0u);
+}
+
 // two e4m3 values (the low byte first) -> two exact floats
 __device__ __forceinline__ void e4m3x2(unsigned v, float& lo, float& hi) {
   const __half2_raw h = __nv_cvt_fp8x2_to_halfraw2(
@@ -195,23 +204,25 @@ __device__ __forceinline__ void e4m3x2(unsigned v, float& lo, float& hi) {
   hi = f.y;
 }
 
-// one lane's eight e4m3 channels (byte j = channel j) as floats
-__device__ __forceinline__ void unpack_e4m3(const uint4& v, float (&f)[8]) {
+// one lane's kVec (8 or 4) e4m3 channels (byte j = channel j) as floats
+template <int kVec>
+__device__ __forceinline__ void unpack_e4m3(const uint4& v,
+                                            float (&f)[kVec]) {
   e4m3x2(v.x, f[0], f[1]);
   e4m3x2(v.x >> 16, f[2], f[3]);
-  e4m3x2(v.y, f[4], f[5]);
-  e4m3x2(v.y >> 16, f[6], f[7]);
+  if constexpr (kVec == 8) {
+    e4m3x2(v.y, f[4], f[5]);
+    e4m3x2(v.y >> 16, f[6], f[7]);
+  }
 }
 
-// a lane's run of the table dtype TB, or of e4m3 (bf16 tables only)
+// a lane's run of the table dtype TB, or of e4m3 at TB's lane width
 template <typename TB>
 __device__ __forceinline__ void unpack_level(const uint4& v, bool fp8,
                                              float (&f)[Run<TB>::kVec]) {
-  if constexpr (Run<TB>::kVec == 8) {
-    if (fp8) {
-      unpack_e4m3(v, f);
-      return;
-    }
+  if (fp8) {
+    unpack_e4m3<Run<TB>::kVec>(v, f);
+    return;
   }
   Run<TB>::unpack(v, f);
 }
@@ -233,8 +244,8 @@ __device__ __forceinline__ void store_run(char* p, const float (&f)[kVec]) {
 
 // lanes_log2: log2 of the lanes that share a point (a power of two >=
 // c * sizeof(TB) / 16; lanes past the last run idle). TB: the tables' dtype
-// (an e4m3 level beside bf16 ones reads as TB's lanes); TO: the output and
-// accumulator dtype.
+// (an e4m3 level reads as TB's lanes); TO: the output and accumulator
+// dtype.
 template <typename TB, typename TO, int L>
 __global__ void __launch_bounds__(kThreads)
     msmv_sample_kernel(const Levels lv, const __grid_constant__ Chunks ch,
@@ -295,22 +306,22 @@ __global__ void __launch_bounds__(kThreads)
     const float fya = wya * lw;
     const float fyb = wyb * lw;
     const bool yf = lv.yfold[l] != 0;
+    const bool f8 = lv.fp8[l] != 0;
     // weights in the table dtype; an e4m3 level's taps are upcast to bf16
-    // first, so its weights round to bf16 (TB) as well
+    // first, so its weights round to bf16 whatever TB is
     if (yf) {
       // x weights in the table dtype (_fold_window_taps :902)
-      q0[l] = Run<TB>::round(wxa);
-      q1[l] = Run<TB>::round(wxb);
+      q0[l] = f8 ? round_bf16(wxa) : Run<TB>::round(wxa);
+      q1[l] = f8 ? round_bf16(wxb) : Run<TB>::round(wxb);
       q2[l] = fya;
       q3[l] = fyb;
     } else {
       // weights wx * (wy * lw) rounded to the table dtype (:1223-1225)
-      q0[l] = Run<TB>::round(wxa * fya);
-      q1[l] = Run<TB>::round(wxb * fya);
-      q2[l] = Run<TB>::round(wxa * fyb);
-      q3[l] = Run<TB>::round(wxb * fyb);
+      q0[l] = f8 ? round_bf16(wxa * fya) : Run<TB>::round(wxa * fya);
+      q1[l] = f8 ? round_bf16(wxb * fya) : Run<TB>::round(wxb * fya);
+      q2[l] = f8 ? round_bf16(wxa * fyb) : Run<TB>::round(wxa * fyb);
+      q3[l] = f8 ? round_bf16(wxb * fyb) : Run<TB>::round(wxb * fyb);
     }
-    const bool f8 = kVec == 8 && lv.fp8[l] != 0;
     // C channels' bytes and this lane's offset in this level's dtype
     const unsigned isz = f8 ? 1u : (unsigned)sizeof(TB);
     const unsigned cb = (unsigned)c * isz;
@@ -334,11 +345,16 @@ __global__ void __launch_bounds__(kThreads)
         yf ? cb : (ry < h - 1 ? g * (unsigned)(w + 1) * cb : 0u);
     const char* top = table + (uint64_t)col * stepx + ccb;
     const char* bot = top + stepy;
-    if (f8) {
+    if (f8 && kVec == 8) {
       t00[l] = load8(top);
       t01[l] = load8(top + stepx);
       t10[l] = load8(bot);
       t11[l] = load8(bot + stepx);
+    } else if (f8) {
+      t00[l] = load4(top);
+      t01[l] = load4(top + stepx);
+      t10[l] = load4(bot);
+      t11[l] = load4(bot + stepx);
     } else {
       t00[l] = load16(top);
       t01[l] = load16(top + stepx);
@@ -430,7 +446,7 @@ extern "C" {
 // num_levels entries; each table is [rows, w+1, 2c] (yfold 1) or
 // [rows, w+1, c] (yfold 0)
 // contiguous, of the table dtype (table_bf16: bf16, else fp32) or, where
-// fp8 is set (bf16 tables only), of e4m3; 16-byte aligned, with rows * (w+1)
+// fp8 is set, of e4m3; 16-byte aligned, with rows * (w+1)
 // below 2^31. loc [K, 3] and sw [K, L] fp32, slice_map [s] int32, out [K, c]
 // 16-byte aligned in bf16 (out_bf16) or fp32; K = num_points = Q * s * p.
 // c * itemsize (of the table dtype) is a multiple of 16 and at most 512;
@@ -480,7 +496,7 @@ int msmv_sample_forward(const void* const* tables, const int* heights,
     }
     const void* table = splits[l] > 1 ? ch.base[l][0] : tables[l];
     if ((reinterpret_cast<uintptr_t>(table) & 15) != 0 ||
-        heights[l] < 1 || widths[l] < 1 || (fp8[l] != 0 && !table_bf16))
+        heights[l] < 1 || widths[l] < 1)
       return (int)cudaErrorInvalidValue;
     lv.table[l] = table;
     lv.h[l] = heights[l];

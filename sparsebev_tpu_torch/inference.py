@@ -68,6 +68,57 @@ def ring_table_splits(model, frame_packed, num_frames: int):
     return spec
 
 
+def make_ring_bench(model, frame, lidar2img, time_diff, num_frames: int,
+                    image_h: int, image_w: int, query_group=None):
+    """The streaming benchmark harness (``sparsebev_tpu/inference.py::
+    make_ring_bench`` :184, which JAX's ``bench.py`` and
+    ``tools/timing.py`` share), with JAX's slot arithmetic: every ring slot
+    is prefilled with the packed pyramid of ``frame`` (``[1, N, H, W, 3]``
+    on the model's device), and sample ``i`` packs ``frame + i * 1e-3`` into
+    slot ``i mod T`` and runs the head over slots ``(i - arange(T)) mod T``
+    (``ring_packed``, then ``forward_head``; ``query_group`` shards the
+    head's queries, whose predictions it gathers, as JAX's ``mesh`` with
+    ``constrain_preds``). The model's weights take the place of JAX's
+    ``variables``.
+
+    Returns ``(loop_for, ring)``: ``loop_for(iters)`` gives ``loop_fn(ring,
+    frame) -> (ring, acc)``, which runs ``iters`` samples eagerly under
+    ``torch.inference_mode()`` and sums each one's last-layer class scores
+    in fp32 into the 0-d device tensor ``acc`` (read it back once,
+    ``float(acc)``, as the sync). The ring is updated in place and returned
+    (JAX donates it: a vov99 or r101 ring of 5-10 GB is never copied)."""
+    with torch.inference_mode():
+        fp0 = model.forward_frame_packed(frame)
+        meta = fp0.meta(gsplit=model.pts_bbox_head.table_gsplit)
+        ring = ring_init(fp0, num_frames, ring_table_dtypes(model, fp0),
+                         ring_table_splits(model, fp0, num_frames))
+        for slot in range(num_frames):   # iteration 0 sees a full window
+            ring_update(ring, fp0, slot)
+        del fp0
+    back = torch.arange(num_frames, device=frame.device)
+
+    def loop_for(iters: int):
+        @torch.inference_mode()
+        def loop_fn(ring, frame):
+            acc = torch.zeros((), dtype=torch.float32, device=frame.device)
+            for i in range(iters):
+                # i * 1e-3 in fp32, as JAX's traced loop index makes it
+                fp = model.forward_frame_packed(
+                    frame + float(np.float32(i) * np.float32(1e-3)))
+                ring_update(ring, fp, i % num_frames)
+                packed = ring_packed(ring,
+                                     torch.remainder(i - back, num_frames),
+                                     num_frames, meta)
+                preds = model.forward_head(packed, lidar2img, time_diff,
+                                           image_h, image_w,
+                                           query_group=query_group)
+                acc = acc + preds["all_cls_scores"][-1].float().sum()
+            return ring, acc
+        return loop_fn
+
+    return loop_for, ring
+
+
 class StreamingDetector:
     def __init__(self, model, num_frames: int, coder=None,
                  cache_size: int = 16, num_views: int = 6, device=None,

@@ -28,6 +28,13 @@ and its backward once a call, and its table gradient goes to the pack's
 :func:`~.layers.checkpoint_with_generator` replays the regions with the
 dropout generator's state at their first run. A recompute gives the same
 bits, so the remat changes no number.
+
+Debug dumps (``utils/dump.py``, the JAX hooks): with ``DUMP`` enabled the
+self-attention saves ``sasa_tau``, the sampling saves ``sample_points_cam``
+and ``sample_points_cam_valid_mask``, and the decoder sets the stage and
+saves ``query_bbox``, ``bbox_pred`` and ``cls_score`` (sigmoid) after each
+layer; every layer then classifies, as in the JAX decoder. Disabled, they
+cost one Python test each.
 """
 
 from __future__ import annotations
@@ -41,8 +48,9 @@ from torch import nn
 
 from ..ops.box_ops import decode_bbox
 from ..ops.geometry import inverse_sigmoid
-from ..ops.projection import (make_sample_points, sampling_4d_operands,
-                              sampling_4d_sample)
+from ..ops.projection import (make_sample_points, project_points_qmajor,
+                              sampling_4d_operands, sampling_4d_sample)
+from ..utils.dump import DUMP, dump_save
 from .layers import (FFN, LayerNorm, Linear, MultiheadAttention,
                      checkpoint_with_generator, dropout_generator)
 
@@ -72,7 +80,9 @@ class SparseBEVSelfAttention(nn.Module):
         keys = centers if queries is None else queries.gather(centers, 1)
         diff = centers[:, :, None, :] - keys[:, None, :, :]
         dist = -torch.sqrt((diff * diff).sum(-1))                 # [B, Q, K]
-        tau = self.gen_tau(query_feat).float().permute(0, 2, 1)   # [B, H, Q]
+        tau = self.gen_tau(query_feat).float()                    # [B, Q, H]
+        dump_save("sasa_tau", tau)   # for tools/viz_sample_points.py
+        tau = tau.permute(0, 2, 1)                                # [B, H, Q]
         attn_mask = dist[:, None, :, :] * tau[..., None]          # [B,H,Q,K]
         if pre_attn_mask is not None:   # query denoising group isolation
             if queries is not None:
@@ -127,6 +137,16 @@ class SparseBEVSampling(nn.Module):
         sw = self.scale_weights(query_feat).reshape(
             b, q, g, 1, p, self.num_levels).float()
         sw = torch.softmax(sw, dim=-1).expand(b, q, g, t, p, self.num_levels)
+        if DUMP.enabled:
+            # camera-space points [B, T, Q, G*P, 3] and valid masks
+            # [B, T, Q, G*P] for the viz tools (JAX decoder.py:125-131)
+            loc, valid = project_points_qmajor(pts_q, lidar2img, image_h,
+                                               image_w, self.num_views)
+            dump_save("sample_points_cam", loc.reshape(
+                q, b, g, t, p, 3).permute(1, 3, 0, 2, 4, 5).reshape(
+                b, t, q, g * p, 3))
+            dump_save("sample_points_cam_valid_mask", valid.reshape(
+                q, b, g, t, p).permute(1, 3, 0, 2, 4).reshape(b, t, q, g * p))
         return sampling_4d_operands(pts_q, sw, lidar2img, image_h, image_w,
                                     num_views=self.num_views)
 
@@ -310,16 +330,27 @@ class SparseBEVTransformerDecoder(nn.Module):
         bbox_preds, cls_scores = [], []
         last = self.num_layers - 1
         remat = self.with_cp and not deterministic and torch.is_grad_enabled()
+        # with DUMP enabled every layer classifies and dumps its stage (JAX
+        # decoder.py:490-503): the returned scores are then every layer's
+        dump = DUMP.enabled
         for i in range(self.num_layers):
+            if dump:
+                DUMP.stage_count = i
             query_feat, cls_score, bbox_pred = self.decoder_layer(
                 query_bbox, query_feat, packed, lidar2img, time_diff,
-                image_h, image_w, with_cls=(not deterministic or i == last),
+                image_h, image_w,
+                with_cls=(dump or not deterministic or i == last),
                 attn_mask=attn_mask, deterministic=deterministic,
                 remat=remat, queries=queries)
+            if dump:
+                pc_range = self.decoder_layer.sampling.pc_range
+                dump_save("query_bbox", decode_bbox(query_bbox, pc_range))
+                dump_save("bbox_pred", decode_bbox(bbox_pred, pc_range))
+                dump_save("cls_score", torch.sigmoid(cls_score))
             query_bbox = bbox_pred.detach()
             bbox_preds.append(bbox_pred)
             cls_scores.append(cls_score)
-        if deterministic:
+        if deterministic and not dump:
             skipped = torch.full((last,) + cls_score.shape, -1e4,
                                  dtype=cls_score.dtype,
                                  device=cls_score.device)

@@ -24,8 +24,19 @@ the same bits, so neither changes a number. The stem is not checkpointed,
 as in the JAX VoVNet.
 
 ``frozen_stages`` is enforced by the optimizer's multipliers
-(``train/optim.py``); ``norm_eval`` is accepted for config parity. The
-depthwise specs (``dw=True``) are not ported yet (ROADMAP Queue 1 item 13).
+(``train/optim.py``); ``norm_eval`` is accepted for config parity.
+
+The depthwise specs (``V-19-slim-dw-eSE``, ``V-19-dw-eSE``; JAX
+``vovnet.py:49-60``, ``:98-106``): the stem's second and third convs and
+every OSA layer are a depthwise 3x3 (one group a channel, the stride on
+it) then a pointwise 1x1, then the frozen BN and ReLU, under the
+reference's ``dw_conv3x3`` names (``<tag>/dw_conv3x3``,
+``<tag>/pw_conv1x1``, ``<tag>/pw_norm``); an OSA module whose input width
+is not its stage width first reduces it with a 1x1 conv + BN + ReLU
+(``conv_reduction.<tag>_reduction_0/conv``, ``/norm``), while its concat
+still takes the unreduced input. The JAX package's reference ``.pth`` map
+has no depthwise keys, so only ``utils/convert.py::state_dict_from_jax``
+carries such weights.
 """
 
 from __future__ import annotations
@@ -67,17 +78,29 @@ _STAGE_SPECS: Dict[str, Dict[str, Any]] = {
 
 
 class _ConvNormReLU:
-    """conv (no bias) -> FrozenBN -> ReLU. Not a module: the conv and norm
-    are registered on ``parent`` under the reference's ``<tag>/conv`` and
-    ``<tag>/norm`` names; this object only refers to them."""
+    """conv (no bias) -> FrozenBN -> ReLU, or with ``depthwise`` a
+    depthwise conv then a pointwise 1x1 before the BN. Not a module: the
+    convs and norm are registered on ``parent`` under the reference's
+    ``<tag>/conv`` and ``<tag>/norm`` names (``<tag>/dw_conv3x3``,
+    ``<tag>/pw_conv1x1`` and ``<tag>/pw_norm`` when depthwise); this object
+    only refers to them."""
 
     def __init__(self, parent: nn.Module, tag: str, cin: int, cout: int,
-                 kernel: int = 3, stride: int = 1):
-        self.conv = nn.Conv2d(cin, cout, kernel, stride=stride,
-                              padding=kernel // 2, bias=False)
+                 kernel: int = 3, stride: int = 1, depthwise: bool = False):
+        if depthwise:
+            self.convs = (
+                nn.Conv2d(cin, cin, kernel, stride=stride,
+                          padding=kernel // 2, groups=cin, bias=False),
+                nn.Conv2d(cin, cout, 1, bias=False))
+            names = (f"{tag}/dw_conv3x3", f"{tag}/pw_conv1x1",
+                     f"{tag}/pw_norm")
+        else:
+            self.convs = (nn.Conv2d(cin, cout, kernel, stride=stride,
+                                    padding=kernel // 2, bias=False),)
+            names = (f"{tag}/conv", f"{tag}/norm")
         self.norm = FrozenBatchNorm2d(cout)
-        parent.add_module(f"{tag}/conv", self.conv)
-        parent.add_module(f"{tag}/norm", self.norm)
+        for name, mod in zip(names, self.convs + (self.norm,)):
+            parent.add_module(name, mod)
         self._casts = CastCache()
         self._key = None
         self._affine = None
@@ -108,8 +131,10 @@ class _ConvNormReLU:
         return self._affine
 
     def __call__(self, x):
-        w = self._casts.get("weight", self.conv.weight, x.dtype)
-        x = F.conv2d(x, w, None, self.conv.stride, self.conv.padding)
+        for i, conv in enumerate(self.convs):
+            w = self._casts.get(f"weight{i}", conv.weight, x.dtype)
+            x = F.conv2d(x, w, None, conv.stride, conv.padding, 1,
+                         conv.groups)
         inv, shift = self._inv_shift(x.dtype, x.device)
         return F.relu(x * inv + shift)
 
@@ -133,19 +158,29 @@ class ESEModule(nn.Module):
 class OSAModule(nn.Module):
     """One-shot aggregation: ``layer_per_block`` 3x3 convs whose outputs all
     concatenate with the input, a 1x1 reduce, eSE, and the identity add for
-    every block after a stage's first."""
+    every block after a stage's first. ``depthwise``: the 3x3 convs are
+    depthwise + pointwise, after a 1x1 reduction of an input wider or
+    narrower than ``stage_ch``."""
 
     def __init__(self, cin: int, stage_ch: int, concat_ch: int,
-                 layer_per_block: int, tag: str, identity: bool = False):
+                 layer_per_block: int, tag: str, identity: bool = False,
+                 depthwise: bool = False):
         super().__init__()
         self.identity = identity
         self.layers = nn.ModuleList()
         self._layers = []
+        self._reduction = None
         ch = cin
+        if depthwise and cin != stage_ch:
+            self.conv_reduction = nn.Module()
+            self._reduction = _ConvNormReLU(
+                self.conv_reduction, f"{tag}_reduction_0", cin, stage_ch, 1)
+            ch = stage_ch
         for i in range(layer_per_block):
             seq = nn.Module()
             self._layers.append(_ConvNormReLU(seq, f"{tag}_{i}", ch,
-                                              stage_ch, 3))
+                                              stage_ch, 3,
+                                              depthwise=depthwise))
             self.layers.append(seq)
             ch = stage_ch
         self.concat = nn.Module()
@@ -157,6 +192,8 @@ class OSAModule(nn.Module):
     def forward(self, x):
         identity_feat = x
         outputs = [x]
+        if self._reduction is not None:
+            x = self._reduction(x)
         for layer in self._layers:
             x = layer(x)
             outputs.append(x)
@@ -179,18 +216,17 @@ class VoVNet(nn.Module):
                  with_cp: bool = False, input_ch: int = 3):
         super().__init__()
         spec = _STAGE_SPECS[spec_name]
-        if spec["dw"]:
-            raise NotImplementedError(
-                f"the depthwise VoVNet spec {spec_name} is not ported yet "
-                "(ROADMAP Queue 1 item 13)")
+        dw = spec["dw"]
         self.out_features = tuple(out_features)
         self.with_cp = with_cp
         stem_ch = spec["stem"]
         self.stem = nn.Module()
         self._stem = [
             _ConvNormReLU(self.stem, "stem_1", input_ch, stem_ch[0], 3, 2),
-            _ConvNormReLU(self.stem, "stem_2", stem_ch[0], stem_ch[1], 3, 1),
-            _ConvNormReLU(self.stem, "stem_3", stem_ch[1], stem_ch[2], 3, 2),
+            _ConvNormReLU(self.stem, "stem_2", stem_ch[0], stem_ch[1], 3, 1,
+                          depthwise=dw),
+            _ConvNormReLU(self.stem, "stem_3", stem_ch[1], stem_ch[2], 3, 2,
+                          depthwise=dw),
         ]
         cin = stem_ch[2]
         for i in range(4):
@@ -200,7 +236,7 @@ class VoVNet(nn.Module):
                 stage.add_module(f"OSA{n}_{b + 1}", OSAModule(
                     cin, spec["stage_conv_ch"][i], spec["stage_out_ch"][i],
                     spec["layer_per_block"], f"OSA{n}_{b + 1}",
-                    identity=b > 0))
+                    identity=b > 0, depthwise=dw))
                 cin = spec["stage_out_ch"][i]
             setattr(self, f"stage{n}", stage)
 

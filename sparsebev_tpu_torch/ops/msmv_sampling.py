@@ -70,8 +70,11 @@ a dtype a level, :func:`ring_update` writes an e4m3 level as the JAX ring does
 folds upcast an e4m3 gather to bf16 before its weights are cast to its dtype,
 so an e4m3 level samples as a bf16 level holding the same values. With level
 0 in e4m3 the output and accumulator are fp32 (``table_acc_dtype``) and each
-level's fold adds unrounded. On CUDA tensors the sampling kernel reads e4m3
-levels beside bf16 ones; the sampling backward takes no e4m3 table.
+level's fold adds unrounded. The other levels keep the frame's dtype, bf16
+or fp32; beside fp32 levels an e4m3 level still folds as bf16 (bf16 weights,
+products taken in fp32) and the fp32 levels as fp32. On CUDA tensors the
+sampling kernel reads e4m3 levels beside bf16 or fp32 ones; the sampling
+backward takes no e4m3 table.
 
 Chunk-split rings (``table_split``, streaming only, as in JAX): a split
 level of the ring is a tuple of ``split`` separate chunk buffers, each
@@ -871,8 +874,10 @@ def msmv_sampling(packed: PackedFeatures,
 
 
 msmv_sampling.launches = 0  # kernel launches (counted in _msmv_sampling_cuda)
-# the launches among them that read an e4m3 level, and a chunk-split one
+# the launches among them that read an e4m3 level beside bf16 tables, an
+# e4m3 level beside fp32 tables, and a chunk-split level
 msmv_sampling.e4m3_launches = 0
+msmv_sampling.e4m3_fp32_launches = 0
 msmv_sampling.split_launches = 0
 
 _SIGNATURE_SET = False
@@ -893,31 +898,31 @@ def _lib():
 
 def sample_table_dtypes(dtypes):
     """The tables' dtype as the sampling kernel reads it, and which levels
-    are e4m3: ``dtypes`` is one dtype or one a level. e4m3 levels read as
-    bf16 levels holding the same values, so beside them every other level
-    must be bf16 (an all-e4m3 ring reads as bf16). Raises ``ValueError``
-    for a mix the kernel does not take."""
+    are e4m3: ``dtypes`` is one dtype or one a level. The levels that are
+    not e4m3 share one dtype, bf16 or fp32 (a streaming ring keeps the
+    frame's dtype for them); an e4m3 level folds as a bf16 level holding
+    the same values (its weights round to bf16) at the lane width of that
+    dtype, and an all-e4m3 ring reads as bf16. Raises ``ValueError`` for a
+    mix the kernel does not take."""
     if isinstance(dtypes, torch.dtype):
         dtypes = (dtypes,)
     fp8 = tuple(d == E4M3 for d in dtypes)
     base = {d for d in dtypes if d != E4M3}
     if len(base) > 1:
         raise ValueError(f"msmv_sampling: tables of one dtype (or e4m3 "
-                         f"beside bf16), not {sorted(map(str, base))}")
-    base = base.pop() if base else torch.bfloat16
-    if any(fp8) and base != torch.bfloat16:
-        raise ValueError(f"msmv_sampling: e4m3 levels read as bf16, so the "
-                         f"other levels must be bf16, not {base}")
-    return base, fp8
+                         f"beside it), not {sorted(map(str, base))}")
+    return (base.pop() if base else torch.bfloat16), fp8
 
 
 def sample_lanes_per_point(channels: int, dtype) -> int:
     """How many lanes of a warp share one sampling point in the kernel
     (:func:`~.msmv_onehot.lanes_per_point`: 16 bytes a lane; C=64 takes 8
     lanes in bf16 and 16 in fp32). ``dtype``: the tables' dtype or one a
-    level; an e4m3 level keeps a bf16 lane's channels (8 a lane, 8 bytes
-    read where a bf16 lane reads 16, see :func:`sample_table_dtypes`).
-    Raises ``ValueError`` for what the kernel does not take."""
+    level; an e4m3 level keeps the lane's channels of the other levels'
+    dtype (:func:`sample_table_dtypes`): 8 a lane beside bf16 levels (8
+    bytes read where a bf16 lane reads 16), 4 beside fp32 ones (4 bytes
+    where an fp32 lane reads 16). Raises ``ValueError`` for what the kernel
+    does not take."""
     return lanes_per_point(channels, sample_table_dtypes(dtype)[0],
                            "msmv_sampling")
 
@@ -1027,7 +1032,8 @@ def _msmv_sampling_cuda(packed, loc, sw):
             stream)
     build.check(lib, "msmv_sample", rc)
     msmv_sampling.launches += 1
-    msmv_sampling.e4m3_launches += any(fp8)
+    msmv_sampling.e4m3_launches += any(fp8) and dtype == torch.bfloat16
+    msmv_sampling.e4m3_fp32_launches += any(fp8) and dtype == torch.float32
     msmv_sampling.split_launches += any(sp > 1 for sp in packed.split)
     return out
 

@@ -4,8 +4,9 @@
 The JAX package shards the batch over a device mesh and lets XLA insert the
 collectives; here every rank is a process with one card (NCCL) or the CPU
 (gloo), and the collectives are explicit. The mesh functions become process
-groups: :func:`make_group` (the JAX ``make_mesh``) and
-:func:`make_hybrid_groups`
+groups: :func:`make_group` (the JAX ``make_mesh``),
+:func:`make_group_for_batch` (``make_mesh_for_batch``: the first ranks, as
+many as divide the global batch) and :func:`make_hybrid_groups`
 (``make_hybrid_mesh``: dp x sp, a ``"data"`` group of the ranks that share
 a query range and a ``"q"`` group of the ranks that share a batch shard).
 :func:`shard_batch` takes a rank's slice of a batch and
@@ -85,6 +86,16 @@ def make_group(ranks: Sequence[int]):
     if len(ranks) == world_size():
         return dist.group.WORLD
     return dist.new_group(list(ranks))
+
+
+def make_group_for_batch(batch_size: int):
+    """The data group of a global batch (the JAX ``make_mesh_for_batch``):
+    the first ``n`` ranks, ``n`` the largest divisor of ``batch_size`` that
+    is at most the world, so that the batch shards evenly. Returns ``(group,
+    n)``. Every rank must call it; a rank ``>= n`` is no member of the
+    group and takes no part in the run (its caller leaves)."""
+    n = max(d for d in range(1, world_size() + 1) if batch_size % d == 0)
+    return make_group(range(n)), n
 
 
 @dataclass

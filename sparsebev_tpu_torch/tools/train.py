@@ -12,15 +12,20 @@ the process group that ``torchrun`` describes in the environment (NCCL on
 cards, gloo with ``--device cpu``; the JAX CLI's
 ``jax.distributed.initialize``) and trains data-parallel: ``cfg.batch_size``
 (or ``--batch-size``) is the global batch, as in JAX, and each rank loads
-its shard of it (the world must divide it). ``--query-shards n`` splits the
-ranks into dp x n groups (``parallel.make_hybrid_groups``): the batch over
-dp, each shard's decoder queries over n. Rank 0 logs, writes checkpoints
-and keeps the evaluation; every rank resumes from the same checkpoint.
+its shard of it. As in JAX (``make_mesh_for_batch``), the batch shards
+over the first n ranks, n the largest divisor of the batch that is at most
+the world (``parallel.make_group_for_batch``); the other ranks leave before
+the first step and take part in no collective. ``--query-shards n`` splits
+the ranks into dp x n groups (``parallel.make_hybrid_groups``; n must
+divide the world): the batch over dp, each shard's decoder queries over n.
+Rank 0 logs, writes checkpoints and keeps the evaluation; every rank of the
+run resumes from the same checkpoint.
 
     torchrun --nproc_per_node 8 -m sparsebev_tpu_torch.tools.train \
         --config CONFIG --multihost [--query-shards 2]
 
-``main(argv)`` runs in-process and returns the finished ``Runner``.
+``main(argv)`` runs in-process and returns the finished ``Runner`` (None on
+a rank that the batch leaves out).
 """
 
 from __future__ import annotations
@@ -102,13 +107,15 @@ def build_eval_fn(cfg, group=None):
 def main(argv: Optional[Sequence[str]] = None, extra_hooks=()):
     """Train as the command line says. ``extra_hooks`` are appended to the
     config's hooks (for in-process callers that watch the run). Returns the
-    ``Runner`` after its last epoch."""
+    ``Runner`` after its last epoch, or None on a rank outside the data
+    group."""
     args = parse_args(argv)
 
     from ..builder import build_dataloader, build_dataset
     from ..models.detector import build_detector
     from ..parallel import (init_from_env, is_main_process,
-                            make_hybrid_groups, rank, world_size)
+                            make_group_for_batch, make_hybrid_groups, rank,
+                            world_size)
     from ..train import hooks as H
     from ..train.optim import cosine_warmup_schedule, optimizer_from_config
     from ..train.runner import Runner
@@ -125,10 +132,12 @@ def main(argv: Optional[Sequence[str]] = None, extra_hooks=()):
     cfg = load_config(args.config, args.override, total_epochs=args.epochs,
                       batch_size=args.batch_size)
 
-    # the ranks: dp x sp groups with --query-shards, else data parallelism
-    # over every rank
+    # the ranks: dp x sp groups over every rank with --query-shards (JAX's
+    # hybrid mesh), else data parallelism over the largest world that
+    # divides the batch; the evaluation shards over the ranks that train
     world = world_size()
-    step_groups, data_group, data_index, dp = None, None, 0, 1
+    step_groups, data_group, eval_group, data_index, dp = (None, None, None,
+                                                          0, 1)
     if args.query_shards > 1:
         if world % args.query_shards:
             raise ValueError(f"--query-shards {args.query_shards} does not "
@@ -138,12 +147,18 @@ def main(argv: Optional[Sequence[str]] = None, extra_hooks=()):
                                     args.query_shards)
         step_groups = hybrid_step_groups(hybrid)
         data_group, data_index, dp = hybrid.data, hybrid.data_index, hybrid.dp
+        if cfg.batch_size % dp:
+            raise ValueError(f"a global batch of {cfg.batch_size} does not "
+                             f"shard over {dp} data-parallel ranks")
     elif world > 1:
-        step_groups = data_parallel_groups(None)
-        data_index, dp = rank(), world
-    if cfg.batch_size % dp:
-        raise ValueError(f"a global batch of {cfg.batch_size} does not shard "
-                         f"over {dp} data-parallel ranks")
+        data_group, dp = make_group_for_batch(cfg.batch_size)
+        if rank() >= dp:
+            logging.warning("rank %d leaves: a global batch of %d trains on "
+                            "%d of the %d ranks", rank(), cfg.batch_size, dp,
+                            world)
+            return None
+        step_groups = data_parallel_groups(data_group)
+        eval_group, data_index = data_group, rank()
 
     work_dir = args.work_dir or os.path.join(
         "outputs", os.path.splitext(os.path.basename(args.config))[0],
@@ -205,7 +220,7 @@ def main(argv: Optional[Sequence[str]] = None, extra_hooks=()):
     eval_interval = cfg.get("eval_config", {}).get("interval",
                                                    cfg.total_epochs)
     if eval_interval > 0:
-        eval_fn = build_eval_fn(cfg)
+        eval_fn = build_eval_fn(cfg, eval_group)
         if eval_fn is not None:
             hooks.append(H.EvalHook(interval=eval_interval, eval_fn=eval_fn))
     hooks.extend(extra_hooks)

@@ -76,8 +76,16 @@ def _resnet(sd, params, stats, prefix="img_backbone."):
 
 def _vovnet(sd, params, stats, prefix="img_backbone."):
     """JAX ``stem{k}`` / ``stage{n}_block{b}`` -> the reference's
-    ``stem.stem_{k}/...`` / ``stage{n}.OSA{n}_{b+1}....`` keys."""
+    ``stem.stem_{k}/...`` / ``stage{n}.OSA{n}_{b+1}....`` keys; a depthwise
+    ``ConvBNReLU`` (``dw_conv``, ``pw_conv``) -> the reference's
+    ``dw_conv3x3`` names, an OSA ``conv_reduction`` ->
+    ``conv_reduction.OSA{n}_{b+1}_reduction_0``."""
     def convbn(dst, p, s):
+        if "dw_conv" in p:
+            _conv(sd, f"{dst}/dw_conv3x3", p["dw_conv"]["kernel"])
+            _conv(sd, f"{dst}/pw_conv1x1", p["pw_conv"]["kernel"])
+            _bn(sd, f"{dst}/pw_norm", p["norm"], s["norm"])
+            return
         _conv(sd, f"{dst}/conv", p["conv"]["kernel"])
         _bn(sd, f"{dst}/norm", p["norm"], s["norm"])
 
@@ -93,6 +101,9 @@ def _vovnet(sd, params, stats, prefix="img_backbone."):
         tag = f"OSA{n}_{b}"
         dst = f"{prefix}stage{n}.{tag}"
         p, s = params[name], stats[name]
+        if "conv_reduction" in p:
+            convbn(f"{dst}.conv_reduction.{tag}_reduction_0",
+                   p["conv_reduction"], s["conv_reduction"])
         i = 0
         while f"layer{i}" in p:
             convbn(f"{dst}.layers.{i}.{tag}_{i}", p[f"layer{i}"],

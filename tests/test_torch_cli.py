@@ -309,6 +309,35 @@ def test_parallel_options_match_one_process(cli, argv, synth, tmp_path,
                                    atol=1e-4)
 
 
+def test_train_cli_on_three_ranks_trains_on_two(synth, tmp_path):
+    """``--multihost`` on three ranks at the smoke config's global batch of
+    2 (the JAX CLI's ``make_mesh_for_batch``): ranks 0 and 1 train as a
+    two-rank run does, bit for bit, with the ``EvalHook`` on their shards,
+    and rank 2 leaves before the first step (had it held a barrier or a
+    collective, the others would wait out their timeout)."""
+    runs = {}
+    for world in (2, 3):
+        root = tmp_path / f"world{world}"
+        root.mkdir()
+        work = root / "work"
+        run_ranks(cli_rank, world, root, "train", [
+            "--config", SMOKE, "--work-dir", str(work), "--device", "cpu",
+            "--multihost", "--override", f"data.train.ann_file={synth}",
+            f"data.val.ann_file={synth}"])
+        runs[world] = [torch.load(root / f"train_rank{r}.pt",
+                                  weights_only=False) for r in range(world)]
+        assert _checkpoints(work) == ["ckpt_2.pth"]
+    two, three = runs[2], runs[3]
+    assert three[2] == dict(left=True, metrics=[])
+    for r in (0, 1):
+        assert three[r]["step"] == two[r]["step"] == 2
+        assert three[r]["metrics"] == two[r]["metrics"]
+        for k, v in two[r]["params"].items():
+            assert torch.equal(three[r]["params"][k], v), k
+    assert set(two[0]["eval"]) >= {"NDS", "mAP"}
+    assert three[0]["eval"] == two[0]["eval"]
+
+
 def test_val_online_requires_batch_size_one():
     with pytest.raises(ValueError, match="batch-size 1"):
         val.main(["--config", SMOKE, "--device", "cpu", "--online",

@@ -1,8 +1,8 @@
 """fp8 streaming rings (``table_fp8``) in the port against the JAX package on
 the CPU: the e4m3 ring write (clip to +-448 in fp32, then round to nearest
 even) bit for bit, ``ring_table_dtypes``, the plain sampling over mixed e4m3 /
-bf16 rings (y-fold, pair and group-split levels) bit for bit against jitted
-JAX over rings filled from the same numpy features, the pre-quantized
+bf16 and e4m3 / fp32 rings (y-fold, pair and group-split levels) bit for bit
+against jitted JAX over rings filled from the same numpy features, the pre-quantized
 relation of JAX's ``test_ring_fp8_matches_prequantized``, a 3-sample stream
 of the small r50 model with an fp8 L0 ring against JAX's
 ``StreamingDetector``, and the port's ``fp8_drift`` tool."""
@@ -218,6 +218,19 @@ CASES = {
     # a group-split e4m3 level beside bf16 ones
     "e4m3_gsplit_level": dict(fp8=(False, True, False), yfold=(True,) * 3,
                               gsplit=(False, True, False), out="bfloat16"),
+    # fp32 frames (``compute_dtype="float32"``): the other levels stay
+    # fp32, the e4m3 level folds with bf16 weights, the output is fp32
+    "fp32_e4m3_l0": dict(fp8=(True, False, False), yfold=(True,) * 3,
+                         gsplit=False, out="float32", frame="float32"),
+    "fp32_e4m3_l1": dict(fp8=(False, True, False), yfold=(True,) * 3,
+                         gsplit=False, out="float32", frame="float32"),
+    "fp32_e4m3_pair_l0": dict(fp8=(True, False, False),
+                              yfold=(False, True, True), gsplit=False,
+                              out="float32", frame="float32"),
+    "fp32_e4m3_pair_l0_gsplit": dict(fp8=(True, False, False),
+                                     yfold=(False, True, True),
+                                     gsplit=(False, False, True),
+                                     out="float32", frame="float32"),
 }
 
 
@@ -247,9 +260,10 @@ def _dyadic_inputs(rng, q, s, p, t_slots):
 @pytest.mark.parametrize("case", sorted(CASES))
 def test_mixed_ring_sampling_matches_jax(case, inputs):
     """bf16 outputs bit for bit on any inputs; fp32 outputs (an e4m3 level
-    0) bit for bit where the fold is exact in fp32 (``_dyadic_inputs``), and
-    within 2e-7 of the output scale on random inputs, where jitted XLA's
-    FMAs round once where the port rounds twice."""
+    0, or fp32 frames beside an e4m3 level) bit for bit where the fold is
+    exact in fp32 (``_dyadic_inputs``), and within 2e-7 of the output scale
+    on random inputs, where jitted XLA's FMAs round once where the port
+    rounds twice."""
     spec = CASES[case]
     rng = np.random.RandomState(sorted(CASES).index(case))
     t_slots, slots_of_t = 3, [2, 0, 1]
@@ -261,7 +275,8 @@ def test_mixed_ring_sampling_matches_jax(case, inputs):
         feats = _feats(rng, t_slots, levels)
         loc = _locations(rng, q, s, p, levels)
         sw = rng.rand(q, s, p, len(levels)).astype(np.float32)
-    _, _, jview, tview = _rings(feats, t_slots, "bfloat16", spec["fp8"],
+    _, _, jview, tview = _rings(feats, t_slots,
+                                spec.get("frame", "bfloat16"), spec["fp8"],
                                 spec["yfold"], spec["gsplit"], slots_of_t)
     want = jax.jit(lambda r: jms.msmv_sampling(
         r, jnp.asarray(loc), jnp.asarray(sw), qmajor=True))(jview)

@@ -1,5 +1,6 @@
 """The port stands alone: no module of ``sparsebev_tpu_torch`` and nothing
-``chip_smoke.py`` loads imports ``jax`` or the JAX package, no module calls
+``chip_smoke.py`` loads imports ``jax`` or the JAX package (nor, outside
+the viz tools' ``main``, matplotlib), no module calls
 a library attention in place of its own kernel, and the smoke script refuses
 to run (printing no result) without a card or without the package beside
 it."""
@@ -66,6 +67,12 @@ def test_port_modules_import_without_jax():
     # data and query parallelism
     for mod in ("parallel", "parallel.mesh", "parallel.query_parallel"):
         assert f"sparsebev_tpu_torch.{mod}" in mods
+    # the side tools: the FPS CLI, the decoder dumps and the viz tools, the
+    # parity dry run and the loader bench
+    for mod in ("tools.timing", "utils.dump", "tools.viz_sample_points",
+                "tools.viz_bbox_predictions", "tools.parity",
+                "tools.loader_bench"):
+        assert f"sparsebev_tpu_torch.{mod}" in mods
     code = (
         "import sys\n"
         f"sys.path.insert(0, {REPO!r})\n"
@@ -77,11 +84,14 @@ def test_port_modules_import_without_jax():
         "             or m.startswith(('jax.', 'flax', 'jaxlib'))\n"
         "             or m == 'sparsebev_tpu'\n"
         "             or m.startswith('sparsebev_tpu.'))\n"
-        "print('BAD', bad)\n")
+        "print('BAD', bad)\n"
+        # the viz tools import matplotlib in their main only
+        "print('MPL', 'matplotlib' in sys.modules)\n")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, cwd=REPO, env=_clean_env(), timeout=300)
     assert out.returncode == 0, out.stderr[-3000:]
     assert "BAD []" in out.stdout, out.stdout
+    assert "MPL False" in out.stdout, out.stdout
 
 
 def test_port_sources_name_no_jax_import():

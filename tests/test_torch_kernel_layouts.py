@@ -58,6 +58,9 @@ def test_sampling_kernel_refuses(channels, dtype, match):
     # an e4m3 level keeps a bf16 lane's 8 channels (8 bytes read a lane)
     ((torch.float8_e4m3fn, torch.bfloat16, torch.bfloat16), 8),
     ((torch.bfloat16, torch.float8_e4m3fn), 8),
+    # beside fp32 levels an fp32 lane's 4 channels (4 bytes read a lane)
+    ((torch.float8_e4m3fn, torch.float32, torch.float32), 16),
+    ((torch.float32, torch.float8_e4m3fn), 16),
     ((torch.float8_e4m3fn,), 8),            # an all-e4m3 ring reads as bf16
     (torch.float8_e4m3fn, 8),
     ((torch.float32,) * 5, 16),
@@ -72,9 +75,10 @@ def test_sampling_e4m3_lane_map(dtypes, lanes):
 
 
 @pytest.mark.parametrize("dtypes,match", [
-    ((torch.float8_e4m3fn, torch.float32), "must be bf16"),
+    ((torch.float8_e4m3fn, torch.float32, torch.bfloat16),
+     "tables of one dtype"),
     ((torch.bfloat16, torch.float32), "tables of one dtype"),
-    ((torch.float8_e4m3fn, torch.float16), "must be bf16"),
+    ((torch.float8_e4m3fn, torch.float16), "no kernel for torch.float16"),
     ((torch.float8_e5m2, torch.bfloat16), "tables of one dtype"),
 ])
 def test_sampling_kernel_refuses_e4m3_mixes(dtypes, match):

@@ -11,8 +11,11 @@ augmentation off as in ``test_torch_runner.py``) on a global batch of 2.
 - query-sharded (dp 1 x sp 2): both ranks take the whole batch and split the
   41 decoder queries (16 denoising + 25) 21 / 20 between them.
 
-Each is held to the JAX step at B=2 (``jax.value_and_grad`` of the loss and
-the optax update of ``make_train_step``'s optimizer): the loss dict and the
+The same step in one process over the whole batch, and the train CLI's
+grouping of three ranks at the batch of 2 (two train, the third leaves),
+are held the same way. Each is held to the JAX step at B=2
+(``jax.value_and_grad`` of the loss and the optax update of
+``make_train_step``'s optimizer): the loss dict and the
 gradient norm, every parameter gradient, and the parameters after one AdamW
 step. Last, the train CLI's ``--multihost`` under a ``torchrun``
 environment of one gloo rank gives the bits of a run without it.
@@ -158,27 +161,40 @@ def world(tmp_path_factory):
                     variables["params"], CUSTOM_KEYS, frozen)), runs={})
 
 
-def _run(world, sp):
-    """The port's step over 2 ranks with ``sp`` query shards (cached)."""
-    if sp not in world["runs"]:
-        run_ranks(train_step_rank, 2, world["work"], sp)
-        out = torch.load(os.path.join(world["work"], f"step_sp{sp}.pt"))
+def _run(world, mode):
+    """The port's step over ``MODES[mode]`` = (ranks, query shards)
+    (cached)."""
+    if mode not in world["runs"]:
+        ranks, sp = MODES[mode]
+        if ranks == 1:      # no process group: the step in this process
+            train_step_rank(0, 1, world["work"], sp)
+        else:
+            run_ranks(train_step_rank, ranks, world["work"], sp)
+        out = torch.load(os.path.join(world["work"],
+                                      f"step_w{ranks}_sp{sp}.pt"))
         v = world["variables"]
         grads, _ = jax_trees_from_state_dict(out["grads"], v["params"],
                                              v["batch_stats"])
         params, _ = jax_trees_from_state_dict(out["params"], v["params"],
                                               v["batch_stats"])
-        world["runs"][sp] = dict(metrics=out["metrics"], grads=_flat(grads),
-                                 params=_flat(params))
-    return world["runs"][sp]
+        world["runs"][mode] = dict(metrics=out["metrics"],
+                                   grads=_flat(grads), params=_flat(params))
+    return world["runs"][mode]
 
 
-MODES = {"data_parallel": 1, "query_sharded": 2}
+# (ranks, query shards): two ranks data-parallel or query-sharded; three
+# ranks grouped as the train CLI groups them (sp None: the largest world
+# that divides the batch of 2, so two ranks train and the third leaves);
+# one process over the whole batch of 2, no process group (no
+# batch-dependent operation in the port's step: it meets JAX's batch of 2
+# as the split batch does)
+MODES = {"data_parallel": (2, 1), "query_sharded": (2, 2),
+         "three_ranks_batch_of_2": (3, None), "one_process_batch_of_2": (1, 1)}
 
 
 @pytest.mark.parametrize("mode", sorted(MODES))
 def test_two_rank_loss_dict_matches_jax_global_batch(world, mode):
-    got = _run(world, MODES[mode])["metrics"]
+    got = _run(world, mode)["metrics"]
     want = world["j_losses"]
     assert set(got) == set(want) | {"loss", "grad_norm"}
     for k, v in want.items():
@@ -195,7 +211,7 @@ def test_two_rank_gradients_match_jax_global_batch(world, mode):
     clip), leaf by leaf against ``jax.grad`` of the global-batch loss, to
     ``test_torch_train_step.py``'s share of each leaf's largest entry (the
     two frameworks' fp32 convolutions round differently)."""
-    got, want = _run(world, MODES[mode])["grads"], world["j_grads"]
+    got, want = _run(world, mode)["grads"], world["j_grads"]
     assert set(got) == set(want)
     for k, w in want.items():
         scale = np.abs(w).max()
@@ -212,7 +228,7 @@ def test_two_rank_adamw_step_matches_jax(world, mode):
     within rounding of zero Adam's ``g / (|g| + eps)`` is a full step either
     way, so those entries are bounded by the step size and the others are
     held within 0.2% of it."""
-    run = _run(world, MODES[mode])
+    run = _run(world, mode)
     lr0 = OPT["lr"] / 3
     clip_scale = min(1.0, GRAD_CLIP / world["j_grad_norm"])
     old = _flat(world["variables"]["params"])
@@ -230,6 +246,23 @@ def test_two_rank_adamw_step_matches_jax(world, mode):
         d = np.abs((got - old[k]) - (want - old[k]))
         assert bool((d[firm] <= tol[firm]).all()), k
         assert d.max() <= 2.05 * lr0 * mult, k
+
+
+def test_three_ranks_train_the_batch_of_2_on_two(world):
+    """Three ranks at a global batch of 2 (the JAX train CLI's
+    ``make_mesh_for_batch``): ranks 0 and 1 run the two-rank data-parallel
+    step bit for bit, and rank 2 leaves before the step, holding no
+    collective (if it held one, the ranks would wait out their timeout)."""
+    got = _run(world, "three_ranks_batch_of_2")
+    want = _run(world, "data_parallel")
+    assert got["metrics"] == want["metrics"]
+    for part in ("grads", "params"):
+        assert set(got[part]) == set(want[part])
+        for k, v in want[part].items():
+            np.testing.assert_array_equal(got[part][k], v, err_msg=k)
+    left = torch.load(os.path.join(world["work"], "left_rank2.pt"))
+    assert left == dict(world=3, dp=2)
+    assert not os.path.exists(os.path.join(world["work"], "left_rank1.pt"))
 
 
 def _free_port():

@@ -64,26 +64,38 @@ def train_step_rank(rank, world, workdir, sp, dropout=False):
     """One DN-on train step of the model, weights and global batch saved in
     ``workdir/step_inputs.pt``: data-parallel over ``world // sp`` ranks
     (each its slice of the batch and of the denoising draws) with the
-    queries over ``sp``, dropout off unless ``dropout``. Rank 0 saves the
-    metrics, the summed gradients (read before the clip) and the parameters
-    after the step."""
+    queries over ``sp``, dropout off unless ``dropout``; with ``sp`` None,
+    data-parallel over the ranks the train CLI takes for the batch
+    (``make_group_for_batch``), a rank outside them leaving at once (it
+    saves ``left_rank{r}.pt``). Rank 0 saves the metrics, the summed
+    gradients (read before the clip) and the parameters after the step in
+    ``step_w{world}_sp{sp}[_dropout].pt``."""
     from sparsebev_tpu_torch.models.detector import build_detector
-    from sparsebev_tpu_torch.parallel import make_hybrid_groups, shard_batch
+    from sparsebev_tpu_torch.parallel import (make_group_for_batch,
+                                              make_hybrid_groups, shard_batch)
     from sparsebev_tpu_torch.train import optim as toptim
     from sparsebev_tpu_torch.train import step as tstep
 
     inp = torch.load(os.path.join(workdir, "step_inputs.pt"))
+    if sp is None:
+        group, dp = make_group_for_batch(inp["batch"]["img"].shape[0])
+        if rank >= dp:
+            torch.save(dict(world=world, dp=dp),
+                       os.path.join(workdir, f"left_rank{rank}.pt"))
+            return
+        step_groups, d = tstep.data_parallel_groups(group), rank
+    else:
+        groups = make_hybrid_groups(world // sp, sp)
+        step_groups = (tstep.hybrid_step_groups(groups) if sp > 1
+                       else tstep.data_parallel_groups(groups.data))
+        d, dp = groups.data_index, groups.dp
     model = build_detector({"model": copy.deepcopy(inp["model"])},
                            device="cpu")
     model.load_state_dict(inp["state_dict"], strict=True)
     if not dropout:
         _no_dropout(model)
     opt, sched = toptim.build_optimizer(model, **inp["opt"])
-    groups = make_hybrid_groups(world // sp, sp)
-    step_groups = (tstep.hybrid_step_groups(groups) if sp > 1
-                   else tstep.data_parallel_groups(groups.data))
     step = tstep.make_train_step(**inp["step"], groups=step_groups)
-    d, dp = groups.data_index, groups.dp
     batch = shard_batch(inp["batch"], d, dp)
     draws = {"dn": shard_batch(inp["dn"], d, dp)}
 
@@ -107,7 +119,7 @@ def train_step_rank(rank, world, workdir, sp, dropout=False):
                         grads=grads,
                         params={k: v.detach().clone()
                                 for k, v in model.named_parameters()}),
-                   os.path.join(workdir, f"step_sp{sp}"
+                   os.path.join(workdir, f"step_w{world}_sp{sp}"
                                 f"{'_dropout' if dropout else ''}.pt"))
 
 
@@ -213,7 +225,8 @@ class MetricsRecorder:
 def cli_rank(rank, world, workdir, cli, argv):
     """The train or val CLI in a rank, with the torchrun environment set
     (the group is already up, so ``init_from_env`` joins it); rank r saves
-    the train CLI's step metrics or the val CLI's results."""
+    the train CLI's step metrics or the val CLI's results (a train rank
+    that the batch leaves out saves ``left=True``)."""
     os.environ.update(RANK=str(rank), WORLD_SIZE=str(world),
                       LOCAL_RANK=str(rank), MASTER_ADDR="127.0.0.1",
                       MASTER_PORT="1")
@@ -221,7 +234,12 @@ def cli_rank(rank, world, workdir, cli, argv):
     if cli == "train":
         rec = MetricsRecorder()
         runner = train.main(argv, extra_hooks=[rec])
+        if runner is None:
+            torch.save(dict(left=True, metrics=rec.metrics),
+                       os.path.join(workdir, f"{cli}_rank{rank}.pt"))
+            return
         out = dict(metrics=rec.metrics, step=runner.global_step,
+                   eval=runner.eval_results,
                    params={k: v.detach().clone() for k, v in
                            runner.state.model.named_parameters()})
     else:
