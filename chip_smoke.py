@@ -77,8 +77,8 @@ prints its wall time):
      must be finite and match a second run of the same stream that uses the
      plain versions (on the EVA02 paths the ring and the head replayed over
      it; see ``compare_with_plain``). Each path's breakdown also times a
-     first sample's T frame passes back to back. One more sample of the r50
-     and vov99 streams records the inputs of the next phase: an
+     first sample's T frame passes back to back. One more sample of the r50,
+     vov99 and eva02 streams records the inputs of the next phase: an
      ``AdaptiveMixing`` call's operands (a forward hook), and at r50 one
      sampling call's points and the sample's T frames of FPN maps. Then the
      port's ``tools/fp8_drift.py`` at vov99 (4 samples through a bf16 ring,
@@ -101,9 +101,13 @@ prints its wall time):
      version, timed beside the bound of those inputs and the share of
      windows that the points of one (query, slice) have in common); then
      the op-level entry points of the other kernels on the recorded
-     inputs: ``mixing_core`` and ``mixing_core_batched`` at r50 and vov99
-     (bf16 and fp32, each with its achieved bytes/s and share of its
-     bound), ``tap_fold_epilogue`` on windows gathered from the r50 ring.
+     inputs: ``mixing_core`` and ``mixing_core_batched`` at r50, vov99
+     and eva02 (P = 32, 60, 120; bf16 and fp32, both on the tensor cores,
+     fp32 in 3xTF32; each with its route's block, shared memory and
+     registers, its achieved bytes/s and share of its bound, fp32 beside
+     its bound both ways: 3xTF32 on the tensor cores and one product on
+     the FMA units), ``tap_fold_epilogue`` on windows gathered from the
+     r50 ring.
      Each phase's launch counts are reset just before its run and read
      just after;
   6. the training step of ``configs/r50_nuimg_704x256.py`` at full width
@@ -280,15 +284,16 @@ PATHS = (
          levels=[(160, 400), (80, 200), (40, 100), (20, 50), (10, 25)],
          yfold=(True,) * 5,
          gsplit=(False, False, False, True, False), t=15, q=1600, p=4),
-    # vov99's levels and packs (checked there); P=8, and no mixing run:
-    # its in-points (P * T = 120) take neither mixing kernel's fast route.
+    # vov99's levels and packs (checked there); P=8, so the mixing core's
+    # in-points are P * T = 120: its operands are recorded for phase 5,
+    # where both mixing routes run at that width (padded to 128).
     # Not ``exact``: the attention kernel is not bit-equal to its plain
     # version, so the end-to-end comparison is printed, not held (see
     # compare_with_plain), and so are step 1's probed gradients in training
     # (training_phase)
     dict(name="eva02", config="configs/vit_eva02_1600x640_trainval_future.py",
          samples=3, kernels=("pack", "pack_pair", "sampling", "attention"),
-         checks=("sampling", "attention"), capture=False, exact=False,
+         checks=("sampling", "attention"), exact=False,
          levels=[(160, 400), (80, 200), (40, 100), (20, 50), (10, 25)],
          yfold=(False, True, True, True, True),
          gsplit=(False, False, False, True, False), t=15, q=1600, p=8,
@@ -417,6 +422,22 @@ def _template_args(mangled: str) -> str:
     return ", ".join(out)
 
 
+def _kernel_ident(mangled: str):
+    """The kernel's name in a mangled entry (the identifier ending in
+    ``kernel`` whose length prefix matches it: the namespace before it may
+    end in digits, and the name may hold some) and what follows it; or
+    ``(None, None)``."""
+    for m in re.finditer(r"kernel(?=[IE])", mangled):
+        end = m.end()
+        for n in range(len("kernel"), end):
+            digits = str(n)
+            ident = mangled[end - n:end]
+            if mangled[end - n - len(digits):end - n] == digits \
+                    and re.fullmatch(r"[A-Za-z_]\w*", ident):
+                return ident, mangled[end:]
+    return None, None
+
+
 def ptxas_report(text: str):
     """Per kernel of one source's ``nvcc -Xptxas -v`` output: the template
     arguments of its entry (from the mangled name), registers, bytes of
@@ -427,10 +448,10 @@ def ptxas_report(text: str):
         if m:
             name = m.group(1)
             # _ZN..<len>kernel_nameI<template args>EEv<parameters>
-            k = re.search(r"\d+([a-z_]+kernel)I(.+?)EEv", name)
-            plain = re.search(r"\d+([a-z_]+kernel)E", name)  # no template
-            entry = dict(kernel=f"{k.group(1)}<{_template_args(k.group(2))}>"
-                         if k else plain.group(1) if plain else name,
+            ident, rest = _kernel_ident(name)
+            k = re.match(r"I(.+?)EEv", rest) if ident else None
+            entry = dict(kernel=f"{ident}<{_template_args(k.group(1))}>"
+                         if k else ident or name,
                          regs=0, smem=0, stack=0, spill_stores=0,
                          spill_loads=0)
             rows.append(entry)
@@ -1893,12 +1914,6 @@ HYBRID_VS_XLA_TOL = 2.0 ** -5
 # accumulator: again a few bf16 roundings (2^-5 of the output scale). In
 # fp32 only the order of the fp32 sums differs (1e-5 of the scale).
 TAP_FOLD_VS_SAMPLING_TOL = {"bfloat16": 2.0 ** -5, "float32": 1e-5}
-# mixing kernels vs plain: fp32 sums in another order. fp32: 1e-5 of the
-# output scale. bf16: h1 and the output are rounded to bf16, so an fp32
-# difference across a rounding boundary flips one bf16 ulp (2^-7 of the
-# value at most) of h1, which the second product and LN carry on, or of the
-# output: 2^-7 of each value plus 2^-8 of the output scale.
-MIXING_TOL = {"float32": (0.0, 1e-5), "bfloat16": (2.0 ** -7, 2.0 ** -8)}
 
 
 def _slice_feats(fpn, groups):
@@ -2286,25 +2301,72 @@ def check_tap_fold(torch, flush, bw, fp32_rate, cap):
         bound_by=bound_by, library_ms=None)
 
 
+def mixing_routes(torch, p):
+    """The mixing core's tensor-core route for each dtype at ``p``
+    in-points (C = 64, O = 128): its kernel, threads and dynamic shared
+    memory a block, blocks an SM, and what ptxas reported for its two
+    instantiations (two-pass and one-pass statistics). Printed; returned by
+    dtype name."""
+    from sparsebev_tpu_torch.kernels import build
+    from sparsebev_tpu_torch.ops import mixing
+    report = {r["kernel"]: r for r in ptxas_report(
+        build.BUILD_LOGS.get("mixing", ""))}
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    pp = mixing.padded_points(p)
+    routes = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        dname = str(dtype)[6:]
+        info = mixing.route_info(dtype, p)
+        kern = dict(mma="mixing_mma_kernel",
+                    tf32="mixing_tf32_kernel")[info["route"]]
+        ptx = [report.get(f"{kern}<{pp}, {flag}>")
+               for flag in ("true", "false")]
+        ptx_msg = "; ".join(
+            f"{stats}: {r['regs']} registers, {r['stack']} bytes stack "
+            f"frame, spills {r['spill_stores']} / {r['spill_loads']} bytes"
+            if r else f"{stats}: no ptxas report (built earlier)"
+            for stats, r in zip(("two-pass", "one-pass"), ptx))
+        per_sm = info["resident_blocks"] // sms
+        log(f"mixing route [P={p}] {dname}: {kern}<{pp}> "
+            f"({info['route']}): {info['threads']} threads, "
+            f"{info['smem_bytes']} bytes of dynamic shared memory a block, "
+            f"{per_sm} block(s) an SM ({info['resident_blocks']} on the "
+            f"card); ptxas {ptx_msg}")
+        routes[dname] = dict(
+            route=info["route"], kernel=f"{kern}<{pp}>",
+            threads=info["threads"], smem_bytes=info["smem_bytes"],
+            blocks_per_sm=per_sm,
+            registers=[r["regs"] if r else None for r in ptx],
+            spill_bytes=[r["spill_stores"] + r["spill_loads"] if r else None
+                         for r in ptx])
+    return routes
+
+
 def check_mixing(torch, flush, bw, fp32_rate, bf16_rate, name, xms):
     """``mixing_core`` (two-pass) and ``mixing_core_batched`` (one-pass) on
     one ``AdaptiveMixing`` call's operands of the ``name`` stream, as
     recorded (bf16) and in fp32: each entry point once (counted), then
     against the plain version within ``MIXING_TOL``, timed beside the
-    decoder's own chain (two ``torch.matmul`` and two ``_ln2d``)."""
+    decoder's own chain (two ``torch.matmul`` and two ``_ln2d``) and beside
+    its bound; in fp32 the bound both ways: three TF32 products on the
+    tensor cores (the fp32 route's own work) and one fp32 product on the
+    FMA units."""
     from sparsebev_tpu_torch.models.decoder import _ln2d
     from sparsebev_tpu_torch.ops import mixing
     torch.backends.cuda.matmul.allow_tf32 = False
     x, m, s = xms
     n, g, p, c = x.shape
     o = s.shape[2]
+    routes = mixing_routes(torch, p)
     entries = dict(mixing=(mixing.mixing_core, "twopass"),
                    mixing_batched=(mixing.mixing_core_batched, "onepass"))
     launches = dict.fromkeys(entries, 0)
     err = dict.fromkeys(entries, 0.0)
     result = {}
+    tf32_rate = bf16_rate / 2
     for dtype in (torch.bfloat16, torch.float32):
         dname = str(dtype)[6:]
+        route = mixing.mixing_route(dtype, p, c, o)
         xd, md, sd = (t.to(dtype).contiguous() for t in (x, m, s))
         for fn, _ in entries.values():
             fn.launches = 0
@@ -2312,7 +2374,7 @@ def check_mixing(torch, flush, bw, fp32_rate, bf16_rate, name, xms):
         torch.cuda.synchronize()
         for key, (fn, _) in entries.items():
             launches[key] += fn.launches
-        rtol, atol = MIXING_TOL[dname]
+        rtol, atol = mixing.MIXING_TOL[dname]
         for key, (fn, stats) in entries.items():
             got = outs[key]
             want = mixing.mixing_core_plain(xd, md, sd, stats=stats)
@@ -2323,7 +2385,7 @@ def check_mixing(torch, flush, bw, fp32_rate, bf16_rate, name, xms):
             diff = (got.float() - want.float()).abs()
             scale = max(1.0, want.float().abs().max().item())
             bad = diff > rtol * want.float().abs() + atol * scale
-            log(f"{key} [{name}] {dname}: max|kernel - plain| = "
+            log(f"{key} [{name}] {dname} ({route}): max|kernel - plain| = "
                 f"{diff.max().item():.4g} (output scale {scale:.4g}), "
                 f"{int((diff > 0).sum())} of {diff.numel()} differ, "
                 f"{int(bad.sum())} beyond the tolerance")
@@ -2341,9 +2403,25 @@ def check_mixing(torch, flush, bw, fp32_rate, bf16_rate, name, xms):
         nbytes = (xd.numel() + md.numel() + sd.numel() + items * o * c) \
             * xd.element_size()
         flops = 2 * items * (p * c * c + o * p * c)
-        rate = bf16_rate if dtype == torch.bfloat16 else fp32_rate
-        bound_ms = max(nbytes / bw, flops / rate) * 1e3
-        bound_by = "bytes" if nbytes / bw >= flops / rate else "operations"
+        if dtype == torch.bfloat16:
+            bound_ms = max(nbytes / bw, flops / bf16_rate) * 1e3
+            bound_by = "bytes" if nbytes / bw >= flops / bf16_rate \
+                else "operations"
+            both = ""
+        else:
+            tc_ms = max(nbytes / bw, 3 * flops / tf32_rate) * 1e3
+            tc_by = "bytes" if nbytes / bw >= 3 * flops / tf32_rate \
+                else "operations"
+            fma_ms = max(nbytes / bw, flops / fp32_rate) * 1e3
+            fma_by = "bytes" if nbytes / bw >= flops / fp32_rate \
+                else "operations"
+            bound_ms, bound_by = ((tc_ms, tc_by) if route == "tf32"
+                                  else (fma_ms, fma_by))
+            both = (f"; the fp32 bound both ways: 3xTF32 {tc_ms:.4f} ms by "
+                    f"{tc_by} (3 x {flops / 1e9:.2f} GFLOP at "
+                    f"{tf32_rate / 1e12:.1f} TFLOP/s), one product on the "
+                    f"FMA units {fma_ms:.4f} ms by {fma_by} "
+                    f"({fp32_rate / 1e12:.0f} TFLOP/s)")
         chain_ms = time_ms(torch, chain, 20, flush, PLAIN_BUSY_CYCLES)
         for key, (fn, stats) in entries.items():
             kern = time_ms(torch, lambda: fn(xd, md, sd), 30, flush)
@@ -2351,29 +2429,261 @@ def check_mixing(torch, flush, bw, fp32_rate, bf16_rate, name, xms):
                 xd, md, sd, stats=stats), 20, flush, PLAIN_BUSY_CYCLES)
             rate_gbs = nbytes / kern / 1e6
             share = bound_ms / kern
-            log(f"{key} [{name}] {dname} "
-                f"({mixing.mixing_route(dtype, p, c, o)} kernel): {items} "
+            log(f"{key} [{name}] {dname} ({route} kernel): {items} "
                 f"items (BQ={n}, G={g}, P={p}, C={c}, O={o}) "
                 f"{kern:.4f} ms (plain {plain:.4f} ms; the decoder's chain "
                 f"{chain_ms:.4f} ms), bound {bound_ms:.4f} ms by {bound_by} "
                 f"({nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP): "
                 f"{rate_gbs:.0f} GB/s achieved, {100 * share:.1f}% of the "
-                "bound")
+                f"bound{both}")
             if dtype == torch.bfloat16:
                 result[key] = dict(ms=kern, plain_ms=plain, bound_ms=bound_ms,
                                    bound_by=bound_by, library_ms=None,
                                    chain_ms=chain_ms, gbytes_per_s=rate_gbs,
-                                   bound_share=share)
+                                   bound_share=share, route=route,
+                                   route_info=routes)
             else:
-                result[key].update(fp32_ms=kern, fp32_bound_ms=bound_ms,
-                                   fp32_gbytes_per_s=rate_gbs,
-                                   fp32_bound_share=share)
+                result[key].update(
+                    fp32_ms=kern, fp32_plain_ms=plain,
+                    fp32_chain_ms=chain_ms, fp32_route=route,
+                    fp32_bound_ms=bound_ms, fp32_bound_by=bound_by,
+                    fp32_tf32_bound_ms=tc_ms, fp32_fma_bound_ms=fma_ms,
+                    fp32_gbytes_per_s=rate_gbs, fp32_bound_share=share)
         del xd, md, sd, outs
     for key, v in launches.items():
         if v <= 0:
             fail(f"kernel {key} was never launched in its run [{name}]")
         result[key]["max_abs_err"] = err[key]
     return launches, result
+
+
+# the mixing core's shapes in the configs: (path, BQ, P) with G = 4,
+# C = 64, O = 128
+MIXING_SHAPES = (("r50", 900, 32), ("vov99", 1600, 60), ("eva02", 1600, 120))
+
+
+def mixing_operands(torch, dev, bq, p, c=64, seed=4):
+    """Seeded bf16 operands of the mixing core at ``(bq, p, c)``: x from
+    N(0, 1), m at 1/sqrt(c) and s at 1/sqrt(p) of that, as the recorded
+    ones scale."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn((bq, 4, p, c), generator=gen, device=dev)
+    m = torch.randn((bq, 4, c, c), generator=gen, device=dev) / math.sqrt(c)
+    s = torch.randn((bq, 4, 128, p), generator=gen, device=dev) / math.sqrt(p)
+    return [t.to(torch.bfloat16).contiguous() for t in (x, m, s)]
+
+
+# shapes no config gives the mixing core, one for each route and row copy
+# the configs' shapes leave out: (dtype, P, C, the route); O = 128. The
+# configs' P (32, 60, 120) give rows of s of 16 bytes in fp32 and of 16
+# and 8 bytes in bf16.
+MIXING_OTHER_SHAPES = (
+    ("bfloat16", 30, 64, "mma"),    # 60-byte rows of s: 4-byte copies
+    ("float32", 30, 64, "tf32"),    # 120-byte rows: 8-byte copies
+    ("float32", 7, 64, "tf32"),     # 28-byte rows: 4-byte copies
+    ("bfloat16", 7, 64, "fma"),     # odd P in bf16
+    ("float32", 130, 64, "fma"),    # more in-points than the widest kernel
+    ("float32", 32, 32, "fma"),     # another group width
+)
+
+
+def check_mixing_shapes(torch, dev, bq=64):
+    """Both mixing entry points at ``MIXING_OTHER_SHAPES`` on seeded
+    operands (``bq`` queries, four groups): each shape on the route it
+    names, within ``MIXING_TOL`` of the plain version; each route's
+    launches held above 0. Untimed. Returns the entries' launches, and per
+    entry its largest difference and the launches by route."""
+    from sparsebev_tpu_torch.ops import mixing
+    entries = dict(mixing=(mixing.mixing_core, "twopass"),
+                   mixing_batched=(mixing.mixing_core_batched, "onepass"))
+    for fn, _ in entries.values():
+        fn.launches = 0
+    for route in mixing.route_launches:
+        mixing.route_launches[route] = 0
+    err = dict.fromkeys(entries, 0.0)
+    for dname, p, c, want_route in MIXING_OTHER_SHAPES:
+        dtype = getattr(torch, dname)
+        route = mixing.mixing_route(dtype, p, c, 128)
+        if route != want_route:
+            fail(f"mixing [{dname} P={p} C={c}]: route {route}, not "
+                 f"{want_route}")
+        xd, md, sd = (t.to(dtype).contiguous()
+                      for t in mixing_operands(torch, dev, bq, p, c))
+        rtol, atol = mixing.MIXING_TOL[dname]
+        for key, (fn, stats) in entries.items():
+            got = fn(xd, md, sd).float()
+            want = mixing.mixing_core_plain(xd, md, sd, stats=stats).float()
+            diff = (got - want).abs()
+            scale = max(1.0, want.abs().max().item())
+            bad = int((diff > rtol * want.abs() + atol * scale).sum())
+            log(f"{key} [{dname} P={p} C={c}] ({route}): max|kernel - "
+                f"plain| = {diff.max().item():.4g} (output scale "
+                f"{scale:.4g}), {bad} beyond the tolerance")
+            if bad or not bool(torch.isfinite(got).all()):
+                fail(f"{key} kernel [{dname} P={p} C={c}, {route}] differs "
+                     "from its plain version beyond the tolerance")
+            err[key] = max(err[key], diff.max().item())
+        del xd, md, sd
+    launches = {key: fn.launches for key, (fn, _) in entries.items()}
+    log(f"mixing other shapes: launches {launches}, by route "
+        f"{mixing.route_launches}")
+    for route, v in mixing.route_launches.items():
+        if v <= 0:
+            fail(f"the mixing core's {route} route was never launched at "
+                 "the other shapes")
+    return launches, {key: dict(max_abs_err=err[key],
+                                route_launches=dict(mixing.route_launches))
+                      for key in entries}
+
+
+def other_library(other, source):
+    """``sparsebev_tpu_torch/csrc/<source>.cu`` of the checkout at
+    ``other`` (another commit unpacked with ``git archive`` into a
+    gitignored directory), built with this checkout's flags into
+    ``BUILD_DIR/lib<source>_other.so`` and loaded."""
+    import ctypes
+    from sparsebev_tpu_torch.kernels import build
+    src = os.path.join(os.path.abspath(other),
+                       f"sparsebev_tpu_torch/csrc/{source}.cu")
+    lib_path = os.path.join(build.BUILD_DIR, f"lib{source}_other.so")
+    os.makedirs(build.BUILD_DIR, exist_ok=True)
+    out = subprocess.run([build.find_nvcc(), *build.NVCC_FLAGS, "-o",
+                          lib_path, src], capture_output=True, text=True,
+                         timeout=600)
+    if out.returncode != 0:
+        fail(f"nvcc failed for {src}:\n{out.stdout}{out.stderr}")
+    return ctypes.CDLL(lib_path)
+
+
+def mixing_ab(other, reps=30):
+    """The mixing core of this checkout against the one of the checkout at
+    ``other`` (``git archive`` of another commit in a gitignored directory)
+    on one card, on seeded operands at ``MIXING_SHAPES`` in bf16 and fp32,
+    both entry points, each library on the route it takes for those
+    operands: where both take the same kernel the outputs must be
+    bit-equal, else both are held to the plain version within
+    ``MIXING_TOL``; then timed in turns (other, this, this, other; CUDA
+    events, L2 flushed, median of ``reps`` calls each) (``python3 -c
+    "import chip_smoke; chip_smoke.mixing_ab('outputs/parent')"``)."""
+    import torch
+    sys.path.insert(0, HERE)
+    from sparsebev_tpu_torch.kernels import build
+    from sparsebev_tpu_torch.ops import mixing
+    dev = torch.device("cuda", 0)
+    log(f"mixing_ab [{other}]: {nvidia_smi_line()}")
+    libs = dict(other=other_library(other, "mixing"), this=mixing._lib())
+    for name in ("mixing_core_twopass", "mixing_core_onepass"):
+        fn = getattr(libs["other"], name)
+        fn.argtypes = getattr(libs["this"], name).argtypes
+        fn.restype = getattr(libs["this"], name).restype
+
+    def padded(label, dtype, p):
+        # this checkout's tensor-core width where the library takes it for
+        # these operands (asked with no items, which launches nothing),
+        # else 0, the FMA kernel
+        route = mixing.mixing_route(dtype, p, 64, 128)
+        if route == "fma":
+            return 0
+        pp = mixing.padded_points(p)
+        rc = libs[label].mixing_core_twopass(
+            None, None, None, None, 0, p, 64, 128,
+            int(dtype == torch.bfloat16), pp, mixing.EPS, None)
+        return pp if rc == 0 else 0
+
+    def call(label, two_pass, x, m, s):
+        bq, g, p, c = x.shape
+        res = torch.empty((bq, g, 128, c), dtype=x.dtype, device=dev)
+        lib = libs[label]
+        fn = lib.mixing_core_twopass if two_pass else lib.mixing_core_onepass
+        rc = fn(x.data_ptr(), m.data_ptr(), s.data_ptr(), res.data_ptr(),
+                bq * g, p, c, 128, int(x.dtype == torch.bfloat16),
+                padded(label, x.dtype, p), mixing.EPS,
+                torch.cuda.current_stream(dev).cuda_stream)
+        build.check(lib, "mixing", rc)
+        return res
+
+    flush = torch.empty(64 * 2**20, dtype=torch.int32, device=dev)
+    for pname, bq, p in MIXING_SHAPES:
+        operands = mixing_operands(torch, dev, bq, p)
+        for dtype in (torch.bfloat16, torch.float32):
+            dname = str(dtype)[6:]
+            xd, md, sd = (t.to(dtype).contiguous() for t in operands)
+            rtol, atol = mixing.MIXING_TOL[dname]
+            for two_pass in (True, False):
+                stats = "twopass" if two_pass else "onepass"
+                routes = {label: (f"tensor cores at {pp}" if pp else
+                                  "fma")
+                          for label in ("other", "this")
+                          for pp in [padded(label, dtype, p)]}
+                outs = {label: call(label, two_pass, xd, md, sd)
+                        for label in ("other", "this")}
+                torch.cuda.synchronize()
+                if routes["other"] == routes["this"]:
+                    held = _bit_equal(torch, outs["this"], outs["other"])
+                    what = f"outputs bit-equal {held}"
+                else:
+                    want = mixing.mixing_core_plain(xd, md, sd, stats=stats)
+                    scale = max(1.0, want.float().abs().max().item())
+                    gaps = {label: (o.float() - want.float()).abs()
+                            for label, o in outs.items()}
+                    held = all(not bool((d > rtol * want.float().abs()
+                                         + atol * scale).any())
+                               for d in gaps.values())
+                    what = ("max|kernel - plain| " + ", ".join(
+                        f"{label} {d.max().item():.4g}"
+                        for label, d in gaps.items())
+                        + f" (output scale {scale:.4g}), within the "
+                        f"tolerance {held}")
+                runs = []
+                for label in ("other", "this", "this", "other"):
+                    runs.append((label, time_ms(
+                        torch, lambda: call(label, two_pass, xd, md, sd),
+                        reps, flush)))
+                log(f"mixing_ab [{pname} P={p} {dname} {stats}]: routes "
+                    f"other {routes['other']}, this {routes['this']}; "
+                    f"{what}; ms: "
+                    + ", ".join(f"{label} {t:.4f}" for label, t in runs))
+                if not held:
+                    fail(f"mixing_ab [{pname} {dname} {stats}]: outputs "
+                         "differ")
+            del xd, md, sd
+        del operands
+        torch.cuda.empty_cache()
+
+
+def bringup_slice17(other=None):
+    """The mixing core's redesign alone: build ``mixing.cu``, print what
+    ptxas reports per kernel, then each shape of ``MIXING_SHAPES`` on
+    seeded operands through :func:`check_mixing` (both entry points in
+    bf16 and fp32 against the plain version, the routes' blocks and
+    registers, timed beside the bounds), and :func:`check_mixing_shapes`;
+    with ``other``, :func:`mixing_ab`
+    against that checkout (``python3 -c "import chip_smoke;
+    chip_smoke.bringup_slice17('outputs/parent')"``)."""
+    import torch
+    sys.path.insert(0, HERE)
+    from sparsebev_tpu_torch.kernels import build
+    dev = torch.device("cuda", 0)
+    log(nvidia_smi_line())
+    t0 = time.perf_counter()
+    logs = build.build_all(["mixing"])
+    log(f"build: mixing.cu in {time.perf_counter() - t0:.1f} s")
+    for r in ptxas_report(logs["mixing"]):
+        log(f"ptxas[mixing]: {r['kernel']}: {r['regs']} registers, "
+            f"{r['stack']} bytes stack frame, spills {r['spill_stores']} / "
+            f"{r['spill_loads']} bytes")
+    bw, fp32_rate, bf16_rate = peaks(torch.cuda.get_device_name(0))
+    flush = torch.empty(64 * 2**20, dtype=torch.int32, device=dev)
+    with torch.inference_mode():
+        for pname, bq, p in MIXING_SHAPES:
+            check_mixing(torch, flush, bw, fp32_rate, bf16_rate,
+                         f"{pname} seeded", mixing_operands(torch, dev, bq,
+                                                            p))
+            torch.cuda.empty_cache()
+        check_mixing_shapes(torch, dev)
+    del flush
+    if other is not None:
+        mixing_ab(other)
 
 
 # ------------------------------------------------------------- phase 6 --
@@ -4058,20 +4368,10 @@ def backward_ab(other, reps=10):
     import ctypes
     import torch
     sys.path.insert(0, HERE)
-    from sparsebev_tpu_torch.kernels import build
     from sparsebev_tpu_torch.ops import eva_attention as ea
     dev = torch.device("cuda", 0)
     log(f"backward_ab [{other}]: {nvidia_smi_line()}")
-    src = os.path.join(os.path.abspath(other),
-                       "sparsebev_tpu_torch/csrc/eva_attention.cu")
-    lib_path = os.path.join(build.BUILD_DIR, "libeva_attention_other.so")
-    os.makedirs(build.BUILD_DIR, exist_ok=True)
-    out = subprocess.run([build.find_nvcc(), *build.NVCC_FLAGS, "-o",
-                          lib_path, src], capture_output=True, text=True,
-                         timeout=600)
-    if out.returncode != 0:
-        fail(f"nvcc failed for {src}:\n{out.stdout}{out.stderr}")
-    lib = ctypes.CDLL(lib_path)
+    lib = other_library(other, "eva_attention")
     vp, ci = ctypes.c_void_p, ctypes.c_int
     lib.eva_attention_backward.argtypes = [vp] * 10 + [ci] * 4 + [vp]
     lib.eva_attention_backward.restype = ci
@@ -4140,23 +4440,12 @@ def sampling_ab(other, reps=30):
     bit-equal, then timed in turns (other, this, this, other; CUDA events,
     L2 flushed, median of ``reps`` calls each) (``python3 -c "import
     chip_smoke; chip_smoke.sampling_ab('outputs/parent')"``)."""
-    import ctypes
     import torch
     sys.path.insert(0, HERE)
-    from sparsebev_tpu_torch.kernels import build
     from sparsebev_tpu_torch.ops import msmv_sampling as ms
     dev = torch.device("cuda", 0)
     log(f"sampling_ab [{other}]: {nvidia_smi_line()}")
-    src = os.path.join(os.path.abspath(other),
-                       "sparsebev_tpu_torch/csrc/msmv_sample.cu")
-    lib_path = os.path.join(build.BUILD_DIR, "libmsmv_sample_other.so")
-    os.makedirs(build.BUILD_DIR, exist_ok=True)
-    out = subprocess.run([build.find_nvcc(), *build.NVCC_FLAGS, "-o",
-                          lib_path, src], capture_output=True, text=True,
-                         timeout=600)
-    if out.returncode != 0:
-        fail(f"nvcc failed for {src}:\n{out.stdout}{out.stderr}")
-    libs = dict(other=ctypes.CDLL(lib_path), this=ms._lib())
+    libs = dict(other=other_library(other, "msmv_sample"), this=ms._lib())
     fn = libs["other"].msmv_sample_forward
     fn.argtypes = libs["this"].msmv_sample_forward.argtypes
     fn.restype = libs["this"].msmv_sample_forward.restype
@@ -5593,6 +5882,9 @@ def main() -> int:
                 captured[pname].pop("mixing"))
             for key, m in res.items():
                 measured[key][pname] = m
+        launches["mixing other shapes"], res = check_mixing_shapes(torch, dev)
+        for key, m in res.items():
+            measured[key]["other shapes"] = m
         launches[f"tap_fold {source}"], measured["tap_fold"][source] = \
             check_tap_fold(torch, flush, bw, fp32_rate, captured[source])
     del captured

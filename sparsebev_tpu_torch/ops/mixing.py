@@ -12,6 +12,13 @@ Shapes: ``x [BQ, G, P, C]``, ``m [BQ, G, C, C]``, ``s [BQ, G, O, P]`` ->
 LN (fp32 statistics, eps 1e-5); h1 is rounded to the input dtype before the
 second product.
 
+On the card, :func:`mixing_route` picks one of the source's three kernels
+by dtype and shape: at the decoder's widths (C = 64, O = 128) and up to 128
+in-points (every config: P = 32, 60, and 120 for EVA02's 8 points x 15
+frames), bf16 runs on bf16 tensor cores and fp32 on TF32 tensor cores in
+3xTF32 (three TF32 products a step, fp32 accuracy); other shapes take an
+fp32 FMA kernel.
+
 As in the JAX package, the decoder does not call it: its bf16 matmuls round
 ``x @ m`` and ``s @ h1`` to bf16 before each LN
 (``models/decoder.py::AdaptiveMixing``), which these ops do not, so wiring
@@ -101,38 +108,53 @@ def mixing_core_batched(x: torch.Tensor, m: torch.Tensor,
 
 
 mixing_core_batched.launches = 0  # kernel launches (in _mixing_cuda)
+# launches of either entry point by the route that took them
+route_launches = dict(mma=0, tf32=0, fma=0)
 
-# the tensor-core kernel of csrc/mixing.cu: mma.sync tiles are 16 deep, and
-# it is instantiated for the decoder's group width and out points
-_MMA_TILE = 16
+# the tensor-core kernels of csrc/mixing.cu: instantiated for the decoder's
+# group width and out points at three padded in-point widths (r50's 32,
+# vov99's 60 -> 64, EVA02's 120 -> 128)
+_MMA_WIDTHS = (32, 64, 128)
 _MMA_CHANNELS = 64
 _MMA_OUT_POINTS = 128
-_MMA_MAX_POINTS = 64
+# kernels vs plain, fp32 sums in another order (and in 3xTF32 on the fp32
+# route): (rtol, atol of the output scale). fp32: 1e-5 of the output scale.
+# bf16: h1 and the output are rounded to bf16, so an fp32 difference across
+# a rounding boundary flips one bf16 ulp (2^-7 of the value at most) of h1,
+# which the second product and LN carry on, or of the output: 2^-7 of each
+# value plus 2^-8 of the output scale.
+MIXING_TOL = {"float32": (0.0, 1e-5), "bfloat16": (2.0 ** -7, 2.0 ** -8)}
 
 
 def padded_points(p: int) -> int:
-    """``p`` in-points rounded up to the tensor-core tile depth: the rows
-    of ``x @ m`` and the depth of ``s @ h1`` that the kernel computes. The
-    padding is zeros in the second product and stays out of both LNs, whose
-    statistics run over exactly ``p * C`` and ``O * C`` values."""
-    if p < 1:
-        raise ValueError(f"mixing_core: {p} in-points")
-    return -(-p // _MMA_TILE) * _MMA_TILE
+    """``p`` in-points rounded up to the next tensor-core kernel width (32,
+    64 or 128): the rows of ``x @ m`` and the depth of ``s @ h1`` that the
+    kernels compute. The padding is zeros in the second product and stays
+    out of both LNs, whose statistics run over exactly ``p * C`` and
+    ``O * C`` values."""
+    if not 1 <= p <= _MMA_WIDTHS[-1]:
+        raise ValueError(f"mixing_core: {p} in-points, no tensor-core "
+                         f"kernel takes them")
+    return next(w for w in _MMA_WIDTHS if p <= w)
 
 
 def mixing_route(dtype: torch.dtype, p: int, c: int, o: int) -> str:
-    """Which kernel of ``csrc/mixing.cu`` takes these operands: ``"mma"``
-    (bf16 tensor cores, asynchronous copies) for bf16 at ``C = 64``,
-    ``O = 128`` and an even ``P <= 64`` (a row of ``s`` must be a whole
-    number of 4-byte copies), else ``"fma"`` (fp32 FMA loops: fp32 inputs
-    keep full fp32, and bf16 at other shapes)."""
+    """Which kernel of ``csrc/mixing.cu`` takes these operands. At
+    ``C = 64``, ``O = 128`` and ``P`` padded to at most 128 (every config):
+    ``"mma"`` for bf16 with an even ``P`` (bf16 tensor cores; a row of
+    ``s`` must be a whole number of 4-byte copies), ``"tf32"`` for fp32
+    (3xTF32 on the tensor cores, fp32 accuracy). Else ``"fma"`` (fp32 FMA
+    loops), a route by shape that no config takes."""
     if dtype not in (torch.bfloat16, torch.float32):
         raise ValueError(f"mixing_core: no kernel for {dtype}")
-    if dtype == torch.bfloat16 and c == _MMA_CHANNELS \
-            and o == _MMA_OUT_POINTS and p % 2 == 0 \
-            and padded_points(p) <= _MMA_MAX_POINTS:
-        return "mma"
+    if c == _MMA_CHANNELS and o == _MMA_OUT_POINTS \
+            and p <= _MMA_WIDTHS[-1]:
+        if dtype == torch.float32:
+            return "tf32"
+        if p % 2 == 0:
+            return "mma"
     return "fma"
+
 
 _SIGNATURE_SET = False
 
@@ -146,6 +168,8 @@ def _lib():
             fn.argtypes = [vp, vp, vp, vp, ctypes.c_longlong, ci, ci, ci, ci,
                            ci, ctypes.c_float, vp]
             fn.restype = ci
+        lib.mixing_route_info.argtypes = [ci, ci, ci, vp]
+        lib.mixing_route_info.restype = ci
         _SIGNATURE_SET = True
     return lib
 
@@ -171,9 +195,9 @@ def _mixing_cuda(x, m, s, two_pass: bool) -> torch.Tensor:
             raise ValueError(f"mixing_core: {name} must be contiguous "
                              f"{x.dtype} on {dev}")
     out = torch.empty((bq, g, o, c), dtype=x.dtype, device=dev)
-    if route == "mma" and any(t.data_ptr() % 16 for t in (x, m, s, out)):
+    padded = 0 if route == "fma" else padded_points(p)
+    if padded and any(t.data_ptr() % 16 for t in (x, m, s, out)):
         raise ValueError("mixing_core: operands must be 16-byte aligned")
-    padded = padded_points(p) if route == "mma" else 0
     lib = _lib()
     fn = lib.mixing_core_twopass if two_pass else lib.mixing_core_onepass
     with torch.cuda.device(dev):
@@ -186,4 +210,24 @@ def _mixing_cuda(x, m, s, two_pass: bool) -> torch.Tensor:
         mixing_core.launches += 1
     else:
         mixing_core_batched.launches += 1
+    route_launches[route] += 1
     return out
+
+
+def route_info(dtype: torch.dtype, p: int, two_pass: bool = True) -> dict:
+    """What the tensor-core route for ``dtype`` at ``p`` in-points (C = 64,
+    O = 128) launches on the current card: threads and bytes of dynamic
+    shared memory a block, and the blocks the card holds at once (its
+    persistent grid). Builds the library; launches nothing."""
+    route = mixing_route(dtype, p, _MMA_CHANNELS, _MMA_OUT_POINTS)
+    if route == "fma":
+        raise ValueError(f"mixing_core: no tensor-core route for {dtype} "
+                         f"at P = {p}")
+    lib = _lib()
+    info = (ctypes.c_int * 3)()
+    rc = lib.mixing_route_info(int(dtype == torch.bfloat16),
+                               padded_points(p), int(two_pass),
+                               ctypes.addressof(info))
+    build.check(lib, "mixing", rc)
+    return dict(route=route, threads=info[0], smem_bytes=info[1],
+                resident_blocks=info[2])

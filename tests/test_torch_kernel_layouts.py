@@ -3,14 +3,19 @@ the mixing core keep in Python, where the CPU reaches it: how many lanes of a
 warp share a sampling point (and which channel counts and tables the
 16-byte-lane kernels refuse), how many levels one launch of the fused
 one-hot kernel takes, how the mixing wrapper pads the in-points to the tensor-core tile and which
-of its two kernels it picks, and the padding scheme the tensor-core kernel
+of its three kernels it picks, and the padding scheme the tensor-core kernel
 relies on, replayed with plain PyTorch: operands padded from P to the next
-multiple of 16 give the unpadded result when the first LN's statistics run
-over the P real rows only and the padded rows of h1 are zero.
+kernel width give the unpadded result when the first LN's statistics run
+over the P real rows only and the padded rows of h1 are zero; and the fp32
+route's 3xTF32 order (``mixing_tf32_kernel``), replayed with truncating
+accumulators, within ``MIXING_TOL["float32"]`` of the plain version and of
+JAX, where one TF32 product a k-step lands fifty times outside it.
 
 Tolerance of the padded replay: the padded products sum the same fp32
 terms plus exact zeros, in whatever order the matmul picks for the longer
 depth, so fp32 agrees within 1e-5 of the output scale."""
+
+import os
 
 import numpy as np
 import pytest
@@ -26,6 +31,7 @@ from sparsebev_tpu_torch.ops.msmv_sampling import (sample_lanes_per_point,
                                                    sample_table_dtypes)
 
 torch.set_num_threads(1)
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 @pytest.mark.parametrize("channels,dtype,lanes", [
@@ -132,11 +138,12 @@ def test_onehot_fused_level_count(levels, ok):
             msmv_onehot.onehot_sample_levels(*args)
 
 
-@pytest.mark.parametrize("p,padded", [(32, 32), (60, 64), (7, 16), (16, 16),
-                                      (1, 16), (65, 80)])
+@pytest.mark.parametrize("p,padded", [(32, 32), (60, 64), (7, 32), (16, 32),
+                                      (1, 32), (65, 128), (120, 128)])
 def test_mixing_padded_points(p, padded):
+    """The tensor-core kernels' widths: 32, 64 or 128 in-points."""
     assert padded_points(p) == padded
-    assert padded % 16 == 0 and 0 <= padded - p < 16
+    assert padded in (32, 64, 128) and p <= padded
 
 
 def test_mixing_padded_points_refuses_no_points():
@@ -144,18 +151,64 @@ def test_mixing_padded_points_refuses_no_points():
         padded_points(0)
 
 
+def test_mixing_padded_points_refuses_more_than_the_widest_kernel():
+    with pytest.raises(ValueError, match="no tensor-core kernel"):
+        padded_points(129)
+
+
 @pytest.mark.parametrize("dtype,p,c,o,route", [
     (torch.bfloat16, 32, 64, 128, "mma"),     # r50
     (torch.bfloat16, 60, 64, 128, "mma"),     # vov99: padded to 64
     (torch.bfloat16, 2, 64, 128, "mma"),
     (torch.bfloat16, 7, 64, 128, "fma"),      # odd P: 14-byte rows of s
-    (torch.bfloat16, 66, 64, 128, "fma"),     # more than 64 padded points
+    (torch.bfloat16, 66, 64, 128, "mma"),     # padded to 128
     (torch.bfloat16, 32, 16, 32, "fma"),      # not the decoder's widths
-    (torch.float32, 32, 64, 128, "fma"),      # fp32 keeps full fp32
-    (torch.float32, 60, 64, 128, "fma"),
+    (torch.float32, 32, 64, 128, "tf32"),     # fp32 in 3xTF32
+    (torch.float32, 60, 64, 128, "tf32"),
+    (torch.bfloat16, 120, 64, 128, "mma"),    # EVA02: 8 points x 15 frames
+    (torch.bfloat16, 130, 64, 128, "fma"),    # more than 128 padded points
+    (torch.float32, 120, 64, 128, "tf32"),
+    (torch.float32, 7, 64, 128, "tf32"),      # any P: 4-byte copies of s
+    (torch.float32, 130, 64, 128, "fma"),
+    (torch.float32, 32, 16, 32, "fma"),
 ])
 def test_mixing_route(dtype, p, c, o, route):
     assert mixing_route(dtype, p, c, o) == route
+
+
+def test_mixing_route_info_refuses_the_fma_route():
+    """``route_info`` describes the tensor-core routes only; it raises
+    before it builds anything."""
+    with pytest.raises(ValueError, match="no tensor-core route"):
+        mixing.route_info(torch.float32, 130)
+    with pytest.raises(ValueError, match="no tensor-core route"):
+        mixing.route_info(torch.bfloat16, 7)
+
+
+@pytest.mark.parametrize("mangled,name", [
+    # nvcc names an anonymous namespace after the source and a hash that
+    # may end in digits; the kernel's own name may hold digits
+    ("_ZN41_INTERNAL_2c8b1e9e_9_mixing_cu_99a6059918mixing_tf32_kernel"
+     "ILi128ELb1EEEvPKfS2_S2_Pfiif", "mixing_tf32_kernel<128, true>"),
+    ("_ZN41_INTERNAL_2c8b1e9e_9_mixing_cu_99a6059917mixing_mma_kernel"
+     "ILi64ELb0EEEvPK13__nv_bfloat16S3_S3_PS1_iif",
+     "mixing_mma_kernel<64, false>"),
+    ("_ZN41_INTERNAL_2c8b1e9e_9_mixing_cu_99a6059913mixing_kernel"
+     "I13__nv_bfloat16Lb1EEEvPKT_S4_S4_PS2_iiif",
+     "mixing_kernel<__nv_bfloat16, true>"),
+    ("_ZN41_INTERNAL_2c8b1e9e_17eva_attention_cu_5a1b2c3d25eva_attention_"
+     "dkdv_kernelEv", "eva_attention_dkdv_kernel"),
+])
+def test_ptxas_report_names_each_kernel(mangled, name):
+    """chip_smoke.py's ptxas report names each instantiation as the routes'
+    lines look it up (``mixing_routes``)."""
+    import sys
+    sys.path.insert(0, REPO)
+    import chip_smoke
+    text = (f"ptxas info    : Compiling entry function '{mangled}' for "
+            "'sm_90a'\nptxas info    : Used 109 registers, 0 bytes smem")
+    (row,) = chip_smoke.ptxas_report(text)
+    assert row["kernel"] == name and row["regs"] == 109
 
 
 def test_mixing_route_refuses_other_dtypes():
@@ -208,7 +261,7 @@ def _operands(seed, p, c=16, o=32, items=5):
     return x, m, s
 
 
-@pytest.mark.parametrize("p", [32, 60, 7])
+@pytest.mark.parametrize("p", [32, 60, 7, 120])
 @pytest.mark.parametrize("stats", ["twopass", "onepass"])
 def test_padded_chain_equals_plain(p, stats):
     x, m, s = _operands(p, p)
@@ -241,6 +294,20 @@ def test_padded_chain_bf16_within_the_card_tolerance():
     scale = max(1.0, float(want.abs().max()))
     assert bool(((got - want).abs()
                  <= 2.0 ** -7 * want.abs() + 2.0 ** -8 * scale).all())
+
+
+@pytest.mark.parametrize("stats", ["twopass", "onepass"])
+def test_padded_chain_bf16_at_eva02_points(stats):
+    """The same at EVA02's P = 120 (8 points x 15 frames), padded to 128,
+    as the bf16 tensor-core kernel takes it since its range was widened
+    to 128 padded in-points, for both statistics."""
+    rtol, atol = mixing.MIXING_TOL["bfloat16"]
+    x, m, s = (t.to(torch.bfloat16) for t in _operands(6, 120))
+    want = mixing_core_plain(x, m, s, stats=stats).float()
+    got = _padded_chain(x, m, s, stats).float()
+    scale = max(1.0, float(want.abs().max()))
+    assert bool(((got - want).abs() <= rtol * want.abs() + atol * scale)
+                .all())
 
 
 # ------------------------------------------- the attention kernel's order --
@@ -510,6 +577,77 @@ def test_attention_backward_1xtf32_replay_misses_the_tolerance():
     from sparsebev_tpu_torch.ops.eva_attention import ATTENTION_BWD_TOL
     assert min(_backward_replay_errors(200, 1, "plain")) > \
         10 * ATTENTION_BWD_TOL
+
+
+# ---------------------------------------- the mixing kernel's 3xTF32 order --
+
+
+def _replay_mixing(x, m, s, stats, products=3):
+    """csrc/mixing.cu's fp32 route, ``mixing_tf32_kernel``, item by item:
+    x @ m in 8-deep k-steps of three TF32 products (lo*hi, hi*lo, hi*hi,
+    each operand split to nearest) into one truncating accumulator, or one
+    product; LN1 over the P real rows; h1 in fp32 with its padding rows
+    zero; s @ h1 over the depth padded to 32, 64 or 128 (s's padding
+    columns zero) in the same order; LN2."""
+    p, c = x.shape[-2:]
+    o = s.shape[-2]
+    pp = padded_points(p)
+    xs, ms, ss = (t.reshape((-1,) + t.shape[-2:]) for t in (x, m, s))
+    out = torch.empty(xs.shape[0], o, c)
+    for b in range(xs.shape[0]):
+        h1 = _products(torch.zeros(p, c), xs[b], ms[b], _dim_steps(c),
+                       products)
+        h1 = torch.cat([torch.relu(mixing._ln2d(h1, stats)),
+                        torch.zeros(pp - p, c)])
+        sp = torch.cat([ss[b], torch.zeros(o, pp - p)], dim=1)
+        h2 = _products(torch.zeros(o, c), sp, h1, _dim_steps(pp), products)
+        out[b] = torch.relu(mixing._ln2d(h2, stats))
+    return out.reshape(s.shape[:-2] + (o, c))
+
+
+def _mixing_replay_error(p, stats, products, reference):
+    """max |replay - reference| over the output scale, BQ = 2, G = 4,
+    C = 64, O = 128; the reference the plain version or, in JAX,
+    ``_mixing_core_xla`` (two-pass) or the batched Pallas kernel in
+    interpret mode (one-pass)."""
+    x, m, s = (t.reshape((2, 4) + t.shape[2:])
+               for t in _operands(p + 1, p, c=64, o=128, items=4))
+    if reference == "plain":
+        want = mixing_core_plain(x, m, s, stats=stats).numpy()
+    else:
+        import jax
+        import jax.numpy as jnp
+        from sparsebev_tpu.ops import mixing_pallas as jmix
+        args = [jnp.asarray(t.numpy()) for t in (x, m, s)]
+        if stats == "twopass":
+            want = jax.jit(jmix._mixing_core_xla)(*args)
+        else:
+            want = jmix.mixing_core_tpu_batched(*args, bq_blk=2,
+                                                interpret=True)
+        want = np.asarray(want)
+    got = _replay_mixing(x, m, s, stats, products).numpy()
+    return float(np.abs(got - want).max()) / max(1.0, float(np.abs(want)
+                                                            .max()))
+
+
+@pytest.mark.parametrize("reference", ["plain", "jax"])
+@pytest.mark.parametrize("stats", ["twopass", "onepass"])
+@pytest.mark.parametrize("p", [32, 120])
+def test_mixing_3xtf32_replay_within_the_card_tolerance(p, stats, reference):
+    """Three TF32 products a k-step, one truncating accumulator: within
+    ``MIXING_TOL["float32"]`` of the plain version and of JAX at r50's
+    P = 32 and EVA02's P = 120 (padded to 128), for both statistics."""
+    rtol, atol = mixing.MIXING_TOL["float32"]
+    assert rtol == 0.0
+    assert _mixing_replay_error(p, stats, 3, reference) <= atol
+
+
+@pytest.mark.parametrize("p", [32, 120])
+def test_mixing_1xtf32_replay_misses_the_tolerance(p):
+    """One TF32 product a k-step (plain TF32) lands outside the same
+    tolerance: the test tells the two orders apart."""
+    atol = mixing.MIXING_TOL["float32"][1]
+    assert _mixing_replay_error(p, "twopass", 1, "plain") > 10 * atol
 
 
 # ------------------------------- the backward kernels' shared-memory tiles --

@@ -1,7 +1,8 @@
 """The mixing core (``ops/mixing.py``) against the JAX package on the CPU: the
 port's plain versions against ``_mixing_core_xla`` and both Pallas kernels
-in interpret mode (``bq = 21`` takes their padding path), at the two configs'
-point counts P = 32 (r50) and P = 60 (vov99), and the gradient of
+in interpret mode (``bq = 21`` takes their padding path), at the configs'
+point counts P = 32 (r50), P = 60 (vov99) and P = 120 (EVA02: 8 points x
+15 frames), and the gradient of
 ``mixing_core`` against ``jax.grad``. Inputs are made from a seed with numpy
 and fed to both packages.
 
@@ -46,7 +47,7 @@ def _close(got, want, dtype):
                                    atol=2 ** -8 * scale)
 
 
-@pytest.mark.parametrize("p", [32, 60])
+@pytest.mark.parametrize("p", [32, 60, 120])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("stats", ["twopass", "onepass"])
 def test_mixing_plain_matches_jax(p, dtype, stats):
@@ -55,7 +56,10 @@ def test_mixing_plain_matches_jax(p, dtype, stats):
     jx = [jnp.asarray(a, dtype) for a in arrays]
     tx = [torch.from_numpy(a).to(getattr(torch, dtype)) for a in arrays]
     if stats == "twopass":
-        wants = [jmix.mixing_core_tpu(*jx, interpret=True),
+        # at P = 120 a block of 4 queries (16 items, BQ padded to 24):
+        # interpret mode unrolls the kernel's loops over a block's items
+        blk = dict(bq_blk=4) if p > 64 else {}
+        wants = [jmix.mixing_core_tpu(*jx, interpret=True, **blk),
                  jax.jit(jmix._mixing_core_xla)(*jx)]
         got = mixing_core(*tx)
     else:
