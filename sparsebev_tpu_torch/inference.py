@@ -39,6 +39,7 @@ import torch
 
 from .ops.msmv_sampling import (E4M3, ring_copy_slot, ring_init, ring_packed,
                                 ring_update)
+from .utils import tracing
 from .utils.device import resolve_device
 
 
@@ -198,16 +199,19 @@ class StreamingDetector:
             self.frames_reused += 1
             return self.slot_of_key[key]
         self.frames_run += 1
-        fp = self.model.forward_frame_packed(frame_imgs_fn())
-        if self.ring is None:
-            self._meta = fp.meta(
-                gsplit=self.model.pts_bbox_head.table_gsplit)
-            self.ring = ring_init(fp, self.cache_size,
-                                  ring_table_dtypes(self.model, fp),
-                                  ring_table_splits(self.model, fp,
-                                                    self.cache_size))
-        slot = self._slot_for_new_frame(protected)
-        ring_update(self.ring, fp, slot)
+        imgs = frame_imgs_fn()
+        with tracing.span("stream.frame_pass"):
+            fp = self.model.forward_frame_packed(imgs)
+            del imgs    # the pixels are dead once the frame pass has them
+            if self.ring is None:
+                self._meta = fp.meta(
+                    gsplit=self.model.pts_bbox_head.table_gsplit)
+                self.ring = ring_init(fp, self.cache_size,
+                                      ring_table_dtypes(self.model, fp),
+                                      ring_table_splits(self.model, fp,
+                                                        self.cache_size))
+            slot = self._slot_for_new_frame(protected)
+            ring_update(self.ring, fp, slot)
         self.slot_of_key[key] = slot
         return slot
 
@@ -223,41 +227,46 @@ class StreamingDetector:
         names (frame i is keyed by its first view's absolute path). History
         frames without pixels (F < T) must already be cached. Returns the
         coder's decoded boxes, or the raw predictions without a coder."""
-        n = self.num_views
-        frames_with_pixels = img.shape[1] // n
-        t = len(filenames) // n if filenames else frames_with_pixels
-        h, w = img.shape[2], img.shape[3]
-        keys = self._keys(filenames, t)
-        protected = set(keys)
+        with tracing.span("stream.infer"):
+            n = self.num_views
+            frames_with_pixels = img.shape[1] // n
+            t = len(filenames) // n if filenames else frames_with_pixels
+            h, w = img.shape[2], img.shape[3]
+            keys = self._keys(filenames, t)
+            protected = set(keys)
 
-        def upload(i):
-            def fn():
-                pend = self._pending.pop(keys[i], None)
-                if pend is not None:
-                    return self._consume(pend)
-                if i >= frames_with_pixels:
-                    raise RuntimeError(
-                        f"history frame {i} ({keys[i]}) is not cached and "
-                        "its pixels were not given")
-                return torch.from_numpy(np.ascontiguousarray(
-                    img[:, i * n:(i + 1) * n])).to(self.device)
-            return fn
+            def upload(i):
+                def fn():
+                    with tracing.span("stream.upload"):
+                        pend = self._pending.pop(keys[i], None)
+                        if pend is not None:
+                            return self._consume(pend)
+                        if i >= frames_with_pixels:
+                            raise RuntimeError(
+                                f"history frame {i} ({keys[i]}) is not cached "
+                                "and its pixels were not given")
+                        return torch.from_numpy(np.ascontiguousarray(
+                            img[:, i * n:(i + 1) * n])).to(self.device)
+                return fn
 
-        slots = [self._ensure_frame(keys[i], upload(i), protected)
-                 for i in range(t)]
-        if self._split_mode and len(set(slots)) < t:
-            slots = self._dedupe_slots(slots, protected)
-        self.last_slots = slots
-        packed = ring_packed(self.ring,
-                             torch.tensor(slots, device=self.device),
-                             t, self._meta)
-        preds = self.model.forward_head(
-            packed, torch.as_tensor(np.asarray(lidar2img), device=self.device),
-            torch.as_tensor(np.asarray(time_diff), device=self.device), h, w,
-            query_group=self.query_group)
-        if self.coder is not None:
-            return self.coder.decode(preds)
-        return preds
+            slots = [self._ensure_frame(keys[i], upload(i), protected)
+                     for i in range(t)]
+            if self._split_mode and len(set(slots)) < t:
+                slots = self._dedupe_slots(slots, protected)
+            self.last_slots = slots
+            with tracing.span("stream.head"):
+                packed = ring_packed(self.ring,
+                                     torch.tensor(slots, device=self.device),
+                                     t, self._meta)
+                preds = self.model.forward_head(
+                    packed,
+                    torch.as_tensor(np.asarray(lidar2img), device=self.device),
+                    torch.as_tensor(np.asarray(time_diff), device=self.device),
+                    h, w, query_group=self.query_group)
+            if self.coder is not None:
+                with tracing.span("stream.decode"):
+                    return self.coder.decode(preds)
+            return preds
 
     def prefetch_upload(self, img: np.ndarray, filenames: List[str]):
         """Start the host-to-device copy of a sample's uncached frames NOW

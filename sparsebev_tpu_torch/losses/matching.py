@@ -17,6 +17,8 @@ import numpy as np
 import torch
 from scipy.optimize import linear_sum_assignment
 
+from ..utils import tracing
+
 _PAD_COST = 1e6
 
 
@@ -31,15 +33,16 @@ def hungarian_matching(cost: torch.Tensor,
     ``[..., M]`` int64 on ``cost``'s device; rows with ``~gt_mask`` get a
     constant cost, so they never change the real rows' optimum, and their
     entries are to be masked by the caller."""
-    cost = torch.nan_to_num(cost.detach().float(), nan=100.0, posinf=100.0,
-                            neginf=-100.0)
-    mask = gt_mask.expand(cost.shape[:-1])
-    cost = torch.where(mask[..., None], cost,
-                       torch.full_like(cost, _PAD_COST))
-    host = cost.cpu().numpy()                  # the one transfer
-    flat = host.reshape((-1,) + host.shape[-2:])
-    out = np.zeros(flat.shape[:2], np.int64)
-    for i, c in enumerate(flat):
-        rows, cols = linear_sum_assignment(c)
-        out[i, rows] = cols
-    return torch.from_numpy(out.reshape(host.shape[:-1])).to(cost.device)
+    with tracing.span("train.matcher"):
+        cost = torch.nan_to_num(cost.detach().float(), nan=100.0,
+                                posinf=100.0, neginf=-100.0)
+        mask = gt_mask.expand(cost.shape[:-1])
+        cost = torch.where(mask[..., None], cost,
+                           torch.full_like(cost, _PAD_COST))
+        host = cost.cpu().numpy()                  # the one transfer
+        flat = host.reshape((-1,) + host.shape[-2:])
+        out = np.zeros(flat.shape[:2], np.int64)
+        for i, c in enumerate(flat):
+            rows, cols = linear_sum_assignment(c)
+            out[i, rows] = cols
+        return torch.from_numpy(out.reshape(host.shape[:-1])).to(cost.device)

@@ -28,6 +28,7 @@ import numpy as np
 import torch
 
 from ..parallel import barrier
+from ..utils import tracing
 from ..utils.device import resolve_device
 from .hooks import Hook, IterTimerHook
 from .step import make_multi_step
@@ -104,11 +105,12 @@ class Runner:
         """A host batch of numpy arrays as tensors on the device (through
         pinned memory, asynchronously, when the device is a card)."""
         out = {}
-        for k, v in batch.items():
-            t = torch.from_numpy(np.ascontiguousarray(v))
-            if self.device.type == "cuda":
-                t = t.pin_memory().to(self.device, non_blocking=True)
-            out[k] = t
+        with tracing.span("train.upload"):
+            for k, v in batch.items():
+                t = torch.from_numpy(np.ascontiguousarray(v))
+                if self.device.type == "cuda":
+                    t = t.pin_memory().to(self.device, non_blocking=True)
+                out[k] = t
         return out
 
     def run(self):

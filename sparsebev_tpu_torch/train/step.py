@@ -34,6 +34,7 @@ from torch import nn
 from ..losses import (compute_detection_loss, compute_dn_loss, draw_dn_noise,
                       prepare_dn_inputs)
 from ..models.layers import set_drop_path_draws, set_dropout_generator
+from ..utils import tracing
 from ..utils.device import fp32_precision
 from .optim import clip_by_global_norm
 
@@ -129,50 +130,58 @@ def make_train_step(num_classes: int, code_weights: Sequence[float],
     def train_step(state: TrainState, batch: Dict[str, torch.Tensor],
                    generator: Optional[torch.Generator] = None,
                    draws: Optional[dict] = None):
+        with tracing.span("train.step"):
+            return _step(state, batch, generator, draws or {})
+
+    def _step(state, batch, generator, draws):
         model = state.model
-        draws = draws or {}
         gt = (batch["gt_boxes"], batch["gt_labels"], batch["gt_mask"])
-        dn_inputs = None
-        if query_denoising:
-            b, m = batch["gt_labels"].shape
-            noise = draws.get("dn")
-            if noise is None:
-                noise = draw_dn_noise(generator, b, dn_groups, m, num_classes,
-                                      batch["gt_boxes"].device)
-            dn_inputs = prepare_dn_inputs(
-                noise, *gt, num_query=num_query, num_classes=num_classes,
-                pc_range=pc_range, groups=dn_groups)
+        with tracing.span("train.forward"):
+            dn_inputs = None
+            if query_denoising:
+                b, m = batch["gt_labels"].shape
+                noise = draws.get("dn")
+                if noise is None:
+                    noise = draw_dn_noise(generator, b, dn_groups, m,
+                                          num_classes,
+                                          batch["gt_boxes"].device)
+                dn_inputs = prepare_dn_inputs(
+                    noise, *gt, num_query=num_query, num_classes=num_classes,
+                    pc_range=pc_range, groups=dn_groups)
 
-        model.aug_generator = generator
-        set_dropout_generator(model, generator)
-        set_drop_path_draws(model, draws.get("drop_path"))
-        preds = model(batch["img"], batch["lidar2img"], batch["time_diff"],
-                      dn_inputs=dn_inputs, train=True,
-                      aug_draws=draws.get("aug"),
-                      query_group=query_group)
-        losses = compute_detection_loss(
-            preds["all_cls_scores"], preds["all_bbox_preds"], *gt,
-            num_classes, code_weights, loss_cls_weight=loss_cls_weight,
-            loss_bbox_weight=loss_bbox_weight, reduce=reduce)
-        if dn_inputs is not None:
-            losses.update(compute_dn_loss(
-                preds["dn_cls_scores"], preds["dn_bbox_preds"], *gt,
-                num_classes, code_weights, groups=dn_groups,
-                loss_cls_weight=loss_cls_weight,
-                loss_bbox_weight=loss_bbox_weight, reduce=reduce))
-        total = sum(losses.values())
+            model.aug_generator = generator
+            set_dropout_generator(model, generator)
+            set_drop_path_draws(model, draws.get("drop_path"))
+            preds = model(batch["img"], batch["lidar2img"],
+                          batch["time_diff"], dn_inputs=dn_inputs, train=True,
+                          aug_draws=draws.get("aug"),
+                          query_group=query_group)
+        with tracing.span("train.losses"):
+            losses = compute_detection_loss(
+                preds["all_cls_scores"], preds["all_bbox_preds"], *gt,
+                num_classes, code_weights, loss_cls_weight=loss_cls_weight,
+                loss_bbox_weight=loss_bbox_weight, reduce=reduce)
+            if dn_inputs is not None:
+                losses.update(compute_dn_loss(
+                    preds["dn_cls_scores"], preds["dn_bbox_preds"], *gt,
+                    num_classes, code_weights, groups=dn_groups,
+                    loss_cls_weight=loss_cls_weight,
+                    loss_bbox_weight=loss_bbox_weight, reduce=reduce))
+            total = sum(losses.values())
 
-        state.optimizer.zero_grad(set_to_none=True)
-        with fp32_precision():  # the backbone's fp32 conv gradients too
-            total.backward()
+        with tracing.span("train.backward"):
+            state.optimizer.zero_grad(set_to_none=True)
+            with fp32_precision():  # the backbone's fp32 conv gradients too
+                total.backward()
         params = [p for g in state.optimizer.param_groups
                   for p in g["params"]]
         if groups is not None:
             sum_gradients(params, groups.grads)
-        grad_norm = clip_by_global_norm(params, grad_clip)
-        state.optimizer.step()
-        if state.scheduler is not None:
-            state.scheduler.step()
+        with tracing.span("train.optimizer"):
+            grad_norm = clip_by_global_norm(params, grad_clip)
+            state.optimizer.step()
+            if state.scheduler is not None:
+                state.scheduler.step()
         state.step += 1
         metrics = {"loss": total.detach(), **{k: v.detach()
                                               for k, v in losses.items()}}
