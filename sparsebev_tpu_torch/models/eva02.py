@@ -56,6 +56,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.eva_attention import eva_attention
+from ..utils import tracing
 from .layers import DropPath, checkpoint_with_generator
 
 LN_EPS = 1e-6
@@ -254,7 +255,9 @@ class SwiGLU(nn.Module):
 
 class EvaAttention(nn.Module):
     """Separate q / k / v projections (q and v with a bias, k without), RoPE
-    on q and k, attention through ``ops/eva_attention.py``, ``proj``."""
+    on q and k, attention through ``ops/eva_attention.py``, ``proj``.
+    ``real_tokens``: in a windowed block, the tokens of its windows that
+    are not padding (the op counts them)."""
 
     def __init__(self, dim: int, num_heads: int):
         super().__init__()
@@ -266,7 +269,7 @@ class EvaAttention(nn.Module):
         self.v_bias = nn.Parameter(torch.zeros(dim))
         self.proj = nn.Linear(dim, dim)
 
-    def forward(self, x, rope_cos, rope_sin):
+    def forward(self, x, rope_cos, rope_sin, real_tokens=None):
         b, h, w, c = x.shape
         n, heads = h * w, self.num_heads
         x = x.reshape(b, n, c)
@@ -278,7 +281,7 @@ class EvaAttention(nn.Module):
         v = v.reshape(b, n, heads, c // heads)
         q = apply_rope(q, rope_cos, rope_sin).to(v.dtype)
         k = apply_rope(k, rope_cos, rope_sin).to(v.dtype)
-        out = eva_attention(q, k, v)
+        out = eva_attention(q, k, v, real_tokens=real_tokens)
         return self.proj(out.reshape(b, n, c)).reshape(b, h, w, c)
 
 
@@ -311,7 +314,8 @@ class EvaBlock(nn.Module):
     """norm1, (windowed) attention, drop path, residual; norm2, SwiGLU, drop
     path, residual; the optional conv block. ``index`` names the block to
     its two :class:`DropPath` sites (0 after the attention, 1 after the
-    MLP)."""
+    MLP). Each call is an ``eva02.window_block`` or ``eva02.global_block``
+    span (``utils/tracing.py``; a remat's recompute calls it again)."""
 
     def __init__(self, dim: int, num_heads: int, mlp_ratio: float,
                  window_size: int = 0, use_residual_block: bool = False,
@@ -328,20 +332,26 @@ class EvaBlock(nn.Module):
         self.drop_path_mlp = DropPath(drop_path_rate, index, 1)
 
     def forward(self, x, rope_cos, rope_sin, deterministic: bool = True):
-        shortcut = x
-        y = self.norm1(x)
-        if self.window_size > 0:
-            h, w = y.shape[1], y.shape[2]
-            y, pad_hw = window_partition(y, self.window_size)
-        y = self.attn(y, rope_cos, rope_sin)
-        if self.window_size > 0:
-            y = window_unpartition(y, self.window_size, pad_hw, (h, w))
-        y = self.drop_path_attn(y, deterministic)
-        x = shortcut + y        # a bf16 shortcut + the fp32 branch: fp32
-        x = x + self.drop_path_mlp(self.mlp(self.norm2(x)), deterministic)
-        if self.residual is not None:
-            x = self.residual(x)
-        return x
+        windowed = self.window_size > 0
+        with tracing.span("eva02.window_block" if windowed
+                          else "eva02.global_block"):
+            shortcut = x
+            y = self.norm1(x)
+            real = None
+            if windowed:
+                h, w = y.shape[1], y.shape[2]
+                real = y.shape[0] * h * w
+                y, pad_hw = window_partition(y, self.window_size)
+            y = self.attn(y, rope_cos, rope_sin, real_tokens=real)
+            if windowed:
+                y = window_unpartition(y, self.window_size, pad_hw, (h, w))
+            y = self.drop_path_attn(y, deterministic)
+            x = shortcut + y    # a bf16 shortcut + the fp32 branch: fp32
+            x = x + self.drop_path_mlp(self.mlp(self.norm2(x)),
+                                       deterministic)
+            if self.residual is not None:
+                x = self.residual(x)
+            return x
 
 
 class PatchEmbed(nn.Module):
@@ -391,18 +401,17 @@ class ViT(nn.Module):
 
         half_head = embed_dim // num_heads // 2
         real_hw = (real_img_size[0] // ps, real_img_size[1] // ps)
-        tables = dict(
+        # numpy (cos, sin) tables, made on the device at first use
+        # (:meth:`rope`): neither parameters nor buffers, so a model built
+        # on ``meta`` and given storage by ``to_empty`` computes them alike
+        self._rope_tables = dict(
             win=build_rope_tables(half_head * 2, pt_hw_seq_len,
                                   window_size if intp_freq else pt_hw_seq_len),
             glb=build_rope_tables(half_head * 2, pt_hw_seq_len,
                                   img_size // ps if intp_freq
                                   else pt_hw_seq_len,
                                   real_img_size=real_hw))
-        for name, (cos, sin) in tables.items():
-            self.register_buffer(f"rope_{name}_cos", torch.from_numpy(cos),
-                                 persistent=False)
-            self.register_buffer(f"rope_{name}_sin", torch.from_numpy(sin),
-                                 persistent=False)
+        self._rope: Dict[Any, Tuple[torch.Tensor, torch.Tensor]] = {}
         self.use_act_checkpoint = use_act_checkpoint
         dpr = np.linspace(0, drop_path_rate, depth)
         self.blocks = nn.ModuleList([
@@ -433,6 +442,19 @@ class ViT(nn.Module):
             self._resize[key] = mats
         return torch.einsum("hs,bstc,wt->bhwc", mats[0], pos, mats[1])
 
+    def rope(self, name: str, device, dtype) -> Tuple[torch.Tensor,
+                                                       torch.Tensor]:
+        """The ``win`` or ``glb`` RoPE (cos, sin) ``[N, head_dim]`` on
+        ``device`` in ``dtype``: the fp32 numpy tables, moved, then cast
+        (made once a device and dtype)."""
+        key = (name, torch.device(device), dtype)
+        tables = self._rope.get(key)
+        if tables is None:
+            tables = self._rope[key] = tuple(
+                torch.from_numpy(t).to(device).to(dtype)
+                for t in self._rope_tables[name])
+        return tables
+
     def forward(self, x, deterministic: bool = True):
         x = self.patch_embed(x)
         if self.pos_embed is not None:
@@ -440,8 +462,7 @@ class ViT(nn.Module):
         remat = self.use_act_checkpoint and torch.is_grad_enabled()
         for i, blk in enumerate(self.blocks):
             name = "win" if i in self.window_block_indexes else "glb"
-            cos = getattr(self, f"rope_{name}_cos").to(x.dtype)
-            sin = getattr(self, f"rope_{name}_sin").to(x.dtype)
+            cos, sin = self.rope(name, x.device, x.dtype)
             if remat:
                 x = checkpoint_with_generator(
                     blk, x, cos, sin, deterministic,
@@ -512,7 +533,8 @@ class EVA02(SimpleFeaturePyramid):
     Accepts every field of the JAX dataclass; ``qkv_bias``, ``out_feature``,
     ``xattn``, ``fpn_in_feature``, ``fpn_norm``, ``fpn_square_pad`` and
     ``pretrained`` are ignored there and here. ``deterministic`` (False in
-    training) turns the trunk's drop path on."""
+    training) turns the trunk's drop path on. The pyramid is an
+    ``eva02.pyramid`` span."""
 
     def __init__(self, img_size: int = 1024,
                  real_img_size: Tuple[int, int] = (256, 704),
@@ -551,6 +573,7 @@ class EVA02(SimpleFeaturePyramid):
             frozen_blocks=frozen_blocks, dtype=dtype)
 
     def forward(self, x, deterministic: bool = True):
-        feats = super().forward(self.net(x.permute(0, 2, 3, 1),
-                                         deterministic))
+        feat = self.net(x.permute(0, 2, 3, 1), deterministic)
+        with tracing.span("eva02.pyramid"):
+            feats = super().forward(feat)
         return [f.permute(0, 3, 1, 2) for f in feats]

@@ -130,12 +130,20 @@ def eva_attention_backward_plain(q, k, v, o, lse, dout):
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
-def eva_attention(q: torch.Tensor, k: torch.Tensor,
-                  v: torch.Tensor) -> torch.Tensor:
+def eva_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  real_tokens=None) -> torch.Tensor:
     """``[B, N, heads, hd]`` attention output. CPU tensors take the plain
     version (autograd differentiates it); CUDA tensors launch the kernel (or
     raise), through :class:`EvaAttentionFunction` while autograd records a
-    tensor that requires grad."""
+    tensor that requires grad. ``real_tokens``: a windowed call's tokens
+    that are not window padding (None: a global call); it changes no value
+    and feeds the counters below."""
+    if real_tokens is None:
+        eva_attention.global_calls += 1
+    else:
+        eva_attention.window_calls += 1
+        eva_attention.window_tokens += q.shape[0] * q.shape[1]
+        eva_attention.window_real_tokens += real_tokens
     if q.device.type == "cpu":
         return eva_attention_plain(q, k, v)
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
@@ -144,6 +152,13 @@ def eva_attention(q: torch.Tensor, k: torch.Tensor,
 
 
 eva_attention.launches = 0  # forward kernel launches (_eva_attention_cuda)
+# calls on any device (on a card one forward launch each): global ones,
+# windowed ones, and the tokens the windowed calls compute over, padded
+# (B x N) and real
+eva_attention.global_calls = 0
+eva_attention.window_calls = 0
+eva_attention.window_tokens = 0
+eva_attention.window_real_tokens = 0
 
 
 def eva_attention_backward(q, k, v, o, lse, dout):
