@@ -1267,6 +1267,167 @@ def check_fp32_conv(torch, dev):
     torch.cuda.empty_cache()
 
 
+# ------------------------------------------------ the trunk's products --
+
+# the EVA02 trunk's product shapes (M, N, K) at 1600x640 and their calls a
+# frame pass (168 in all)
+LINEAR_SHAPES = (("global q / k / v / proj", (24000, 1024, 1024), 32),
+                 ("windowed q / k / v / proj", (32256, 1024, 1024), 64),
+                 ("w1 / w2", (24000, 2730, 1024), 48),
+                 ("w3", (24000, 1024, 2730), 24))
+# small shapes no config has, for the kernel's edges: a ragged M, N and K on
+# both load routes (a k-tail on TMA, an odd number of 8-byte pieces a row
+# on cp.async), no bias, and x 8 bytes off its 16-byte alignment (label,
+# (M, N, K), bias, x's offset in floats)
+LINEAR_EDGES = (("ragged, TMA", (300, 2730, 1000), True, 0),
+                ("ragged, cp.async", (300, 1030, 2730), False, 0),
+                ("odd M, cp.async", (1001, 130, 2730), True, 0),
+                ("tiny, cp.async", (5, 2, 6), True, 0),
+                ("x off 16-byte alignment", (257, 1024, 1024), True, 2))
+
+
+def linear_ptxas(text, lib_path):
+    """Print what ptxas reports for the product kernel's two instantiations
+    (registers, spills, shared memory) and its tensor-core opcodes in the
+    SASS; fails if it spills, or holds no TF32 HGMMA or any HMMA."""
+    from sparsebev_tpu_torch.kernels import build
+    from sparsebev_tpu_torch.ops import eva_linear as el
+    dynamic = el.kernel_smem_bytes()
+    for r in ptxas_report(text):
+        log(f"ptxas[eva_linear]: {r['kernel']}: {r['regs']} registers, "
+            f"spills {r['spill_stores']} / {r['spill_loads']} bytes (stores "
+            f"/ loads), {r['stack']} bytes stack frame, {r['smem']} bytes "
+            f"static and {dynamic} bytes dynamic shared memory")
+        if r["spill_stores"] or r["spill_loads"]:
+            fail(f"{r['kernel']} spills registers")
+    for line in text.splitlines():
+        if "wgmma" in line.lower() or "warning" in line.lower():
+            log(f"build[eva_linear]: {line.strip()}")
+    tool = os.path.join(os.path.dirname(os.path.realpath(build.find_nvcc())),
+                        "cuobjdump")
+    out = subprocess.run([tool, "-sass", lib_path], capture_output=True,
+                         text=True, timeout=300)
+    if out.returncode != 0:
+        fail(f"cuobjdump -sass failed: {out.stderr.strip()[:400]}")
+    found = [(f, c) for f, c in sass_by_function(out.stdout).items()
+             if "eva_linear_kernel" in f]
+    if len(found) != 2:                 # one a load route
+        fail(f"the SASS holds {len(found)} functions named eva_linear_kernel")
+    for f, counts in found:
+        log(f"sass[eva_linear]: {f}: "
+            + (", ".join(f"{k} x {v}" for k, v in sorted(counts.items()))
+               or "no tensor-core opcode"))
+        if not any(k.startswith("HGMMA.") and "TF32" in k for k in counts) \
+                or any(k.startswith("HMMA.") for k in counts):
+            fail(f"{f}'s SASS holds no TF32 HGMMA, or HMMA beside it")
+
+
+def _linear_operands(torch, dev, m, n, k, bias=True, offset=0, seed=9):
+    """x from N(0, 1), W and b as ``nn.Linear`` draws them (uniform within
+    1/sqrt(K)); x starts ``offset`` floats into its storage."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn(m * k + offset, generator=gen, device=dev)[offset:]
+    bound = k ** -0.5
+    w = (torch.rand((n, k), generator=gen, device=dev) * 2 - 1) * bound
+    b = ((torch.rand(n, generator=gen, device=dev) * 2 - 1) * bound
+         if bias else None)
+    return x.view(m, k), w, b
+
+
+def _fp64_gap(torch, got, x, w, b):
+    """max|got - x W^T - b| over the max abs of the fp64 product, with the
+    product in fp64 on the card."""
+    want = x.double() @ w.double().t()
+    if b is not None:
+        want += b.double()
+    return ((got.double() - want).abs().max() / want.abs().max()).item()
+
+
+def check_linear(torch, dev, flush, bw, fp32_rate, shapes=LINEAR_SHAPES,
+                 edges=LINEAR_EDGES):
+    """The trunk's product kernel (``ops/eva_linear.py``): at the edge
+    shapes, and at the trunk's four shapes, against the fp64 product within
+    ``LINEAR_TOL`` of its max abs (fp32 ``F.linear``'s gap printed beside
+    it) and bit-equal to itself on a second call; at the trunk's shapes
+    timed with the L2 flushed beside fp32 ``F.linear`` (the plain version,
+    the FMA route on this card) and its bound (three TF32 products of
+    2 M N K flops at the dense TF32 rate, or its bytes; the one-product
+    fp32-FMA bound beside it). Returns one result per trunk shape."""
+    import torch.nn.functional as F
+    from sparsebev_tpu_torch.ops import eva_linear as el
+    bf16_rate = peaks(torch.cuda.get_device_name(dev))[2]
+    log(f"linear: torch.backends.cuda.matmul.fp32_precision = "
+        f"{torch.backends.cuda.matmul.fp32_precision}; kernel shared memory "
+        f"{el.kernel_smem_bytes()} bytes")
+    cases = [(label, shape, bias, offset, None)
+             for label, shape, bias, offset in edges]
+    cases += [(label, shape, True, 0, calls) for label, shape, calls in shapes]
+    results = {}
+    for label, (m, n, k), bias, offset, calls in cases:
+        x, w, b = _linear_operands(torch, dev, m, n, k, bias, offset)
+        got = el.eva_linear(x, w, b)
+        again = el.eva_linear(x, w, b)
+        plain = F.linear(x, w, b)
+        gap = _fp64_gap(torch, got, x, w, b)
+        plain_gap = _fp64_gap(torch, plain, x, w, b)
+        same = _bit_equal(torch, got, again)
+        route = el.load_route(x, w)
+        log(f"linear [{label}] M={m} N={n} K={k} "
+            f"{'bias' if bias else 'no bias'}, {route}: max|kernel - fp64| "
+            f"= {gap:.3g} of the scale (tolerance {el.LINEAR_TOL:g}), fp32 "
+            f"F.linear {plain_gap:.3g}; bit-equal on a second call: {same}")
+        if not (gap <= el.LINEAR_TOL and same):
+            fail(f"the product kernel misses its fp64 product ({label})")
+        del got, again, plain
+        if calls is None:
+            continue
+        ms = time_ms(torch, lambda: el.eva_linear(x, w, b), 20, flush)
+        plain_ms = time_ms(torch, lambda: F.linear(x, w, b), 20, flush)
+        flops = 2 * m * n * k
+        nbytes = 4 * (m * k + n * k + m * n + n)
+        bound_ms = max(3 * flops / (bf16_rate / 2), nbytes / bw) * 1e3
+        fma_ms = max(flops / fp32_rate, nbytes / bw) * 1e3
+        log(f"linear [{label}]: {ms:.4f} ms (plain F.linear {plain_ms:.4f} "
+            f"ms), bound {bound_ms:.4f} ms by operations (3xTF32: 3 x "
+            f"{flops / 1e12:.3f} TFLOP at the dense TF32 rate; "
+            f"{nbytes / 1e6:.1f} MB): {100 * bound_ms / ms:.1f}% of the "
+            f"bound, {3 * flops / ms / 1e9:.1f} TFLOP/s of TF32 products; "
+            f"the fp32-FMA bound {fma_ms:.4f} ms; {calls} calls a frame: "
+            f"{calls * ms:.2f} ms against {calls * plain_ms:.2f}")
+        results[label] = dict(max_abs_err=gap, plain_gap=plain_gap, ms=ms,
+                              plain_ms=plain_ms, bound_ms=bound_ms,
+                              bound_by="operations", library_ms=None,
+                              bound_route="3xTF32", fp32_fma_bound_ms=fma_ms,
+                              route=route, calls_a_frame=calls)
+        del x, w, b
+        torch.cuda.empty_cache()
+    return results
+
+
+def bringup_linear(gate=True):
+    """The trunk's product kernel alone: build it, print what ptxas reports
+    (failing on spills) and its SASS's tensor-core opcodes, run
+    ``check_linear``, then (``gate``) the EVA02 trunk gates in bf16 (held)
+    and fp32 (printed) (``python3 -c "import chip_smoke;
+    chip_smoke.bringup_linear()"``)."""
+    import torch
+    sys.path.insert(0, HERE)
+    from sparsebev_tpu_torch.kernels import build
+    dev = torch.device("cuda", 0)
+    log(nvidia_smi_line())
+    logs = build.build_all(["eva_linear"] + (["eva_attention"] if gate
+                                             else []))
+    linear_ptxas(logs["eva_linear"], build.library_path("eva_linear"))
+    bw, fp32_rate, _ = peaks(torch.cuda.get_device_name(0))
+    flush = torch.empty(64 * 2**20, dtype=torch.int32, device=dev)
+    check_linear(torch, dev, flush, bw, fp32_rate)
+    del flush
+    torch.cuda.empty_cache()
+    if gate:
+        path = next(p for p in PATHS if p["name"] == "eva02")
+        eva02_trunk_gate(torch, dev, path)                  # held
+        eva02_trunk_gate(torch, dev, path, "float32")       # printed
+
 # ------------------------------------------------------------- phase 4 --
 
 def make_cameras(rng, image_h, image_w, n=6):
@@ -1442,10 +1603,12 @@ def breakdown(torch, det, samples, frame_label):
 
 @contextlib.contextmanager
 def plain_versions():
-    """Route the CUDA branch of the pack, sampling, one-hot and attention
-    wrappers (forward and backward) to their plain PyTorch versions (on the
-    card) for the duration."""
-    from sparsebev_tpu_torch.ops import (eva_attention, msmv_onehot, msmv_pack,
+    """Route the CUDA branch of the pack, sampling, one-hot, attention
+    (forward and backward) and trunk product wrappers to their plain
+    PyTorch versions (on the card) for the duration."""
+    import torch.nn.functional as F
+    from sparsebev_tpu_torch.ops import (eva_attention, eva_linear,
+                                         msmv_onehot, msmv_pack,
                                          msmv_sampling)
     def attention(q, k, v, with_lse=False):
         out = eva_attention.eva_attention_plain(q, k, v)
@@ -1454,6 +1617,7 @@ def plain_versions():
 
     routes = (
         (eva_attention, "_eva_attention_cuda", attention),
+        (eva_linear, "_eva_linear_cuda", F.linear),
         (eva_attention, "_eva_attention_backward_cuda",
          eva_attention.eva_attention_backward_plain),
         (msmv_pack, "_pack_level_cuda", msmv_pack.pack_level_plain),
@@ -1544,8 +1708,9 @@ def streaming_phase(torch, dev, path):
     from sparsebev_tpu_torch.config import Config
     from sparsebev_tpu_torch.inference import StreamingDetector
     from sparsebev_tpu_torch.models.detector import build_detector
-    from sparsebev_tpu_torch.ops import (eva_attention, msmv_pack,
-                                         msmv_sampling, projection)
+    from sparsebev_tpu_torch.ops import (eva_attention, eva_linear,
+                                         msmv_pack, msmv_sampling,
+                                         projection)
 
     config = os.path.join(HERE, path["config"])
     if not os.path.isfile(config):
@@ -1576,7 +1741,8 @@ def streaming_phase(torch, dev, path):
     counters = dict(pack=msmv_pack.pack_level,
                     pack_pair=msmv_pack.pack_level_pair,
                     sampling=msmv_sampling.msmv_sampling,
-                    attention=eva_attention.eva_attention)
+                    attention=eva_attention.eva_attention,
+                    linear=eva_linear.eva_linear)
     det = StreamingDetector(model, num_frames=t, device=dev)
     torch.cuda.reset_peak_memory_stats(dev)
     with torch.inference_mode():
@@ -3233,6 +3399,7 @@ def training_phase(torch, dev, flush, bw, fp32_rate, path=None,
     its entries. Returns the launch counts of the steps, the sampling
     backward's numbers on the recorded layer and the step's figures."""
     from sparsebev_tpu_torch.ops import eva_attention as ea
+    from sparsebev_tpu_torch.ops import eva_linear as el
     from sparsebev_tpu_torch.ops import msmv_pack
     from sparsebev_tpu_torch.ops import msmv_sampling as ms
 
@@ -3279,8 +3446,11 @@ def training_phase(torch, dev, flush, bw, fp32_rate, path=None,
         want.update(pack_pair=n_pair, pack_pair_bwd=n_pair)
     if eva:
         counters.update(attention=ea.eva_attention,
-                        attention_bwd=ea.eva_attention_backward)
-        want.update(attention=3 * bb["depth"], attention_bwd=bb["depth"])
+                        attention_bwd=ea.eva_attention_backward,
+                        linear=el.eva_linear)
+        # seven products a block call
+        want.update(attention=3 * bb["depth"], attention_bwd=bb["depth"],
+                    linear=21 * bb["depth"])
     held = torch.cuda.memory_allocated(dev)
     state = new_state()
     n_params = sum(p.numel() for p in state.model.parameters())
@@ -3461,6 +3631,7 @@ def eva02_trunk_gate(torch, dev, path, compute_dtype=None):
     from sparsebev_tpu_torch.models import layers
     from sparsebev_tpu_torch.models.detector import build_detector
     from sparsebev_tpu_torch.ops import eva_attention as ea
+    from sparsebev_tpu_torch.ops import eva_linear as el
     from sparsebev_tpu_torch.utils.device import fp32_precision
 
     cfg = Config.fromfile(os.path.join(HERE, path["config"]))
@@ -3496,12 +3667,14 @@ def eva02_trunk_gate(torch, dev, path, compute_dtype=None):
         return grads, [o.detach() for o in outs]
 
     t0 = time.perf_counter()
-    launches = ea.eva_attention.launches, ea.eva_attention_backward.launches
+    launches = (ea.eva_attention.launches, ea.eva_attention_backward.launches,
+                el.eva_linear.launches)
     kernel_grads, kernel_outs = run()
     torch.cuda.synchronize()
     k_s = time.perf_counter() - t0
     launches = (ea.eva_attention.launches - launches[0],
-                ea.eva_attention_backward.launches - launches[1])
+                ea.eva_attention_backward.launches - launches[1],
+                el.eva_linear.launches - launches[2])
     t0 = time.perf_counter()
     with plain_versions():
         plain_grads, plain_outs = run()
@@ -3512,7 +3685,8 @@ def eva02_trunk_gate(torch, dev, path, compute_dtype=None):
     gaps = [((a - b).abs().max() / b.abs().max()).item()
             for a, b in zip(kernel_outs, plain_outs)]
     log(f"{label}: {k_s:.1f} s with the kernels ({launches[0]} attention "
-        f"forward, {launches[1]} backward launches), {p_s:.1f} s with the "
+        f"forward, {launches[1]} backward, {launches[2]} product launches), "
+        f"{p_s:.1f} s with the "
         f"plain versions; pyramid outputs, max|kernel - plain| / scale: "
         + ", ".join(f"{g:.3g}" for g in gaps))
     worst, groups = 0.0, {}
@@ -5715,6 +5889,10 @@ KERNELS = dict(
     attention_bwd=dict(name="eva_attention_backward", route="cuda",
                        source="sparsebev_tpu_torch/csrc/eva_attention.cu",
                        replaces="sparsebev_tpu/models/eva02.py:175"),
+    # the trunk's Linear layers (XLA dots; no Pallas kernel)
+    linear=dict(name="eva_linear", route="cuda",
+                source="sparsebev_tpu_torch/csrc/eva_linear.cu",
+                replaces="sparsebev_tpu/models/eva02.py:144"),
     tap_fold=dict(name="tap_fold_epilogue", route="cuda",
                   source="sparsebev_tpu_torch/csrc/tap_fold.cu",
                   replaces="sparsebev_tpu/ops/msmv_epilogue_pallas.py:73"),
@@ -5808,7 +5986,7 @@ def main() -> int:
     t0 = time.perf_counter()
     sources = ["msmv_pack", "msmv_pack_pair", "msmv_sample",
                "msmv_sample_bwd", "msmv_onehot", "mixing", "tap_fold",
-               "eva_attention"]
+               "eva_attention", "eva_linear"]
     try:
         logs = build.build_all(sources)
     except RuntimeError as e:
@@ -5819,6 +5997,9 @@ def main() -> int:
     for src, text in logs.items():
         if src == "eva_attention":
             attention_ptxas(text)
+            continue
+        if src == "eva_linear":
+            linear_ptxas(text, build.library_path("eva_linear"))
             continue
         if src in PTXAS_REPORTS:
             for r in ptxas_report(text):
@@ -5850,6 +6031,7 @@ def main() -> int:
         measured[key][label] = res
     measured["sampling_split"].update(check_sampling_split(
         torch, dev, flush, bw, fp32_rate))
+    measured["linear"].update(check_linear(torch, dev, flush, bw, fp32_rate))
     del flush
     torch.cuda.empty_cache()
     check_fp32_conv(torch, dev)

@@ -27,8 +27,9 @@ input against the fp32 parameters, so
   in fp32; its outputs are fp32 (the detector casts them).
 
 The attention goes through ``ops/eva_attention.py`` (a kernel on the card).
-The projections and SwiGLU matrices are plain fp32 ``F.linear`` products,
-as JAX leaves them to XLA; torch's default keeps fp32 matmuls out of TF32.
+The projections and SwiGLU matrices go through ``ops/eva_linear.py``: fp32
+products, as JAX leaves them to XLA; ``F.linear`` on the CPU, a 3xTF32
+tensor-core kernel on the card (fp32-level accuracy, not TF32's).
 Window padding is zeros after ``norm1``, and the padded tokens take part in
 the attention unmasked (k = 0, q = the rotated q bias, v = the v bias), as
 in JAX.
@@ -56,6 +57,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.eva_attention import eva_attention
+from ..ops.eva_linear import eva_linear
 from ..utils import tracing
 from .layers import DropPath, checkpoint_with_generator
 
@@ -239,6 +241,10 @@ class MaxPool2x2(nn.Module):
 # blocks
 # ---------------------------------------------------------------------------
 
+def _linear(layer: nn.Linear, x: torch.Tensor) -> torch.Tensor:
+    return eva_linear(x, layer.weight, layer.bias)
+
+
 class SwiGLU(nn.Module):
     """``w3(ffn_ln(silu(w1 x) * w2 x))``."""
 
@@ -250,7 +256,8 @@ class SwiGLU(nn.Module):
         self.w3 = nn.Linear(hidden, dim)
 
     def forward(self, x):
-        return self.w3(self.ffn_ln(F.silu(self.w1(x)) * self.w2(x)))
+        h = F.silu(_linear(self.w1, x)) * _linear(self.w2, x)
+        return _linear(self.w3, self.ffn_ln(h))
 
 
 class EvaAttention(nn.Module):
@@ -273,16 +280,16 @@ class EvaAttention(nn.Module):
         b, h, w, c = x.shape
         n, heads = h * w, self.num_heads
         x = x.reshape(b, n, c)
-        q = F.linear(x, self.q_proj.weight, self.q_bias)
-        k = F.linear(x, self.k_proj.weight)
-        v = F.linear(x, self.v_proj.weight, self.v_bias)
+        q = eva_linear(x, self.q_proj.weight, self.q_bias)
+        k = eva_linear(x, self.k_proj.weight)
+        v = eva_linear(x, self.v_proj.weight, self.v_bias)
         q = q.reshape(b, n, heads, c // heads)
         k = k.reshape(b, n, heads, c // heads)
         v = v.reshape(b, n, heads, c // heads)
         q = apply_rope(q, rope_cos, rope_sin).to(v.dtype)
         k = apply_rope(k, rope_cos, rope_sin).to(v.dtype)
         out = eva_attention(q, k, v, real_tokens=real_tokens)
-        return self.proj(out.reshape(b, n, c)).reshape(b, h, w, c)
+        return _linear(self.proj, out.reshape(b, n, c)).reshape(b, h, w, c)
 
 
 class ResBottleneckBlock(nn.Module):

@@ -61,8 +61,8 @@ def test_port_modules_import_without_jax():
                 "evaluation.loop", "tools", "tools.train", "tools.val",
                 "tools.fp8_drift"):
         assert f"sparsebev_tpu_torch.{mod}" in mods
-    # the EVA02 backbone and its attention op
-    for mod in ("models.eva02", "ops.eva_attention"):
+    # the EVA02 backbone, its attention op and its product op
+    for mod in ("models.eva02", "ops.eva_attention", "ops.eva_linear"):
         assert f"sparsebev_tpu_torch.{mod}" in mods
     # data and query parallelism
     for mod in ("parallel", "parallel.mesh", "parallel.query_parallel"):
@@ -143,7 +143,7 @@ def test_chip_smoke_fails_alone(tmp_path):
 @pytest.mark.parametrize("src", ["msmv_pack", "msmv_pack_pair",
                                  "msmv_sample", "msmv_sample_bwd",
                                  "msmv_onehot", "mixing", "tap_fold",
-                                 "eva_attention"])
+                                 "eva_attention", "eva_linear"])
 def test_cuda_sources_declare_their_tpu_kernel_and_bound(src):
     """Each kernel source notes the TPU function it replaces, its bound and
     its design, and exports the C entry its wrapper binds."""
@@ -160,6 +160,15 @@ def test_cuda_sources_declare_their_tpu_kernel_and_bound(src):
         # both products on the tensor cores in TF32, K / V by cp.async
         assert "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32" in text
         assert "cp.async.cg.shared.global" in text
+    elif src == "eva_linear":
+        # the XLA dots of the JAX trunk's Linear layers, not a Pallas kernel
+        assert "Replaces: no Pallas kernel" in text
+        assert "sparsebev_tpu/models/eva02.py:144-148" in text
+        assert "int eva_linear_forward(" in text
+        assert text.count("__global__") == 1
+        # TF32 wgmma fed by TMA, or by cp.async pieces where TMA cannot go
+        assert "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32" in text
+        assert "cp.async.bulk.tensor" in text and "cp.async.ca" in text
     else:
         assert "Replaces: sparsebev_tpu/ops/" in text
     assert "Bound:" in text and "Design:" in text
@@ -181,7 +190,7 @@ def test_cuda_sources_declare_their_tpu_kernel_and_bound(src):
         assert text.count("__global__") == 2
         assert "_bwd (:" in text            # the JAX adjoint it replaces
     if src in ("msmv_sample", "msmv_sample_bwd", "msmv_onehot", "mixing",
-               "eva_attention"):
+               "eva_attention", "eva_linear"):
         # the kernels redesigned for the H100 stay hand-written: no library
         # GEMM takes their place
         assert "cublas" not in text.lower()
@@ -195,7 +204,7 @@ def test_every_cuda_source_is_covered_and_built_by_the_smoke_run():
                      if f.endswith(".cu"))
     assert sources == sorted(["msmv_pack", "msmv_pack_pair", "msmv_sample",
                               "msmv_sample_bwd", "msmv_onehot", "mixing",
-                              "tap_fold", "eva_attention"])
+                              "tap_fold", "eva_attention", "eva_linear"])
     with open(os.path.join(REPO, "chip_smoke.py")) as fh:
         smoke = fh.read()
     for src in sources:

@@ -198,6 +198,8 @@ def test_mixing_route_info_refuses_the_fma_route():
      "mixing_kernel<__nv_bfloat16, true>"),
     ("_ZN41_INTERNAL_2c8b1e9e_17eva_attention_cu_5a1b2c3d25eva_attention_"
      "dkdv_kernelEv", "eva_attention_dkdv_kernel"),
+    ("_ZN46_GLOBAL__N__aa6f53c7_13_eva_linear_cu_35beecfc17eva_linear_kernel"
+     "ILi1EEEv14CUtensorMap_stS1_PKfS3_S3_Pfiii", "eva_linear_kernel<1>"),
 ])
 def test_ptxas_report_names_each_kernel(mangled, name):
     """chip_smoke.py's ptxas report names each instantiation as the routes'
